@@ -1,0 +1,419 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc``, holds each kernel against its plain PyTorch version, drives the
+paper's screened path (``repro_torch.core.path.svm_path``) at full width
+(m = 50,000 features x n = 10,000 samples, fp32, 8 lambdas, lam_min_ratio
+0.1) through the kernels, and checks the result: finite objectives that
+match a float64 recomputation, agreement with the plain (CPU) path on the
+2000 x 400 bench instance, and screening safety against the unscreened
+path on the first 4 lambdas. Every phase prints one JSON line; any failed
+check raises and the script exits non-zero. The last lines are the
+``{"kernels": [...]}`` record (times on this card, bounds, launch counts)
+and ``{"ok": true, "device": {...}}``.
+
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits non-zero before printing any result.
+
+TF32 is off for every float32 matmul and convolution: the certificate
+(``core/dual.py``) and the Lipschitz estimate use ``torch.mv``, and TF32
+there would loosen delta.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+EPS32 = float(np.finfo(np.float32).eps)
+FULL = dict(m=50_000, n=10_000, density=1.0, seed=0)
+N_LAMBDAS, LAM_MIN_RATIO, SAFETY_STEPS = 8, 0.1, 4
+RAGGED = [(64, 64), (128, 256), (300, 200), (513, 130)]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def timed_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def tolerance(k: int, scale: float) -> float:
+    """Kernel vs plain version: the same fp32 sums of k terms taken in two
+    orders; each carries rounding error ~eps * sqrt(k) of the output's
+    scale. 4x headroom, floored at 1e-5 relative."""
+    return max(1e-5, 4 * EPS32 * math.sqrt(k)) * max(1.0, scale)
+
+
+class Kernels:
+    """Runs each kernel against its plain version and keeps the worst error."""
+
+    def __init__(self, hinge, screen, shared_scalars):
+        self.hinge, self.screen, self.shared_scalars = hinge, screen, shared_scalars
+        self.max_err = {"margin_obj": 0.0, "hinge_grad": 0.0, "screen_bounds": 0.0}
+
+    def _check(self, name, got, want, k, where):
+        err = float((got.float() - want.float()).abs().max())
+        tol = tolerance(k, float(want.float().abs().max()))
+        self.max_err[name] = max(self.max_err[name], err)
+        require(err <= tol, f"{name} {where}: max_abs_err {err:.3e} > tol {tol:.3e}")
+        return {"max_abs_err": err, "tol": tol}
+
+    def margin(self, X, w, y, b, vm, where):
+        h = self.hinge
+        got = h.margin_obj_op(X, w, y, b, vm)
+        want = h.margin_obj_plain(X, w, y, b, vm)
+        torch.cuda.synchronize()
+        # u sums vm terms; xi inherits u's error; the loss sums n terms
+        k = vm + X.shape[1]
+        return {part: self._check("margin_obj", g, p, k, f"{where} {part}")
+                for part, g, p in zip(("u", "xi", "loss"), got, want)}
+
+    def grad(self, X, y, xi, vm, where):
+        got = self.hinge.hinge_grad_op(X, y, xi, vm)
+        want = self.hinge.hinge_grad_plain(X, y, xi, vm)
+        torch.cuda.synchronize()
+        return self._check("hinge_grad", got, want, X.shape[1], where)
+
+    def bounds(self, X, y, theta, sh, where):
+        got = self.screen.screen_bounds_from_shared(X, y, theta, sh)
+        want = self.screen.screen_bounds_plain(X, y, theta, sh)
+        torch.cuda.synchronize()
+        return self._check("screen_bounds", got, want, X.shape[1], where)
+
+
+def phase_device() -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line, flush=True)
+    info = {"phase": "device", "name": name, "nvidia_smi": smi_line,
+            "count": torch.cuda.device_count(), "torch": torch.__version__,
+            "cuda": torch.version.cuda, "allow_tf32": False}
+    emit(info)
+    return info
+
+
+def phase_build(build) -> None:
+    t0 = time.perf_counter()
+    build.library()
+    secs = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in build.build_log().splitlines()
+             if "registers" in ln or "spill" in ln or ln.startswith("==")]
+    emit({"phase": "build", "seconds": secs, "library": build.library_path().name,
+          "ptxas": ptxas})
+
+
+def phase_kernels_ragged(K, gen) -> None:
+    """Every kernel at the ragged test shapes, fp32 and bf16, valid_m < m."""
+    for m, n in RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            X = torch.randn(m, n, generator=gen).to("cuda", dtype)
+            w = torch.randn(m, generator=gen).cuda()
+            y = torch.where(torch.rand(n, generator=gen) < 0.6, 1.0, -1.0).cuda()
+            xi = torch.rand(n, generator=gen).cuda()
+            b = torch.tensor(0.2, device="cuda")
+            res = {}
+            for vm in (1, 37, m):
+                res[f"margin_vm{vm}"] = K.margin(X, w, y, b, vm, f"{m}x{n} {dtype} vm={vm}")
+                res[f"grad_vm{vm}"] = K.grad(X, y, xi, vm, f"{m}x{n} {dtype} vm={vm}")
+            theta = (torch.rand(n, generator=gen) / 5.0).cuda()
+            sh = K.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
+            res["screen"] = K.bounds(X, y, theta, sh, f"{m}x{n} {dtype}")
+            emit({"phase": "kernels_ragged", "shape": [m, n], "dtype": str(dtype),
+                  "checks": res})
+
+
+def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
+    """Every kernel at the full-width shape, fp32 and bf16, with valid_m < m."""
+    m, n = X.shape
+    w = (torch.randn(m, generator=gen) * 0.01).cuda()
+    xi = torch.rand(n, generator=gen).cuda()
+    b = torch.tensor(0.1, device="cuda")
+    lmax = float(lam_max_fn(X, y))
+    theta = theta_fn(y, lmax)
+    sh = K.shared_scalars(y, lmax, 0.5 * lmax, theta, delta=1e-3)
+    for dtype in (torch.float32, torch.bfloat16):
+        Xd = X if dtype == torch.float32 else X.to(dtype)
+        res = {}
+        for vm in (m // 3, m):
+            res[f"margin_vm{vm}"] = K.margin(Xd, w, y, b, vm, f"full {dtype} vm={vm}")
+            res[f"grad_vm{vm}"] = K.grad(Xd, y, xi, vm, f"full {dtype} vm={vm}")
+        res["screen"] = K.bounds(Xd, y, theta, sh, f"full {dtype}")
+        # the stop rule ties on fp32 plateaus: a repeated call must give the
+        # same bits (fixed summation order, no float atomics)
+        vm = m // 3
+        for name, call in (
+                ("margin_obj", lambda: K.hinge.margin_obj_op(Xd, w, y, b, vm)),
+                ("hinge_grad", lambda: (K.hinge.hinge_grad_op(Xd, y, xi, vm),)),
+                ("screen_bounds",
+                 lambda: (K.screen.screen_bounds_from_shared(Xd, y, theta, sh),))):
+            first, again = call(), call()
+            require(all(torch.equal(p, q) for p, q in zip(first, again)),
+                    f"{name} {dtype}: a repeated call gave different bits")
+        res["bitwise_repeat"] = True
+        emit({"phase": "kernels_full", "shape": [m, n], "dtype": str(dtype),
+              "checks": res})
+        del Xd
+
+
+def phase_path(svm_path, ops, X, y) -> tuple:
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svm_path(X, y, n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO,
+                   device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the path was never launched: {launches}")
+    require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
+    require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
+    solve_s = res.extras["solve_times"]
+    per_iter = [float(solve_s[k] / res.solver_iters[k]) if res.solver_iters[k] else None
+                for k in range(len(res.lambdas))]
+    emit({"phase": "path", "shape": [int(X.shape[0]), int(X.shape[1])],
+          "lambdas": res.lambdas.tolist(), "kept": res.kept.tolist(),
+          "active": res.active.tolist(), "iters": res.solver_iters.tolist(),
+          "objectives": res.objectives.tolist(),
+          "wall_s": res.wall_times.tolist(), "screen_s": res.screen_times.tolist(),
+          "solve_s": solve_s.tolist(), "solve_s_per_iter": per_iter,
+          "path_wall_s": total, "launches": launches})
+    return res, launches
+
+
+def phase_objective_check(res, X, y) -> None:
+    """Objectives against a float64 recomputation from the returned (w, b)."""
+    Xd, yd = X.double(), y.double()
+    rel = []
+    for k in range(len(res.lambdas)):
+        w = torch.from_numpy(res.weights[k]).cuda()
+        xi = torch.clamp_min(1.0 - yd * (Xd.t() @ w + res.biases[k]), 0.0)
+        obj = float(0.5 * (xi * xi).sum() + res.lambdas[k] * w.abs().sum())
+        rel.append(abs(obj - res.objectives[k]) / abs(obj))
+    del Xd
+    require(max(rel) <= 1e-4, f"objective vs float64 recomputation: rel {max(rel):.3e}")
+    emit({"phase": "objective_f64", "max_rel": max(rel), "tol": 1e-4})
+
+
+def phase_small_vs_plain(PathDriver, lipschitz_estimate, make) -> None:
+    """The 2000 x 400 bench instance on the card (kernels) and on the CPU
+    (plain versions), with the same L.
+
+    Checked: with the stop rule out of play (``tol=-1``: exactly 300 FISTA
+    iterations per step) both paths reach the fp32 floor, and per-step
+    objectives agree to rel 1e-6 (on the CPU, runs whose L differs by 3e-7
+    agree to 1.5e-7 this way). Reported only: the default-tolerance paths.
+    Their stop rule (three exact fp32 ties) can stall a solve ~1e-5 above
+    the optimum, and any change of rounding moves where it stalls."""
+    ds = make(m=2000, n=400, seed=11)
+    L = float(lipschitz_estimate(torch.from_numpy(ds.X)))
+    grid = dict(n_lambdas=10, lam_min_ratio=0.05)
+    out = {"phase": "bench_card_vs_cpu", "shape": [2000, 400], "tol_fixed_iters": 1e-6}
+    for label, kw in (("default_tol", {}), ("fixed_iters", dict(tol=-1.0, max_iters=300))):
+        gpu = PathDriver(L=L, device="cuda", **kw).run(ds.X, ds.y, **grid)
+        cpu = PathDriver(L=L, device="cpu", **kw).run(ds.X, ds.y, **grid)
+        rel = np.abs(gpu.objectives - cpu.objectives) / np.abs(cpu.objectives)
+        out[label] = {"max_rel_obj": float(rel.max()), "kept_card": gpu.kept.tolist(),
+                      "kept_cpu": cpu.kept.tolist(),
+                      "iters_card": gpu.solver_iters.tolist(),
+                      "iters_cpu": cpu.solver_iters.tolist()}
+    emit(out)
+    rel = out["fixed_iters"]["max_rel_obj"]
+    require(rel <= 1e-6, f"card vs CPU path at 300 iterations per step: rel {rel:.3e}")
+
+
+def phase_safety(svm_path, res, X, y) -> None:
+    """Unscreened path on the first lambdas: every feature it makes nonzero
+    is kept by the screened path at that step. The objective difference is
+    reported, not checked: the two solves stop on fp32 plateaus of their
+    own (see :func:`phase_small_vs_plain`)."""
+    lams = res.lambdas[:SAFETY_STEPS]
+    t0 = time.perf_counter()
+    full = svm_path(X, y, lambdas=lams, screening=False, device="cuda")
+    secs = time.perf_counter() - t0
+    masks = res.extras["keep_masks"]
+    out = []
+    for k in range(1, len(lams)):
+        w = np.abs(full.weights[k])
+        support = w > 1e-6 * w.max() if w.max() > 0 else np.zeros_like(w, bool)
+        missed = int(np.sum(support & ~masks[k]))
+        rel = abs(full.objectives[k] - res.objectives[k]) / abs(full.objectives[k])
+        out.append({"step": k, "support": int(support.sum()), "kept": int(res.kept[k]),
+                    "missed": missed, "rel_obj": float(rel)})
+        require(missed == 0, f"step {k}: {missed} active features were screened out")
+    emit({"phase": "safety", "shape": [int(X.shape[0]), int(X.shape[1])],
+          "steps": out, "unscreened_wall_s": secs,
+          "unscreened_iters": full.solver_iters.tolist()})
+
+
+def _bucket(n: int) -> int:
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+def phase_timing(K, res, launches, X, y, max_err) -> list:
+    """Each kernel, its plain version and the one library call at the shape
+    the path gave it, with the least time the card could take."""
+    hinge, screen = K.hinge, K.screen
+    m, n = X.shape
+    # the hinge kernels: the step whose solve swept the most rows in total
+    k = max(range(1, len(res.lambdas)),
+            key=lambda i: int(res.kept[i]) * int(res.solver_iters[i]))
+    kept = int(res.kept[k])
+    mask = res.extras["keep_masks"][k]
+    pad = m if kept == m else min(_bucket(max(kept, 1)), m)
+    Xr = torch.zeros((pad, n), dtype=X.dtype, device="cuda")
+    Xr[:kept] = X[torch.from_numpy(np.nonzero(mask)[0]).cuda()]
+    wr = torch.zeros(pad, device="cuda")
+    wr[:kept] = torch.from_numpy(res.weights[k][mask]).float().cuda()
+    b = torch.tensor(float(res.biases[k]), device="cuda")
+    _, xi, _ = hinge.margin_obj_plain(Xr, wr, y, b, kept)
+    v = y * xi
+    reps = 50
+    x_bytes = kept * n * 4
+    margin = {
+        "ms": timed_ms(lambda: hinge.margin_obj_op(Xr, wr, y, b, kept), reps),
+        "plain_ms": timed_ms(lambda: hinge.margin_obj_plain(Xr, wr, y, b, kept), reps),
+        "library_ms": timed_ms(lambda: torch.mv(Xr[:kept].t(), wr[:kept]), reps),
+        "bytes": x_bytes + kept * 4 + n * 4 + 4 + 2 * n * 4 + 4,
+        "flops": 2 * kept * n + 5 * n,
+    }
+    grad = {
+        "ms": timed_ms(lambda: hinge.hinge_grad_op(Xr, y, xi, kept), reps),
+        "plain_ms": timed_ms(lambda: hinge.hinge_grad_plain(Xr, y, xi, kept), reps),
+        "library_ms": timed_ms(lambda: torch.mv(Xr[:kept], v), reps),
+        "bytes": x_bytes + 2 * n * 4 + pad * 4,
+        "flops": 2 * kept * n + n,
+    }
+    # the screen: every step sweeps the full X from the previous anchor
+    lam1, lam2 = float(res.lambdas[k - 1]), float(res.lambdas[k])
+    theta = (torch.rand(n, device="cuda") / lam1)
+    sh = K.shared_scalars(y, lam1, lam2, theta, delta=1e-3)
+    scr = {
+        "ms": timed_ms(lambda: screen.screen_bounds_from_shared(X, y, theta, sh), 20),
+        "plain_ms": timed_ms(lambda: screen.screen_bounds_plain(X, y, theta, sh), 20),
+        "library_ms": None,
+        "bytes": m * n * 4 + 2 * n * 4 + 48 + m * 4,
+        "flops": 7 * m * n + n + 60 * m,
+    }
+    rows = []
+    specs = [
+        ("margin_obj", "src/repro/kernels/hinge.py:36 _margin_kernel",
+         "src/repro_torch/kernels/csrc/hinge.cu", margin, [pad, n, kept]),
+        ("hinge_grad", "src/repro/kernels/hinge.py:109 _grad_kernel",
+         "src/repro_torch/kernels/csrc/hinge.cu", grad, [pad, n, kept]),
+        ("screen_bounds", "src/repro/kernels/screen.py:142 _feature_kernel",
+         "src/repro_torch/kernels/csrc/screen.cu", scr, [m, n, m]),
+    ]
+    for name, replaces, source, t, shape in specs:
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = t["flops"] / FP32_FLOPS * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": int(launches[name]), "max_abs_err": max_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": t["library_ms"],
+            "shape_rows_cols_valid": shape, "path_step": k,
+        })
+    emit({"phase": "timing", "step": k, "kept": kept, "bucket": pad,
+          "rows": [{key: r[key] for key in ("name", "ms", "plain_ms", "library_ms",
+                                             "bound_ms")} for r in rows]})
+    # the hinge kernels at the full width too (the unscreened solve's shape)
+    w = torch.randn(m, device="cuda") * 0.01
+    _, xi_f, _ = hinge.margin_obj_plain(X, w, y, b)
+    vf = y * xi_f
+    emit({"phase": "timing_full_width", "shape": [m, n],
+          "bound_ms": m * n * 4 / HBM_BYTES_PER_S * 1e3,
+          "margin_ms": timed_ms(lambda: hinge.margin_obj_op(X, w, y, b), 20),
+          "margin_plain_ms": timed_ms(lambda: hinge.margin_obj_plain(X, w, y, b), 20),
+          "margin_library_ms_u_only": timed_ms(lambda: torch.mv(X.t(), w), 20),
+          "grad_ms": timed_ms(lambda: hinge.hinge_grad_op(X, y, xi_f), 20),
+          "grad_plain_ms": timed_ms(lambda: hinge.hinge_grad_plain(X, y, xi_f), 20),
+          "grad_library_ms": timed_ms(lambda: torch.mv(X, vf), 20)})
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.dual import lambda_max, theta_at_lambda_max
+    from repro_torch.core.path import PathDriver, svm_path
+    from repro_torch.core.solver import lipschitz_estimate
+    from repro_torch.core.screening import shared_scalars
+    from repro_torch.data import make_sparse_classification
+    from repro_torch.kernels import build, hinge, ops, screen
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = phase_device()
+    phase_build(build)
+    gen = torch.Generator().manual_seed(1234)
+    K = Kernels(hinge, screen, shared_scalars)
+    phase_kernels_ragged(K, gen)
+
+    t0 = time.perf_counter()
+    ds = make_sparse_classification(**FULL)
+    X = torch.from_numpy(ds.X).cuda()
+    y = torch.from_numpy(ds.y).cuda()
+    del ds
+    emit({"phase": "data", "shape": list(X.shape), "dtype": str(X.dtype),
+          "gbytes": X.numel() * 4 / 1e9, "seconds": time.perf_counter() - t0})
+
+    phase_kernels_full(K, X, y, gen, lambda_max, theta_at_lambda_max)
+    res, launches = phase_path(svm_path, ops, X, y)
+    phase_objective_check(res, X, y)
+    phase_small_vs_plain(PathDriver, lipschitz_estimate, make_sparse_classification)
+    phase_safety(svm_path, res, X, y)
+    rows = phase_timing(K, res, launches, X, y, K.max_err)
+
+    print(json.dumps({
+        "kernels": rows,
+        "not_ported": [{"replaces": "src/repro/kernels/screen.py:165 _sample_kernel",
+                        "status": "not yet ported (sample-rule slice)"}],
+    }), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
+                                             "count": info["count"]}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""Carry the reference package's state across to the port, and back.
+
+:func:`state_from_numpy` turns the reference's arrays, as numpy, into the
+port's tensors with checked dtypes and shapes, so both packages can be fed
+one anchor and one Lipschitz bound. :func:`path_arrays` is the numpy view
+of a :class:`~repro_torch.core.path.PathResult` (or of the reference's,
+which has the same per-step fields).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["STATE_NDIM", "state_from_numpy", "path_arrays", "PATH_FIELDS"]
+
+#: the state the port takes from the reference, by name: its rank
+STATE_NDIM = {"X": 2, "y": 1, "w": 1, "b": 0, "theta": 1, "delta": 0, "L": 0,
+              "lambdas": 1}
+
+#: the per-step arrays both packages' PathResult carry
+PATH_FIELDS = ("lambdas", "weights", "biases", "objectives", "kept", "active",
+               "solver_iters")
+
+
+def state_from_numpy(arrays: dict, device) -> dict[str, torch.Tensor]:
+    """Tensors on ``device`` from a dict of numpy arrays (any subset of
+    :data:`STATE_NDIM`). ``lambdas`` is float64 (the reference validates its
+    grid in float64); everything else is float32, as the reference's fp32
+    state. Shapes must agree: X (m, n), y and theta (n,), w (m,), lambdas a
+    strictly positive vector. Raises ``ValueError``/``TypeError`` otherwise.
+    """
+    unknown = set(arrays) - set(STATE_NDIM)
+    if unknown:
+        raise ValueError(f"unknown state keys {sorted(unknown)}; "
+                         f"expected a subset of {sorted(STATE_NDIM)}")
+    out = {}
+    for name, value in arrays.items():
+        a = np.asarray(value)
+        want = np.float64 if name == "lambdas" else np.float32
+        if a.dtype != want:
+            raise TypeError(f"{name} must be {np.dtype(want).name}, got {a.dtype}")
+        if a.ndim != STATE_NDIM[name]:
+            raise ValueError(f"{name} must have rank {STATE_NDIM[name]}, got "
+                             f"shape {a.shape}")
+        out[name] = torch.tensor(a, device=device)  # a copy: a may be read-only
+    m, n = out["X"].shape if "X" in out else (None, None)
+    sizes = {"y": n, "theta": n, "w": m}
+    for name, size in sizes.items():
+        if name in out and size is not None and out[name].shape[0] != size:
+            raise ValueError(f"{name} has length {out[name].shape[0]}, X is "
+                             f"({m}, {n})")
+    if "lambdas" in out and not bool(torch.all(out["lambdas"] > 0)):
+        raise ValueError("lambdas must be positive")
+    return out
+
+
+def path_arrays(result) -> dict[str, np.ndarray]:
+    """Numpy copies of a PathResult's per-step arrays (:data:`PATH_FIELDS`)."""
+    return {name: np.asarray(getattr(result, name)) for name in PATH_FIELDS}

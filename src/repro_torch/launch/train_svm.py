@@ -1,0 +1,62 @@
+"""Single-device sparse-SVM path trainer (the paper's workload) — PyTorch.
+
+Port of the reference launcher's host lane: it builds a seeded synthetic
+problem, runs the screened regularization path (``core/path.py``
+``svm_path``) on ``--device`` (default the GPU) and prints one line per
+lambda step: kept features, active features, objective, FISTA iterations
+and wall time. No mesh, checkpoint or serve mode.
+
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --m 2000 --n 400 --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..core.path import svm_path
+from ..data import make_sparse_classification
+from ..device import resolve_device
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--m", type=int, default=2000, help="features")
+    ap.add_argument("--n", type=int, default=400, help="samples")
+    ap.add_argument("--density", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-lambdas", type=int, default=8)
+    ap.add_argument("--lam-min-ratio", type=float, default=0.1)
+    ap.add_argument("--rules", choices=("feature_vi", "none"),
+                    default="feature_vi")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    ds = make_sparse_classification(m=args.m, n=args.n, density=args.density,
+                                    seed=args.seed)
+    t0 = time.perf_counter()
+    res = svm_path(ds.X, ds.y, n_lambdas=args.n_lambdas,
+                   lam_min_ratio=args.lam_min_ratio,
+                   rules=[] if args.rules == "none" else args.rules,
+                   device=device)
+    total = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"device={name} m={args.m} n={args.n} rules={args.rules} "
+          f"lam_max={res.extras['lam_max']:.6g}")
+    for k in range(len(res.lambdas)):
+        print(f"step {k:2d} lam={res.lambdas[k]:.6g} kept={res.kept[k]} "
+              f"active={res.active[k]} obj={res.objectives[k]:.8g} "
+              f"iters={res.solver_iters[k]} wall={res.wall_times[k]:.4f}s")
+    print(f"path wall {total:.3f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

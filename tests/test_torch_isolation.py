@@ -1,0 +1,86 @@
+"""The port stands alone: no JAX, no reference module, no silent CPU fallback."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in mods:
+    # each module as the first one of the package imported: an import
+    # cycle shows only for some entry points
+    for k in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
+        del sys.modules[k]
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+if bad:
+    sys.exit(f"loaded {bad}")
+print(len(mods))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[-1]) >= 15  # every submodule was imported
+
+
+def test_cuda_request_raises_without_gpu(monkeypatch):
+    from repro_torch.core.path import PathDriver, svm_path
+    from repro_torch.data import make_sparse_classification
+    from repro_torch.launch.train_svm import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_sparse_classification(m=20, n=10, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        svm_path(ds.X, ds.y, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        svm_path(ds.X, ds.y)  # the default device is the GPU
+    with pytest.raises(RuntimeError, match="cuda"):
+        PathDriver()
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--m", "20", "--n", "10"])
+
+
+def test_unknown_rule_and_engine_fail_early():
+    from repro_torch.core.path import svm_path
+    from repro_torch.core.rules import make_rules
+
+    with pytest.raises(ValueError, match="feature_vi"):
+        make_rules("sample_vi")
+    with pytest.raises(ValueError, match="host"):
+        svm_path([[1.0]], [1.0], engine="scan", device="cpu")
+
+
+def test_state_from_numpy_checks_dtypes_and_shapes():
+    import numpy as np
+
+    from repro_torch.convert import state_from_numpy
+
+    X = np.zeros((4, 3), np.float32)
+    ok = state_from_numpy({"X": X, "y": np.ones(3, np.float32),
+                           "w": np.zeros(4, np.float32), "b": np.float32(0.5),
+                           "L": np.float32(2.0),
+                           "lambdas": np.array([2.0, 1.0])}, "cpu")
+    assert ok["X"].shape == (4, 3) and ok["b"].dim() == 0
+    assert ok["lambdas"].dtype == torch.float64
+    with pytest.raises(TypeError):
+        state_from_numpy({"X": X.astype(np.float64)}, "cpu")
+    with pytest.raises(ValueError, match="length"):
+        state_from_numpy({"X": X, "w": np.zeros(3, np.float32)}, "cpu")
+    with pytest.raises(ValueError, match="rank"):
+        state_from_numpy({"theta": X}, "cpu")
+    with pytest.raises(ValueError, match="unknown"):
+        state_from_numpy({"Z": X}, "cpu")

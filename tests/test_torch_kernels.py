@@ -1,0 +1,151 @@
+"""Each kernel's plain version against the reference's Pallas kernel, and
+(on a GPU only) each CUDA kernel against its plain version.
+
+The reference kernels run as ``tests/test_kernels.py`` runs them on the
+CPU: ``interpret=True``. Inputs are identical bits in both packages (bf16
+X is rounded once, in torch, and handed over exactly). Both sides
+accumulate in fp32 in different orders; tolerance rtol 1e-5 with an
+absolute floor of 1e-5 of the output's scale, for fp32 and bf16 X alike
+(the bf16 values are the same, only the fp32 sums differ). Rows past
+``valid_m`` are zero in X and w, as the compaction contract requires.
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import state_from_numpy
+from repro_torch.core.dual import lambda_max, theta_at_lambda_max
+from repro_torch.core.screening import shared_scalars
+from repro_torch.data import make_sparse_classification
+from repro_torch.kernels import hinge, screen
+
+SHAPES = [(64, 64), (128, 256), (300, 200), (513, 130)]
+DTYPES = [torch.float32, torch.bfloat16]
+TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference kernels (JAX). Imported here, not at module level, so
+    the card-only test below collects on a machine without JAX."""
+    import jax.numpy as jnp
+    from repro.kernels import ops
+
+    return SimpleNamespace(jnp=jnp, ops=ops)
+
+
+def _inputs(m, n, dtype, valid_m, seed):
+    ds = make_sparse_classification(m=m, n=n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    X = torch.from_numpy(ds.X).to(dtype)
+    X[valid_m:] = 0
+    w = rng.standard_normal(m).astype(np.float32)
+    w[valid_m:] = 0
+    xi = rng.random(n).astype(np.float32)
+    st = state_from_numpy({"w": w, "y": ds.y}, "cpu")
+    return X, st["w"], st["y"], torch.from_numpy(xi)
+
+
+def _to_jax(ref, X):
+    return ref.jnp.asarray(X.float().numpy()).astype(
+        ref.jnp.bfloat16 if X.dtype == torch.bfloat16 else ref.jnp.float32)
+
+
+def _close(port, reference):
+    reference = np.asarray(reference, np.float64)
+    np.testing.assert_allclose(np.asarray(port, np.float64), reference,
+                               rtol=TOL,
+                               atol=TOL * max(1.0, float(np.abs(reference).max())))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_margin_obj_plain_matches_pallas(ref, shape, dtype):
+    m, n = shape
+    for valid_m in (1, 37, m):
+        X, w, y, _ = _inputs(m, n, dtype, valid_m, seed=3)
+        b = -0.31
+        u, xi, loss = hinge.margin_obj_plain(X, w, y, torch.tensor(b), valid_m)
+        u_r, xi_r, loss_r = ref.ops.margin_obj_op(
+            _to_jax(ref, X), ref.jnp.asarray(w.numpy()),
+            ref.jnp.asarray(y.numpy()), b, block_m=64, block_n=128,
+            interpret=True, valid_m=ref.jnp.int32(valid_m))
+        _close(u, u_r)
+        _close(xi, xi_r)
+        _close(float(loss), float(loss_r))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_hinge_grad_plain_matches_pallas(ref, shape, dtype):
+    m, n = shape
+    for valid_m in (1, 37, m):
+        X, _, y, xi = _inputs(m, n, dtype, valid_m, seed=4)
+        g = hinge.hinge_grad_plain(X, y, xi, valid_m)
+        g_r = ref.ops.hinge_grad_op(
+            _to_jax(ref, X), ref.jnp.asarray(y.numpy()),
+            ref.jnp.asarray(xi.numpy()), block_m=64, block_n=128,
+            interpret=True, valid_m=ref.jnp.int32(valid_m))
+        _close(g, g_r)
+        assert bool((g[valid_m:] == 0).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("delta", [0.0, 0.05])
+def test_screen_plain_matches_pallas(ref, shape, dtype, delta):
+    """Balanced classes at lambda_max (the Pallas finalizer and ``_t_max``
+    agree there; the unbalanced case is held against ``_t_max`` in
+    test_torch_screening.py)."""
+    m, n = shape
+    X, _, y, _ = _inputs(m, n, dtype, m, seed=5)
+    lmax = float(lambda_max(X.float(), y))
+    theta = theta_at_lambda_max(y, lmax)
+    out = screen.screen_bounds_op(X, y, lmax, 0.5 * lmax, theta, delta=delta)
+    out_r = ref.ops.screen_bounds_op(
+        _to_jax(ref, X), ref.jnp.asarray(y.numpy()), lmax, 0.5 * lmax,
+        ref.jnp.asarray(theta.numpy()), block_m=64, block_n=128,
+        interpret=True, delta=delta)
+    _close(out, out_r)
+
+
+def test_pack_shared_layout():
+    _, _, y, _ = _inputs(64, 64, torch.float32, 64, seed=6)
+    theta = torch.abs(y) / 3.0
+    sh = shared_scalars(y, 3.0, 2.0, theta, delta=0.1)
+    packed = screen.pack_shared(sh)
+    assert packed.shape == (screen.NUM_SCALARS,) and packed.dtype == torch.float32
+    names = ["inv_lam1", "inv_lam2", "yc", "ysq", "r_h_sq", "g0", "qa_sq",
+             "a_norm", "a_dot_y"]
+    for i, name in enumerate(names):
+        assert float(packed[i]) == float(getattr(sh, name))
+    assert float(packed[9]) == float(sh.halfspace_valid)
+    assert bool((packed[10:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES + [(4096, 10000)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cuda_kernels_match_plain(shape, dtype):
+    """Card only: each CUDA kernel against its plain version on the same
+    device tensors. Tolerance rtol 1e-5 (fp32 sums in different orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, n = shape
+    for valid_m in (1, 37, m):
+        X, w, y, xi = (t.cuda() for t in _inputs(m, n, dtype, valid_m, seed=7))
+        b = torch.tensor(0.21, device="cuda")
+        for got, want in zip(hinge.margin_obj_op(X, w, y, b, valid_m),
+                             hinge.margin_obj_plain(X, w, y, b, valid_m)):
+            _close(got.cpu(), want.cpu())
+        _close(hinge.hinge_grad_op(X, y, xi, valid_m).cpu(),
+               hinge.hinge_grad_plain(X, y, xi, valid_m).cpu())
+    lmax = float(lambda_max(X.float(), y))
+    theta = theta_at_lambda_max(y, lmax)
+    sh = shared_scalars(y, lmax, 0.5 * lmax, theta, delta=0.02)
+    _close(screen.screen_bounds_from_shared(X, y, theta, sh).cpu(),
+           screen.screen_bounds_plain(X, y, theta, sh).cpu())
