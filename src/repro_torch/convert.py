@@ -16,19 +16,21 @@ __all__ = ["STATE_NDIM", "state_from_numpy", "path_arrays", "PATH_FIELDS"]
 
 #: the state the port takes from the reference, by name: its rank
 STATE_NDIM = {"X": 2, "y": 1, "w": 1, "b": 0, "theta": 1, "delta": 0, "L": 0,
-              "lambdas": 1}
+              "lambdas": 1, "w1": 1, "u_prev": 1}
 
 #: the per-step arrays both packages' PathResult carry
 PATH_FIELDS = ("lambdas", "weights", "biases", "objectives", "kept", "active",
-               "solver_iters")
+               "solver_iters", "kept_samples", "verify_rounds")
 
 
 def state_from_numpy(arrays: dict, device) -> dict[str, torch.Tensor]:
     """Tensors on ``device`` from a dict of numpy arrays (any subset of
     :data:`STATE_NDIM`). ``lambdas`` is float64 (the reference validates its
     grid in float64); everything else is float32, as the reference's fp32
-    state. Shapes must agree: X (m, n), y and theta (n,), w (m,), lambdas a
-    strictly positive vector. Raises ``ValueError``/``TypeError`` otherwise.
+    state. Shapes must agree: X (m, n), y, theta and u_prev (the sample
+    rule's margin history) (n,), w and w1 (the primal anchor) (m,), lambdas
+    a strictly positive vector. Raises ``ValueError``/``TypeError``
+    otherwise.
     """
     unknown = set(arrays) - set(STATE_NDIM)
     if unknown:
@@ -45,7 +47,7 @@ def state_from_numpy(arrays: dict, device) -> dict[str, torch.Tensor]:
                              f"shape {a.shape}")
         out[name] = torch.tensor(a, device=device)  # a copy: a may be read-only
     m, n = out["X"].shape if "X" in out else (None, None)
-    sizes = {"y": n, "theta": n, "w": m}
+    sizes = {"y": n, "theta": n, "u_prev": n, "w": m, "w1": m}
     for name, size in sizes.items():
         if name in out and size is not None and out[name].shape[0] != size:
             raise ValueError(f"{name} has length {out[name].shape[0]}, X is "

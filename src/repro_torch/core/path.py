@@ -1,21 +1,38 @@
-"""Host-orchestrated regularization path with safe feature screening.
+"""Host-orchestrated regularization path with safe screening on both axes.
 
-Port of the reference ``core/path.py`` host engine for dense in-core X and
-``reduce="gather"``. It walks a decreasing grid ``lam_0 > lam_1 > ...``; at
-each step the previous certified anchor ``(theta, delta)`` builds a
-:class:`~repro_torch.core.rules.base.ConvexRegion`, every rule contributes a
-feature keep-mask, the kept rows are gathered on the device into a
-power-of-two bucket (zero-padded, so the sweeps see ``valid_m = kept``
-live rows), a warm-started FISTA solves the reduced problem, and the
-solution is scattered back to full coordinates and certified as the next
-anchor (``dual.safe_theta_and_delta``).
+Port of the reference ``core/path.py`` host engine for dense in-core X. It
+walks a decreasing grid ``lam_0 > lam_1 > ...``; at each step the previous
+certified anchor ``(theta, delta)`` and the previous solution ``(w, b)``
+build one :class:`~repro_torch.core.rules.base.ConvexRegion`, every feature
+rule contributes a feature keep-mask and every sample rule a sample
+keep-mask, a warm-started FISTA solves the reduced problem, the sample
+rules verify the screened samples at the solution (violators are re-admitted
+and the step re-solved, :func:`~repro_torch.core.rules.solve_with_verification`),
+and the accepted solution is certified as the next anchor
+(``dual.safe_theta_and_delta``).
 
-X never leaves the device: the gather is an ``index_select`` on it. The
-host keeps the per-step records (numpy), the warm start and the masks.
+Two reductions, on both axes:
+
+* ``reduce="gather"`` (default) — the kept rows, then the kept columns, are
+  gathered on the device (``index_select``) into power-of-two buckets,
+  zero-padded; the sweeps see ``valid_m = kept`` live rows, and padded
+  columns (``y = 0``) are dropped from the loss by the solver's
+  ``sample_mask``. The solve costs ``kept_m x kept_n``.
+* ``reduce="mask"`` — static shapes: the solve runs on ``X * f_mask`` (a
+  copy of X per solve when features are screened) with a sample mask.
+
+Trust radii for the sample rule come from observed path movement: after
+each accepted step the driver predicts the next movement as
+``shrink_factor * ||w_k - w_{k-1}||`` and ``shrink_factor * |b_k -
+b_{k-1}|`` (inf until one step of history exists).
+
+X never leaves the device. The host keeps the per-step records (numpy) and
+the keep masks; the warm start stays on the device.
 
 The Lipschitz constant is estimated once per path on the full X (or given
-as ``PathDriver(L=)``) and reused by every reduced solve: gathering rows
-never increases ``sigma_max``.
+as ``PathDriver(L=)``) and reused by every reduced solve, verification
+re-solves included: removing rows or columns never increases
+``sigma_max``.
 """
 
 from __future__ import annotations
@@ -34,7 +51,14 @@ from .dual import (
     safe_theta_and_delta,
     theta_at_lambda_max,
 )
-from .rules import AXIS_FEATURES, ConvexRegion, FeatureVIRule, make_rules
+from .rules import (
+    AXIS_FEATURES,
+    AXIS_SAMPLES,
+    ConvexRegion,
+    FeatureVIRule,
+    make_rules,
+    solve_with_verification,
+)
 from .screening import SAFE_TAU
 from .solver import HEALTH_SCREEN_REFUSED, fista_solve, lipschitz_estimate
 
@@ -53,11 +77,15 @@ class PathResult:
     wall_times: np.ndarray         # (T,) seconds per step (screen + solve + certify)
     screen_times: np.ndarray       # (T,) seconds spent screening
     screened: bool = True
+    kept_samples: np.ndarray = None  # (T,) samples fed to the accepted solve
+    verify_rounds: np.ndarray = None  # (T,) sample-verification re-solves
     rules: tuple = ()
     #: ``lam_max``, ``health`` (T,) guard telemetry, ``rule_telemetry``
-    #: (per step, per rule: kept count and bound mean), ``keep_masks``
-    #: (T, m) bool, the features fed to each step's solver, and
-    #: ``solve_times`` (T,) seconds in the gather + FISTA solve
+    #: (per step, per feature rule: kept count and bound mean),
+    #: ``keep_masks`` (T, m) bool, the features fed to each step's solver,
+    #: ``sample_masks`` ({step: (n,) bool}, each step's accepted sample
+    #: mask; empty without a sample rule) and ``solve_times`` (T,) seconds in
+    #: the gathers, FISTA solves and verification rounds
     extras: dict = field(default_factory=dict)
 
 
@@ -94,29 +122,42 @@ def _anchor_ok(theta: torch.Tensor, delta: torch.Tensor) -> bool:
 
 
 class PathDriver:
-    """Applies screening rules along the lambda path (host engine, gather).
+    """Applies screening rules along the lambda path (host engine).
 
     ``rules`` accepts anything :func:`~repro_torch.core.rules.make_rules`
-    does (``"feature_vi"``, instances, ``[]`` for the unscreened path).
-    ``L`` is a known upper bound on the Lipschitz constant of ``[X; 1^T]``;
-    without it the path estimates one. ``device`` defaults to ``"cuda"``
-    and raises when no GPU is present.
+    does (``"feature_vi"``, ``"sample_vi"``, ``"composite"``, instances,
+    ``[]`` for the unscreened path). ``reduce`` is ``"gather"`` or
+    ``"mask"``. ``shrink_factor`` scales the observed movement into the
+    next step's trust radii; ``max_verify_rounds`` bounds the re-solves
+    before a step falls back to every sample. ``L`` is a known upper bound
+    on the Lipschitz constant of ``[X; 1^T]``; without it the path
+    estimates one. ``device`` defaults to ``"cuda"`` and raises when no GPU
+    is present.
     """
 
-    def __init__(self, rules="feature_vi", *, tol: float = 1e-9,
-                 max_iters: int = 4000, L=None, device="cuda"):
+    def __init__(self, rules="feature_vi", *, reduce: str = "gather",
+                 tol: float = 1e-9, max_iters: int = 4000,
+                 shrink_factor: float = 1.5, max_verify_rounds: int = 3,
+                 L=None, device="cuda"):
+        if reduce not in ("gather", "mask"):
+            raise ValueError(f"reduce must be 'gather' or 'mask', got {reduce!r}")
         self.rules = make_rules(rules)
-        bad = [r.name for r in self.rules if r.axis != AXIS_FEATURES]
+        bad = [r.name for r in self.rules
+               if r.axis not in (AXIS_FEATURES, AXIS_SAMPLES)]
         if bad:
-            raise ValueError(f"this port screens features only; got {bad}")
+            raise ValueError(f"rules must screen features or samples; got {bad}")
+        self.reduce = reduce
         self.tol = float(tol)
         self.max_iters = int(max_iters)
+        self.shrink_factor = float(shrink_factor)
+        self.max_verify_rounds = int(max_verify_rounds)
         self.L = L
         self.device = resolve_device(device)
 
-    def _solve(self, X, y, lam, w0, b0, L, valid_m=None):
+    def _solve(self, X, y, lam, w0, b0, L, valid_m=None, sample_mask=None):
         return fista_solve(X, y, lam, w0=w0, b0=b0, max_iters=self.max_iters,
-                           tol=self.tol, L=L, valid_m=valid_m)
+                           tol=self.tol, L=L, sample_mask=sample_mask,
+                           valid_m=valid_m)
 
     def run(self, X, y, lambdas: Optional[Sequence[float]] = None,
             n_lambdas: int = 10, lam_min_ratio: float = 0.1) -> PathResult:
@@ -127,6 +168,10 @@ class PathDriver:
         y = torch.as_tensor(y).to(device=dev, dtype=X.dtype)
         m, n = X.shape
         y_np = y.cpu().numpy().astype(np.float64)
+        feature_rules = [r for r in self.rules if r.axis == AXIS_FEATURES]
+        sample_rules = [r for r in self.rules if r.axis == AXIS_SAMPLES]
+        for rule in self.rules:
+            rule.prepare(X, y)
 
         if self.L is not None:
             L_path = torch.as_tensor(self.L, dtype=X.dtype, device=dev)
@@ -143,6 +188,8 @@ class PathDriver:
         biases = np.zeros((T,), dtype=np.float64)
         objectives = np.zeros((T,), dtype=np.float64)
         kept = np.zeros((T,), dtype=np.int64)
+        kept_s = np.zeros((T,), dtype=np.int64)
+        vrounds = np.zeros((T,), dtype=np.int64)
         active = np.zeros((T,), dtype=np.int64)
         iters = np.zeros((T,), dtype=np.int64)
         wall = np.zeros((T,), dtype=np.float64)
@@ -150,9 +197,10 @@ class PathDriver:
         solve_times = np.zeros((T,), dtype=np.float64)
         health = np.zeros((T,), dtype=np.int64)
         keep_masks = np.zeros((T, m), dtype=bool)
+        sample_masks: dict[int, np.ndarray] = {}
         rule_log: list[dict[str, dict]] = [{}]  # entry 0: unscreened step
 
-        w_host = np.zeros((m,), dtype=np.float64)
+        w_dev = torch.zeros((m,), dtype=X.dtype, device=dev)
         if lambdas[0] >= lam_max_val * (1.0 - 1e-9):
             # step 0 at (or above) lam_max: the closed form (w = 0, b = mean y)
             # is exact, so delta = 0 and theta is the true dual optimum
@@ -168,20 +216,21 @@ class PathDriver:
             t0 = time.perf_counter()
             res0 = self._solve(X, y, float(lambdas[0]), None, torch.mean(y),
                                L_path)
-            w_host = res0.w.double().cpu().numpy()
-            b_host = float(res0.b)
+            w_dev, b_host = res0.w, float(res0.b)
             wall[0] = solve_times[0] = time.perf_counter() - t0
-            weights[0], biases[0] = w_host, b_host
+            weights[0], biases[0] = w_dev.double().cpu().numpy(), b_host
             objectives[0] = res0.obj
-            kept[0] = m
+            kept[0], kept_s[0] = m, n
             keep_masks[0] = True
-            active[0] = int(np.sum(np.abs(w_host) > 1e-10))
+            active[0] = int(np.sum(np.abs(weights[0]) > 1e-10))
             iters[0] = res0.n_iters
             health[0] |= res0.health
             theta_prev, delta_prev = safe_theta_and_delta(
                 X, y, res0.w, res0.b, float(lambdas[0]))
         anchor_ok = _anchor_ok(theta_prev, delta_prev)
         lam_prev = float(lambdas[0])
+        # trust-region movement (inf until one step of history exists)
+        dw_pred = db_pred = float("inf")
 
         for k in range(1, T):
             lam = float(lambdas[k])
@@ -189,15 +238,18 @@ class PathDriver:
 
             # -- screening: one region, every rule ---------------------------
             f_mask = np.ones((m,), dtype=bool)
+            s_mask = np.ones((n,), dtype=bool)
             step_rules: dict[str, dict] = {}
             if self.rules and not anchor_ok:
                 # fail-safe: the previous certificate was non-finite, so no
-                # region exists — keep every feature and record the refusal
+                # region exists — keep every feature and sample and record
+                # the refusal
                 health[k] |= HEALTH_SCREEN_REFUSED
             elif self.rules:
-                region = ConvexRegion.build(y, lam_prev, lam, theta_prev,
-                                            delta=delta_prev)
-                for rule in self.rules:
+                region = ConvexRegion.build(
+                    y, lam_prev, lam, theta_prev, delta=delta_prev,
+                    w1=w_dev, b1=b_host, dw=dw_pred, db=db_pred)
+                for rule in feature_rules:
                     rb = rule.bounds(X, y, region)
                     rk = rule.keep(rb).cpu().numpy()
                     f_mask &= rk
@@ -205,29 +257,52 @@ class PathDriver:
                         "kept": int(rk.sum()),
                         "bound_mean": float(rb.double().mean()),
                     }
+                for rule in sample_rules:
+                    s_mask &= rule.keep(rule.bounds(X, y, region)).cpu().numpy()
             s_times[k] = time.perf_counter() - t0
             rule_log.append(step_rules)
 
-            # -- gather + solve ------------------------------------------------
+            # -- gather + solve + verification ---------------------------------
             st0 = time.perf_counter()
             f_idx = np.nonzero(f_mask)[0]
             kept[k] = len(f_idx)
             keep_masks[k] = f_mask
-            res, w_full = self._solve_reduced(X, y, lam, f_idx, w_host, b_host,
-                                              L_path)
-            b_host = float(res.b)
-            w_host = w_full
+            warm = {"w": w_dev, "b": b_host}
+
+            def solve(mask):
+                # each verification round warm-starts from the last one
+                res, w_full = self._solve_reduced(
+                    X, y, lam, f_idx, np.nonzero(mask)[0], warm["w"],
+                    warm["b"], L_path)
+                warm["w"], warm["b"] = w_full, float(res.b)
+                return res, w_full, res.b
+
+            res, w_dev, b_dev, rounds = solve_with_verification(
+                solve, sample_rules, X, y, s_mask,
+                max_rounds=self.max_verify_rounds)
+            b_new = float(b_dev)
+            kept_s[k] = int(s_mask.sum())
+            vrounds[k] = rounds
+            if sample_rules:
+                sample_masks[k] = s_mask.copy()
             health[k] |= res.health
             solve_times[k] = time.perf_counter() - st0
 
             # -- certify the next anchor ---------------------------------------
             theta_prev, delta_prev = safe_theta_and_delta(
-                X, y, torch.from_numpy(w_full).to(device=dev, dtype=X.dtype),
-                torch.as_tensor(b_host, dtype=X.dtype, device=dev), lam)
+                X, y, w_dev, torch.as_tensor(b_new, dtype=X.dtype, device=dev),
+                lam)
             anchor_ok = _anchor_ok(theta_prev, delta_prev)  # syncs the device
             lam_prev = lam
 
-            weights[k], biases[k] = w_full, b_host
+            w_full = w_dev.double().cpu().numpy()
+            # movement estimates for the next step's trust region (weights[k-1]
+            # holds the previous accepted solution: at k=1 the closed form)
+            dw_pred = self.shrink_factor * float(np.linalg.norm(w_full - weights[k - 1]))
+            db_pred = self.shrink_factor * abs(b_new - biases[k - 1])
+            b_host = b_new
+
+            weights[k], biases[k] = w_full, b_new
             objectives[k] = res.obj
             active[k] = int(np.sum(np.abs(w_full) > 1e-10))
             iters[k] = res.n_iters
@@ -237,33 +312,63 @@ class PathDriver:
             lambdas=lambdas, weights=weights, biases=biases,
             objectives=objectives, kept=kept, active=active,
             solver_iters=iters, wall_times=wall, screen_times=s_times,
-            screened=bool(self.rules), rules=tuple(r.name for r in self.rules),
+            screened=bool(self.rules), kept_samples=kept_s,
+            verify_rounds=vrounds, rules=tuple(r.name for r in self.rules),
             extras={"lam_max": lam_max_val, "health": health,
                     "rule_telemetry": rule_log, "keep_masks": keep_masks,
-                    "solve_times": solve_times},
+                    "sample_masks": sample_masks, "solve_times": solve_times},
         )
 
-    def _solve_reduced(self, X, y, lam, f_idx, w_host, b_host, L):
-        """Gather the kept rows into a bucket-sized, zero-padded buffer on
-        the device, solve, and scatter ``w`` back (float64, host)."""
+    def _solve_reduced(self, X, y, lam, f_idx, s_idx, w_warm, b_warm, L):
+        """Reduce X on both axes (``self.reduce``), solve, and scatter ``w``
+        back to a full (m,) tensor on the device.
+
+        ``f_idx`` / ``s_idx``: host indices of the kept features / samples;
+        ``w_warm`` (m,) on the device and ``b_warm`` a float warm-start the
+        solve."""
         m, n = X.shape
         dev, dtype = X.device, X.dtype
-        b0 = torch.as_tensor(b_host, dtype=dtype, device=dev)
-        kept = len(f_idx)
-        if kept == m:
-            w0 = torch.from_numpy(w_host).to(device=dev, dtype=dtype)
-            res = self._solve(X, y, lam, w0, b0, L)
-            return res, res.w.double().cpu().numpy()
-        pad = min(_bucket(max(kept, 1)), m)
-        idx = torch.from_numpy(f_idx).to(dev)
-        Xr = torch.zeros((pad, n), dtype=dtype, device=dev)
-        torch.index_select(X, 0, idx, out=Xr[:kept])
-        w0_np = np.zeros((pad,), dtype=np.float64)
-        w0_np[:kept] = w_host[f_idx]
-        w0 = torch.from_numpy(w0_np).to(device=dev, dtype=dtype)
-        res = self._solve(Xr, y, lam, w0, b0, L, valid_m=kept)
-        w_full = np.zeros((m,), dtype=np.float64)
-        w_full[f_idx] = res.w[:kept].double().cpu().numpy()
+        b0 = torch.as_tensor(b_warm, dtype=dtype, device=dev)
+        kept, kept_s = len(f_idx), len(s_idx)
+        if kept == m and kept_s == n:
+            res = self._solve(X, y, lam, w_warm, b0, L)
+            return res, res.w
+        fi = torch.from_numpy(f_idx).to(dev)
+        smask = None
+        if self.reduce == "mask":
+            f_mask = torch.zeros((m,), dtype=dtype, device=dev)
+            f_mask[fi] = 1.0
+            Xr = X * f_mask[:, None] if kept < m else X
+            if kept_s < n:
+                smask = torch.zeros((n,), dtype=dtype, device=dev)
+                smask[torch.from_numpy(s_idx).to(dev)] = 1.0
+            res = self._solve(Xr, y, lam, w_warm * f_mask, b0, L,
+                              sample_mask=smask)
+            return res, res.w * f_mask
+        # gather: kept rows into a zero-padded bucket (valid_m = kept live
+        # rows), then kept columns into a zero-padded bucket with y = 0 there
+        Xr, yr, wr, valid_m = X, y, w_warm, None
+        if kept < m:
+            pad = min(_bucket(max(kept, 1)), m)
+            Xr = torch.zeros((pad, n), dtype=dtype, device=dev)
+            torch.index_select(X, 0, fi, out=Xr[:kept])
+            wr = torch.zeros((pad,), dtype=dtype, device=dev)
+            wr[:kept] = w_warm[fi]
+            valid_m = kept
+        if kept_s < n:
+            pad_n = min(_bucket(max(kept_s, 1)), n)
+            si = torch.from_numpy(s_idx).to(dev)
+            Xc = torch.zeros((Xr.shape[0], pad_n), dtype=dtype, device=dev)
+            torch.index_select(Xr, 1, si, out=Xc[:, :kept_s])
+            Xr = Xc
+            yr = torch.zeros((pad_n,), dtype=dtype, device=dev)
+            yr[:kept_s] = y[si]
+            smask = torch.zeros((pad_n,), dtype=dtype, device=dev)
+            smask[:kept_s] = 1.0
+        res = self._solve(Xr, yr, lam, wr, b0, L, valid_m=valid_m,
+                          sample_mask=smask)
+        w_full = torch.zeros((m,), dtype=dtype, device=dev)
+        w_full[fi] = res.w[:kept]
         return res, w_full
 
 
@@ -274,6 +379,7 @@ def svm_path(
     n_lambdas: int = 10,
     lam_min_ratio: float = 0.1,
     screening: bool = True,
+    reduce: Optional[str] = None,
     tol: float = 1e-9,
     max_iters: int = 4000,
     tau: float = SAFE_TAU,
@@ -281,18 +387,19 @@ def svm_path(
     engine: str = "host",
     device="cuda",
 ) -> PathResult:
-    """Solve the L1-L2-SVM path with safe feature screening.
+    """Solve the L1-L2-SVM path with safe screening.
 
     ``screening=True`` uses the paper's feature rule (with ``tau``);
-    ``rules=`` picks others, ``screening=False`` (or ``rules=[]``) disables
-    screening. Only the host engine is ported. Runs on ``device``, by
-    default the GPU.
+    ``rules=`` picks others (``"sample_vi"``, ``"composite"``, a list, or
+    instances), ``screening=False`` (or ``rules=[]``) disables screening.
+    ``reduce`` is ``"gather"`` (the default) or ``"mask"``. Only the host
+    engine is ported. Runs on ``device``, by default the GPU.
     """
     if engine != "host":
         raise ValueError(f"this port runs engine='host' only, got {engine!r}")
     if rules is None:
         rules = [FeatureVIRule(tau=tau)] if screening else []
-    driver = PathDriver(rules=rules, tol=tol, max_iters=max_iters,
-                        device=device)
+    driver = PathDriver(rules=rules, reduce="gather" if reduce is None else reduce,
+                        tol=tol, max_iters=max_iters, device=device)
     return driver.run(X, y, lambdas=lambdas, n_lambdas=n_lambdas,
                       lam_min_ratio=lam_min_ratio)

@@ -47,10 +47,11 @@ def margin_obj_plain(X, w, y, b, valid_m: Optional[int] = None):
     return u, xi, 0.5 * torch.sum(xi * xi)
 
 
-def _margin_splits(valid_m: int, n: int, device: torch.device) -> tuple[int, int]:
-    """``(rows_per_split, splits)``: how the margin kernel cuts the live rows
-    across ``blockIdx.y`` so the card holds ~4 blocks per SM. Depends only on
-    the shape and the card, so repeated calls sum in the same order."""
+def margin_splits(valid_m: int, n: int, device: torch.device) -> tuple[int, int]:
+    """``(rows_per_split, splits)``: how a column-reduction kernel (the
+    margin sweep here, the sample sweep in ``screen.py``) cuts the live rows
+    across ``blockIdx.y`` so the card holds ~4 blocks per SM. Depends only
+    on the shape and the card, so repeated calls sum in the same order."""
     col_blocks = -(-n // _MARGIN_THREADS)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
@@ -76,7 +77,7 @@ def margin_obj_op(X, w, y, b, valid_m: Optional[int] = None):
     b = torch.as_tensor(b, dtype=torch.float32, device=X.device)
     if b.dim() != 0:
         raise ValueError(f"b must be a scalar, got shape {tuple(b.shape)}")
-    rows_per_split, splits = _margin_splits(vm, n, X.device)
+    rows_per_split, splits = margin_splits(vm, n, X.device)
     f32 = dict(dtype=torch.float32, device=X.device)
     part = torch.empty((splits, n), **f32)
     u = torch.empty((n,), **f32)

@@ -11,7 +11,13 @@ from __future__ import annotations
 from . import hinge as _hinge
 from . import screen as _screen
 from .hinge import hinge_grad_op, margin_obj_op  # noqa: F401
-from .screen import pack_shared, screen_bounds_from_shared, screen_bounds_op  # noqa: F401
+from .screen import (  # noqa: F401
+    pack_sample_scalars,
+    pack_shared,
+    sample_surplus_op,
+    screen_bounds_from_shared,
+    screen_bounds_op,
+)
 
 _COUNTERS = (_hinge.LAUNCHES, _screen.LAUNCHES)
 

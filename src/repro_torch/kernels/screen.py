@@ -1,17 +1,23 @@
-"""The feature-axis VI screen: CUDA kernel and plain version.
+"""The two screening sweeps, one per axis: CUDA kernels and plain versions.
 
-One read of X gives every feature row's four reductions
-``[f.(y theta1), f.y, f.1, ||f||^2]``; the closed-form bound of
-``core/screening.py`` (:func:`~repro_torch.core.screening._t_max`) is then
-applied in registers and only the ``(m,)`` bounds are written. The
-feature-independent scalars travel as one packed fp32 vector
-(:func:`pack_shared`), in the reference's ``pack_shared`` order, and stay
-on the device.
+*Feature axis* (:func:`screen_bounds_from_shared`). One read of X gives
+every feature row's four reductions ``[f.(y theta1), f.y, f.1, ||f||^2]``;
+the closed-form bound of ``core/screening.py``
+(:func:`~repro_torch.core.screening._t_max`) is then applied in registers
+and only the ``(m,)`` bounds are written. The feature-independent scalars
+travel as one packed fp32 vector (:func:`pack_shared`), in the reference's
+``pack_shared`` order, and stay on the device. Kernel: ``csrc/screen.cu``,
+replacing the reference's Pallas ``_feature_kernel``.
 
-For a CUDA ``X`` :func:`screen_bounds_from_shared` launches
-``csrc/screen.cu`` and counts the launch in :data:`LAUNCHES`; for a CPU
-``X`` it runs :func:`screen_bounds_plain`. The kernel replaces the
-reference's Pallas ``_feature_kernel`` (``repro/kernels/screen.py``).
+*Sample axis* (:func:`sample_surplus_op`). One transposed read of X gives
+every sample column's ``u_i = x_i.w1 + b1`` and ``||x_i||^2``; the margin
+surplus ``y_i u_i - 1 - slack_i`` of ``core/rules/sample_vi.py`` is then
+applied per column. The slack scalars are packed by
+:func:`pack_sample_scalars`, in the reference's order and clamps. Kernel:
+``csrc/sample.cu``, replacing the reference's Pallas ``_sample_kernel``.
+
+For a CUDA ``X`` each entry point launches its kernel and counts the launch
+in :data:`LAUNCHES`; for a CPU ``X`` it runs the plain version beside it.
 """
 
 from __future__ import annotations
@@ -25,11 +31,13 @@ from ..core.screening import (
     shared_scalars,
 )
 from . import build
+from .hinge import margin_splits
 
 #: launches of the kernel in this process (reset by ``ops.reset_launch_counts``)
-LAUNCHES = {"screen_bounds": 0}
+LAUNCHES = {"screen_bounds": 0, "sample_surplus": 0}
 
 NUM_SCALARS = 12  # packed scalars, padded as in the reference
+_BIG = 1e30  # stands in for inf in the sample finalizer (no 0 * inf = NaN)
 
 
 def pack_shared(sh: ScreenShared) -> torch.Tensor:
@@ -75,3 +83,81 @@ def screen_bounds_op(X, y, lam1, lam2, theta1, delta=0.0) -> torch.Tensor:
     enters only through the shared scalars)."""
     sh = shared_scalars(y.float(), lam1, lam2, theta1.float(), delta=delta)
     return screen_bounds_from_shared(X, y, theta1, sh)
+
+
+def pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
+                        has_history, device="cpu") -> torch.Tensor:
+    """Pack the sample finalizer's scalars into a flat (12,) fp32 vector on
+    ``device``: ``b1, min(dw, 1e30), min(db, 1e30), shrink_factor,
+    margin_floor, has_history``, zero-padded (the reference's
+    ``pack_sample_scalars``).
+
+    The values are numbers (a 0-d tensor is read to the host). The vector is
+    packed on the host and reaches the card in one non-blocking copy: a
+    blocking copy per value would synchronise the stream each time, and the
+    card would idle while the wrapper's Python runs (on an H100, 1.10 ms a
+    call against 0.82 ms at 50,000 x 10,000 fp32;
+    ``scripts/torch_sample_pack_ab.py``)."""
+    vals = [b1, dw, db, shrink_factor, margin_floor, 1.0 if has_history else 0.0]
+    v = torch.zeros((NUM_SCALARS,), dtype=torch.float32)
+    v[:len(vals)] = torch.tensor([float(x) for x in vals], dtype=torch.float32)
+    v[1:3] = torch.clamp_max(v[1:3], _BIG)
+    return v.to(device, non_blocking=True)
+
+
+def sample_surplus_plain(X, w1, y, b1, dw=float("inf"), db=float("inf"),
+                         u_prev=None, shrink_factor=2.0, margin_floor=1e-3):
+    """Plain PyTorch version of :func:`sample_surplus_op` (fp32 sums).
+
+    The finalizer is the reference kernel's (``_sample_surplus_from_acc``):
+    ``dw`` and ``db`` clamp at 1e30, the secant applies only with
+    ``u_prev``, and the total slack clamps at 1e30. Returns ``(surplus,
+    u)``, both (n,) fp32, with ``u = X^T w1 + b1``.
+    """
+    sc = pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
+                             u_prev is not None, device=X.device)
+    Xf = X.float()
+    u = torch.mv(Xf.t(), w1.float()) + sc[0]
+    x_sq = torch.sum(Xf * Xf, dim=0)
+    slack = torch.sqrt(torch.clamp_min(x_sq, 0.0)) * sc[1] + sc[2]
+    if u_prev is not None:
+        slack = torch.minimum(slack, sc[3] * torch.abs(u - u_prev) + sc[4])
+    slack = torch.clamp_max(slack, _BIG)
+    return y * u - 1.0 - slack, u
+
+
+def sample_surplus_op(X, w1, y, b1, dw=float("inf"), db=float("inf"),
+                      u_prev=None, shrink_factor=2.0, margin_floor=1e-3):
+    """Per-sample margin surplus ``y_i u_i - 1 - slack_i`` from one
+    transposed sweep of X, and the margins ``u = X^T w1 + b1`` it used.
+
+    ``X`` (m, n) fp32/bf16; ``w1`` (m,), ``y`` (n,) and ``u_prev`` (n,) or
+    ``None`` fp32 on X's device; ``b1``, ``dw``, ``db`` numbers or 0-d
+    tensors. Returns ``(surplus, u)``, both (n,) fp32 on X's device.
+    """
+    if not build.on_card(X):
+        return sample_surplus_plain(X, w1, y, b1, dw, db, u_prev,
+                                    shrink_factor, margin_floor)
+    build.check_matrix(X)
+    m, n = X.shape
+    build.check_vector(w1, m, X, "w1")
+    build.check_vector(y, n, X, "y")
+    if u_prev is not None:
+        build.check_vector(u_prev, n, X, "u_prev")
+    scalars = pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
+                                  u_prev is not None, device=X.device)
+    rows_per_split, splits = margin_splits(m, n, X.device)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    part = torch.empty((2 * splits, n), **f32)
+    u = torch.empty((n,), **f32)
+    surplus = torch.empty((n,), **f32)
+    dev, stream = build.stream_and_device(X)
+    # without history the kernel never reads u_prev; y stands in for it
+    err = build.library().screen_bounds_samples(
+        X.data_ptr(), int(X.dtype == torch.bfloat16), w1.data_ptr(),
+        y.data_ptr(), (y if u_prev is None else u_prev).data_ptr(),
+        scalars.data_ptr(), m, n, rows_per_split, splits, part.data_ptr(),
+        u.data_ptr(), surplus.data_ptr(), dev, stream)
+    build.check(err, "sample_surplus")
+    LAUNCHES["sample_surplus"] += 1
+    return surplus, u

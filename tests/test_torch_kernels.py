@@ -1,5 +1,6 @@
 """Each kernel's plain version against the reference's Pallas kernel, and
-(on a GPU only) each CUDA kernel against its plain version.
+(on a GPU only) each CUDA kernel against its plain version: the margin and
+gradient sweeps, the feature screen and the sample-surplus sweep.
 
 The reference kernels run as ``tests/test_kernels.py`` runs them on the
 CPU: ``interpret=True``. Inputs are identical bits in both packages (bf16
@@ -126,6 +127,66 @@ def test_pack_shared_layout():
     assert bool((packed[10:] == 0).all())
 
 
+def _sample_inputs(m, n, dtype, history, seed):
+    """X and y from the generator, a sparse w1 and, with history, u_prev."""
+    X, _, y, _ = _inputs(m, n, dtype, m, seed=seed)
+    rng = np.random.default_rng(seed + 2)
+    w1 = (rng.standard_normal(m) * (rng.random(m) < 0.2)).astype(np.float32)
+    u_prev = rng.standard_normal(n).astype(np.float32) if history else None
+    st = state_from_numpy({"w1": w1} if u_prev is None else
+                          {"w1": w1, "u_prev": u_prev}, "cpu")
+    return X, st["w1"], y, st.get("u_prev")
+
+
+# trust radii: inf (secant only, or nothing without history) and finite
+RADII = {"dw_inf": (float("inf"), float("inf")), "dw_finite": (0.37, 0.05)}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("history", [False, True], ids=["no_hist", "hist"])
+@pytest.mark.parametrize("radii", sorted(RADII))
+def test_sample_surplus_plain_matches_pallas(ref, shape, dtype, history, radii):
+    """The surplus against the Pallas ``_sample_kernel``; the margins it
+    returns against a float64 ``X^T w1 + b1``."""
+    m, n = shape
+    X, w1, y, u_prev = _sample_inputs(m, n, dtype, history, seed=8)
+    dw, db = RADII[radii]
+    b1 = -0.23
+    surplus, u = screen.sample_surplus_plain(X, w1, y, b1, dw, db, u_prev,
+                                             2.0, 1e-3)
+    surplus_r = ref.ops.sample_surplus_op(
+        _to_jax(ref, X), ref.jnp.asarray(w1.numpy()),
+        ref.jnp.asarray(y.numpy()), b1, dw=dw, db=db,
+        u_prev=None if u_prev is None else ref.jnp.asarray(u_prev.numpy()),
+        shrink_factor=2.0, margin_floor=1e-3, block_m=64, block_n=128,
+        interpret=True)
+    _close(surplus, surplus_r)
+    _close(u, X.double().t().numpy() @ w1.double().numpy() + b1)
+    if radii == "dw_inf" and not history:
+        assert bool((surplus < 0).all())  # no history, no radius: keep all
+
+
+def test_pack_sample_scalars_layout(ref):
+    from repro.kernels.screen import pack_sample_scalars as ref_pack
+
+    for args in ((-0.3, float("inf"), 0.2, 2.0, 1e-3, True),
+                 (0.7, 0.5, float("inf"), 1.5, 0.0, False)):
+        packed = screen.pack_sample_scalars(*args)
+        assert packed.shape == (screen.NUM_SCALARS,)
+        assert packed.dtype == torch.float32
+        np.testing.assert_array_equal(packed.numpy(), np.asarray(ref_pack(*args)))
+
+
+def test_sample_surplus_propagates_nan():
+    """A poisoned history gives a NaN surplus (the kernel's mins propagate
+    NaN, as torch.minimum does), never a finite score."""
+    X, w1, y, u_prev = _sample_inputs(64, 64, torch.float32, True, seed=9)
+    u_prev[5] = float("nan")
+    surplus, _ = screen.sample_surplus_plain(X, w1, y, 0.1, 0.2, 0.01, u_prev)
+    assert torch.isnan(surplus[5]) and bool(torch.isfinite(surplus[6:]).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", SHAPES + [(4096, 10000)])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -149,3 +210,28 @@ def test_cuda_kernels_match_plain(shape, dtype):
     sh = shared_scalars(y, lmax, 0.5 * lmax, theta, delta=0.02)
     _close(screen.screen_bounds_from_shared(X, y, theta, sh).cpu(),
            screen.screen_bounds_plain(X, y, theta, sh).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES + [(4096, 10000)])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cuda_sample_surplus_matches_plain(shape, dtype):
+    """Card only: the sample-surplus kernel against its plain version, with
+    and without history, radii inf and finite; a repeated call gives the
+    same bits. Tolerance rtol 1e-5 (fp32 sums in different orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, n = shape
+    for history in (False, True):
+        X, w1, y, u_prev = _sample_inputs(m, n, dtype, history, seed=10)
+        X, w1, y = X.cuda(), w1.cuda(), y.cuda()
+        u_prev = None if u_prev is None else u_prev.cuda()
+        for dw, db in RADII.values():
+            args = (X, w1, y, 0.17, dw, db, u_prev)
+            got = screen.sample_surplus_op(*args)
+            want = screen.sample_surplus_plain(*args)
+            for g, p in zip(got, want):
+                _close(g.cpu(), p.cpu())
+            again = screen.sample_surplus_op(*args)
+            assert all(torch.equal(p, q) for p, q in zip(got, again))
