@@ -19,7 +19,11 @@ n = 10,000 samples, fp32):
   reductions (``"gather"``, ``"mask"``).
 
 Each path runs with the launch counts set to 0 just before it and read just
-after, and fails if one of its kernels was never launched. Every phase
+after, and fails if one of its kernels was never launched, or if the
+gradient or sample-surplus kernel ran its scalar variant there (the
+full-width paths' rows are 16-byte aligned: every launch must take the
+bulk-copy variant). The kernel checks include shapes and views that reach
+both variants of both kernels (``VARIANT_CASES``). Every phase
 prints one JSON line; any failed check raises and the script exits
 non-zero. The last lines are the ``{"kernels": [...]}`` record (times on
 this card, bounds, launch counts) and ``{"ok": true, "device": {...}}``.
@@ -51,6 +55,12 @@ FULL = dict(m=50_000, n=10_000, density=1.0, seed=0)
 N_LAMBDAS, LAM_MIN_RATIO, SAFETY_STEPS = 8, 0.1, 4
 COMPOSITE_RATIO = 0.02  # a deep grid: the sample rule screens from step 4 on
 RAGGED = [(64, 64), (128, 256), (300, 200), (513, 130)]
+# shapes and views that reach each variant of the redesigned kernels:
+# (m, n, offset rows): bf16 n % 8 != 0 with fp32 n % 4 == 0, an aligned
+# view X[1:], an odd-n view X[1:], and rows wider than one staged v chunk
+# (16,384 columns), aligned and not
+VARIANT_CASES = [(128, 260, 0), (300, 200, 1), (301, 203, 1), (96, 20000, 0),
+                 (40, 20001, 0)]
 # sample-surplus kernel cases: (secant history, trust radii dw, db)
 SURPLUS_CASES = [(False, math.inf, math.inf), (True, math.inf, math.inf),
                  (False, 0.37, 0.05), (True, 0.37, 0.05)]
@@ -94,6 +104,17 @@ class Kernels:
         self.hinge, self.screen, self.shared_scalars = hinge, screen, shared_scalars
         self.max_err = {"margin_obj": 0.0, "hinge_grad": 0.0, "screen_bounds": 0.0,
                         "sample_surplus": 0.0}
+        self.variants_seen = {"hinge_grad": set(), "sample_surplus": set()}
+
+    def _variant(self, name, counts, X, where):
+        """The variant a kernel just launched: the bulk one exactly when
+        X's rows are 16-byte aligned."""
+        table = (self.hinge.VARIANTS if name == "hinge_grad" else self.screen.VARIANTS)[name]
+        launched = [v for v in table if table[v] > counts[v]]
+        want = "bulk" if self.hinge.bulk_aligned(X) else "scalar"
+        require(launched == [want], f"{name} {where}: launched {launched}, want {want}")
+        self.variants_seen[name].add(want)
+        return want
 
     def _check(self, name, got, want, k, where):
         err = float((got.float() - want.float()).abs().max())
@@ -113,10 +134,14 @@ class Kernels:
                 for part, g, p in zip(("u", "xi", "loss"), got, want)}
 
     def grad(self, X, y, xi, vm, where):
+        before = dict(self.hinge.VARIANTS["hinge_grad"])
         got = self.hinge.hinge_grad_op(X, y, xi, vm)
+        variant = self._variant("hinge_grad", before, X, where)
         want = self.hinge.hinge_grad_plain(X, y, xi, vm)
         torch.cuda.synchronize()
-        return self._check("hinge_grad", got, want, X.shape[1], where)
+        out = self._check("hinge_grad", got, want, X.shape[1], where)
+        require(bool((got[vm:] == 0).all()), f"hinge_grad {where}: rows past valid_m not 0")
+        return {**out, "variant": variant}
 
     def bounds(self, X, y, theta, sh, where):
         got = self.screen.screen_bounds_from_shared(X, y, theta, sh)
@@ -131,10 +156,13 @@ class Kernels:
         for hist, dw, db in SURPLUS_CASES:
             u_prev = torch.randn(X.shape[1], generator=gen).cuda() if hist else None
             args = (X, w1, y, 0.13, dw, db, u_prev)
+            tag = f"hist={hist} dw={dw}"
+            before = dict(self.screen.VARIANTS["sample_surplus"])
             got = self.screen.sample_surplus_op(*args)
+            out[f"{tag} variant"] = self._variant("sample_surplus", before, X,
+                                                  f"{where} {tag}")
             want = self.screen.sample_surplus_plain(*args)
             torch.cuda.synchronize()
-            tag = f"hist={hist} dw={dw}"
             for part, g, p in zip(("surplus", "u"), got, want):
                 out[f"{tag} {part}"] = self._check(
                     "sample_surplus", g, p, X.shape[0], f"{where} {tag} {part}")
@@ -157,20 +185,26 @@ def phase_device() -> dict:
 
 
 def phase_build(build) -> None:
+    """Build the kernels; report each kernel (mangled name), its registers,
+    shared memory and spills from ``-Xptxas -v``."""
     t0 = time.perf_counter()
     build.library()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln or ln.startswith("==")]
+    ptxas = [ln.split("'")[1] if "Compiling entry function" in ln else ln.strip()
+             for ln in build.build_log().splitlines()
+             if "Compiling entry function" in ln or "registers" in ln
+             or "spill" in ln or ln.startswith("==")]
     emit({"phase": "build", "seconds": secs, "library": build.library_path().name,
           "ptxas": ptxas})
 
 
 def phase_kernels_ragged(K, gen) -> None:
-    """Every kernel at the ragged test shapes, fp32 and bf16, valid_m < m."""
-    for m, n in RAGGED:
+    """Every kernel at the ragged test shapes and the variant cases, fp32
+    and bf16, valid_m < m; each redesigned kernel must take the variant its
+    input's alignment allows, and both variants of both kernels must run."""
+    for m, n, off in [(m, n, 0) for m, n in RAGGED] + VARIANT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            X = torch.randn(m, n, generator=gen).to("cuda", dtype)
+            X = torch.randn(m + off, n, generator=gen).to("cuda", dtype)[off:]
             w = torch.randn(m, generator=gen).cuda()
             y = torch.where(torch.rand(n, generator=gen) < 0.6, 1.0, -1.0).cuda()
             xi = torch.rand(n, generator=gen).cuda()
@@ -183,8 +217,11 @@ def phase_kernels_ragged(K, gen) -> None:
             sh = K.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
             res["screen"] = K.bounds(X, y, theta, sh, f"{m}x{n} {dtype}")
             res["sample_surplus"] = K.surplus(X, w, y, gen, f"{m}x{n} {dtype}")
-            emit({"phase": "kernels_ragged", "shape": [m, n], "dtype": str(dtype),
+            emit({"phase": "kernels_ragged", "shape": [m, n], "row_offset": off,
+                  "dtype": str(dtype), "bulk_aligned": K.hinge.bulk_aligned(X),
                   "checks": res})
+    for name, seen in K.variants_seen.items():
+        require(seen == {"bulk", "scalar"}, f"{name}: variants run {sorted(seen)}")
 
 
 def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
@@ -204,6 +241,9 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
             res[f"grad_vm{vm}"] = K.grad(Xd, y, xi, vm, f"full {dtype} vm={vm}")
         res["screen"] = K.bounds(Xd, y, theta, sh, f"full {dtype}")
         res["sample_surplus"] = K.surplus(Xd, w, y, gen, f"full {dtype}")
+        require(res["grad_vm%d" % m]["variant"] == "bulk"
+                and res["sample_surplus"]["hist=True dw=0.37 variant"] == "bulk",
+                f"full {dtype}: the redesigned kernels did not take the bulk variant")
         # the stop rule ties on fp32 plateaus: a repeated call must give the
         # same bits (fixed summation order, no float atomics)
         vm = m // 3
@@ -224,6 +264,17 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         del Xd
 
 
+def require_bulk(ops, launches, names, where) -> dict:
+    """Every launch of each redesigned kernel in a full-width path took the
+    bulk variant (the path's X, gather buffers and masks are aligned)."""
+    variants = ops.variant_counts()
+    for name in names:
+        v = variants[name]
+        require(v["bulk"] > 0 and v["bulk"] == launches[name],
+                f"{where}: {name} launched {launches[name]} times, bulk {v}")
+    return variants
+
+
 def phase_path(svm_path, ops, X, y) -> tuple:
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -234,6 +285,7 @@ def phase_path(svm_path, ops, X, y) -> tuple:
     launches = ops.launch_counts()
     require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds")),
             f"a kernel of the path was never launched: {launches}")
+    variants = require_bulk(ops, launches, ("hinge_grad",), "feature path")
     require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
     require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
     solve_s = res.extras["solve_times"]
@@ -245,7 +297,7 @@ def phase_path(svm_path, ops, X, y) -> tuple:
           "objectives": res.objectives.tolist(),
           "wall_s": res.wall_times.tolist(), "screen_s": res.screen_times.tolist(),
           "solve_s": solve_s.tolist(), "solve_s_per_iter": per_iter,
-          "path_wall_s": total, "launches": launches})
+          "path_wall_s": total, "launches": launches, "variants": variants})
     return res, launches
 
 
@@ -337,6 +389,8 @@ def phase_composite_path(svm_path, ops, X, y) -> tuple:
     require(launches["sample_surplus"] == steps,
             f"sample_surplus launched {launches['sample_surplus']} times, "
             f"not once on each of the {steps} screened steps")
+    variants = require_bulk(ops, launches, ("hinge_grad", "sample_surplus"),
+                            "composite path")
     require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
     require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
     Xd, yd = X.double(), y.double()
@@ -361,7 +415,8 @@ def phase_composite_path(svm_path, ops, X, y) -> tuple:
           "iters": res.solver_iters.tolist(), "objectives": res.objectives.tolist(),
           "max_rel_obj_f64": max(rel), "max_xi_screened_f64": xi_screened,
           "wall_s": res.wall_times.tolist(), "screen_s": res.screen_times.tolist(),
-          "solve_s": solve_s.tolist(), "path_wall_s": total, "launches": launches})
+          "solve_s": solve_s.tolist(), "path_wall_s": total, "launches": launches,
+          "variants": variants})
     return res, launches
 
 
@@ -513,6 +568,13 @@ def phase_timing(K, res, launches, res_c, launches_c, X, y, max_err) -> list:
                      launches_c, max_err, T - 1))
     for row in rows:
         row["launches_composite_path"] = int(launches_c[row["name"]])
+    sms = hinge.sm_count(X.device)
+    gp = hinge.grad_plan(kept, n, Xr.element_size(), hinge.bulk_aligned(Xr), sms)
+    cp = hinge.column_sweep_plan(m, n, X.element_size(), hinge.bulk_aligned(X), sms)
+    emit({"phase": "plans", "sms": sms,
+          "hinge_grad": {**gp._asdict(), "smem_bytes": gp.smem_bytes},
+          "sample_surplus": {**cp._asdict(), "tiles": cp.tiles,
+                             "smem_bytes": cp.smem_bytes}})
     emit({"phase": "timing", "step": k, "kept": kept, "bucket": pad,
           "rows": [{key: r[key] for key in ("name", "ms", "plain_ms", "library_ms",
                                              "bound_ms")} for r in rows]})

@@ -220,7 +220,7 @@ class PathDriver:
             wall[0] = solve_times[0] = time.perf_counter() - t0
             weights[0], biases[0] = w_dev.double().cpu().numpy(), b_host
             objectives[0] = res0.obj
-            kept[0], kept_s[0] = m, n
+            kept[0] = m  # kept_s[0] stays 0, as in the reference
             keep_masks[0] = True
             active[0] = int(np.sum(np.abs(weights[0]) > 1e-10))
             iters[0] = res0.n_iters

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernel library (``csrc/*.cu``) at first use.
 
-Each ``.cu`` under ``csrc/`` is compiled by its own ``nvcc`` process, all
-started together, for ``sm_90a``; the objects are linked into one shared
-library with a plain C interface and loaded with ``ctypes``. The library is
-named by a hash of the sources and flags and cached under the checkout's
+Each ``.cu`` under ``csrc/`` (with the ``.cuh`` headers it includes) is
+compiled by its own ``nvcc`` process, all started together, for
+``sm_90a``; the objects are linked into one shared library with a plain C
+interface and loaded with ``ctypes``. The library is named by a hash of
+the sources, headers and flags and cached under the checkout's
 ``build/kernels/`` (listed in ``.gitignore``), so a changed source is
 rebuilt and an unchanged one is reused. Nothing here runs at import time:
 this module is imported on machines without ``nvcc`` or a GPU.
@@ -37,10 +38,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "margin_obj": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                    _I, _P],
-    "hinge_grad": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P],
+    "hinge_grad": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "screen_bounds_features": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P],
-    "screen_bounds_samples": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                              _P, _I, _P],
+    "screen_bounds_samples": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -60,9 +61,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Path of the library for the current sources and flags."""
+    """Path of the library for the current sources, headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"

@@ -21,26 +21,37 @@
 //    Every sum has a fixed order and there are no float atomics, so
 //    repeated calls give bitwise-equal results (the solver's stop rule
 //    ties on fp32 plateaus);
-//  * gradient: one warp per 4 rows; each lane reads y*xi once per column
-//    and reuses it for the 4 rows (4 independent loads in flight), then a
-//    shuffle reduction. Rows >= valid_m are written as 0 and never read;
+//  * gradient (redesigned for Hopper; csrc/sweep.cuh): a persistent grid of
+//    one block per SM, each owning a run of consecutive live rows
+//    (kernels/hinge.py `grad_plan`: runs differ by at most one row). The
+//    block stages v = y * xi in shared memory once (up to 16,384 columns;
+//    wider rows are cut into column chunks, v restaged per chunk). One
+//    producer thread streams every row, in pieces of at most 32 KB, into a
+//    ring of stages by cp.async.bulk; the 8 consumer warps together own the
+//    row: each thread takes 16-byte units of the piece in a fixed order
+//    against v from shared memory, then a fixed shuffle tree and a fixed
+//    sum over the warps give the row's dot product. Rows whose start is
+//    not 16-byte aligned take `hinge_grad_scalar`: a warp owns a row, v in
+//    shared memory, direct loads. Tensor cores and wgmma cannot help a
+//    matrix-vector product (no operand reuse). Rows >= valid_m are
+//    written as 0 and never read;
 //  * the margin sweep reads only rows < valid_m (the gathered buffer's
 //    zero padding is skipped), and ragged edges are masked in the kernel,
 //    so no padding or loss correction is needed.
-// TMA, wgmma and persistent blocks are later work; these kernels are the
-// simple, correct first version.
+// The margin sweep takes the column-sweep design of csrc/sweep.cuh next;
+// it is the simple first version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "sweep.cuh"
+
 namespace {
 
 constexpr int kMarginThreads = 256;  // columns per margin block
 constexpr int kFinThreads = 256;     // columns per finalize block
-constexpr int kGradThreads = 256;    // 8 warps per gradient block
-constexpr int kRowsPerWarp = 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -120,45 +131,183 @@ loss_sum_kernel(const float* __restrict__ loss_part, int count,
   if (threadIdx.x == 0) *loss = 0.5f * total;
 }
 
-// g[i] = -sum_j X[i, j] y[j] xi[j] for i < valid_m; 0 for valid_m <= i < m
+// Shared memory of the bulk gradient: barriers, the warps' row sums (two
+// rows' worth), v for one column chunk, then the ring.
+struct GradSmem {
+  int red, v, ring, stage_bytes, total;
+  __host__ __device__ GradSmem(int chunk_cols, int piece_cols, int stages,
+                               int item) {
+    red = sweep::kBarrierBytes;
+    v = red + 2 * sweep::kConsumerWarps * 4;
+    ring = sweep::round_up(v + chunk_cols * 4, 128);
+    stage_bytes = sweep::round_up(piece_cols * item, 128);
+    total = ring + stages * stage_bytes;
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
+  return a;
+}
+
+// g[i] = 0 for valid_m <= i < m, spread over the whole grid
+__device__ __forceinline__ void zero_tail(float* g, int m, int valid_m) {
+  for (int i = valid_m + blockIdx.x * blockDim.x + threadIdx.x; i < m;
+       i += gridDim.x * blockDim.x)
+    g[i] = 0.f;
+}
+
+// v[j] = y[j] xi[j] for the chunk's columns, by the consumer threads
+__device__ __forceinline__ void stage_v(float* vs, const float* __restrict__ y,
+                                        const float* __restrict__ xi, int c0,
+                                        int cols, int tid, int stride) {
+  for (int j = tid; j < cols; j += stride) vs[j] = y[c0 + j] * xi[c0 + j];
+}
+
+// g[i] = -sum_j X[i, j] y[j] xi[j] for i < valid_m; 0 for valid_m <= i < m.
+// Rows of block b: [split_start(b, valid_m, grid), split_start(b + 1, ...)).
 template <typename T>
-__global__ void __launch_bounds__(kGradThreads)
-hinge_grad_kernel(const T* __restrict__ X, const float* __restrict__ y,
+__global__ void __launch_bounds__(sweep::kThreads, 1)
+hinge_grad_bulk(const T* __restrict__ X, const float* __restrict__ y,
+                const float* __restrict__ xi, int m, int n, int valid_m,
+                int chunk_cols, int piece_cols, int stages,
+                float* __restrict__ g) {
+  using namespace sweep;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const GradSmem lay(chunk_cols, piece_cols, stages, sizeof(T));
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* vs = reinterpret_cast<float*>(smem + lay.v);
+  unsigned char* ring = smem + lay.ring;
+  zero_tail(g, m, valid_m);
+  Barriers bar(smem);
+  bar.init();
+  const int row0 = split_start(blockIdx.x, valid_m, gridDim.x);
+  const int row1 = split_start(blockIdx.x + 1, valid_m, gridDim.x);
+  Ring r(stages);
+  if (threadIdx.x >= kConsumers) {  // the producer warp; one thread issues
+    if (threadIdx.x != kConsumers) return;
+    for (int c0 = 0; c0 < n; c0 += chunk_cols) {
+      const int cols = min(chunk_cols, n - c0);
+      for (int i = row0; i < row1; ++i) {
+        const T* row = X + static_cast<size_t>(i) * n + c0;
+        for (int p = 0; p < cols; p += piece_cols, r.advance()) {
+          const uint32_t bytes = min(piece_cols, cols - p) * sizeof(T);
+          bar.acquire(r, bytes);
+          bulk_load(ring + r.stage * lay.stage_bytes, row + p, bytes,
+                    &bar.full[r.stage]);
+        }
+      }
+    }
+    return;
+  }
+  constexpr int kN = Vec<T>::kN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int c0 = 0; c0 < n; c0 += chunk_cols) {
+    const int cols = min(chunk_cols, n - c0);
+    consumers_sync();  // every warp is done with the previous chunk's v
+    stage_v(vs, y, xi, c0, cols, tid, kConsumers);
+    consumers_sync();
+    for (int i = row0; i < row1; ++i) {
+      float acc[kN];
+#pragma unroll
+      for (int k = 0; k < kN; ++k) acc[k] = 0.f;
+      for (int p = 0; p < cols; p += piece_cols, r.advance()) {
+        const int units = min(piece_cols, cols - p) / kN;  // whole vectors
+        const unsigned char* src = ring + r.stage * lay.stage_bytes;
+        const float* v = vs + p;
+        bar.wait_full(r);
+        for (int q = tid; q < units; q += kConsumers) {
+          float x[kN];
+          Vec<T>::load(src + q * 16, x);
+#pragma unroll
+          for (int k = 0; k < kN; k += 4) {
+            const float4 vv = *reinterpret_cast<const float4*>(v + q * kN + k);
+            acc[k] = fmaf(x[k], vv.x, acc[k]);
+            acc[k + 1] = fmaf(x[k + 1], vv.y, acc[k + 1]);
+            acc[k + 2] = fmaf(x[k + 2], vv.z, acc[k + 2]);
+            acc[k + 3] = fmaf(x[k + 3], vv.w, acc[k + 3]);
+          }
+        }
+        bar.release(r);
+      }
+#pragma unroll
+      for (int w = kN / 2; w > 0; w >>= 1) {
+#pragma unroll
+        for (int k = 0; k < w; ++k) acc[k] += acc[k + w];
+      }
+      const float total = warp_sum(acc[0]);
+      float* slot = red + ((i - row0) & 1) * kConsumerWarps;  // two rows' slots
+      if (lane == 0) slot[warp] = total;
+      consumers_sync();
+      if (tid == 0) {
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < kConsumerWarps; ++k) sum += slot[k];
+        g[i] = c0 == 0 ? -sum : g[i] - sum;
+      }
+    }
+  }
+}
+
+// The scalar variant (rows not 16-byte aligned): the same rows per block;
+// warp w of the block owns rows row0 + w, row0 + w + 8, ...; v is staged in
+// shared memory per column chunk; lane l reads columns l, l + 32, ... of the
+// chunk into four accumulators in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(sweep::kConsumers)
+hinge_grad_scalar(const T* __restrict__ X, const float* __restrict__ y,
                   const float* __restrict__ xi, int m, int n, int valid_m,
-                  float* __restrict__ g) {
-  const int warp = (blockIdx.x * kGradThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = warp * kRowsPerWarp;
-  if (row0 >= m) return;  // uniform across the warp
-  const int live = max(0, min(kRowsPerWarp, valid_m - row0));
-  const size_t ld = static_cast<size_t>(n);
-  const T* p = X + static_cast<size_t>(row0) * ld;
-  float acc[kRowsPerWarp] = {0.f, 0.f, 0.f, 0.f};
-  if (live == kRowsPerWarp) {
-    for (int j = lane; j < n; j += 32) {
-      const float v = y[j] * xi[j];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        acc[r] = fmaf(to_f32(p[r * ld + j]), v, acc[r]);
+                  int chunk_cols, float* __restrict__ g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* vs = reinterpret_cast<float*>(smem);
+  zero_tail(g, m, valid_m);
+  const int row0 = sweep::split_start(blockIdx.x, valid_m, gridDim.x);
+  const int row1 = sweep::split_start(blockIdx.x + 1, valid_m, gridDim.x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < n; c0 += chunk_cols) {
+    const int cols = min(chunk_cols, n - c0);
+    __syncthreads();
+    stage_v(vs, y, xi, c0, cols, threadIdx.x, sweep::kConsumers);
+    __syncthreads();
+    for (int i = row0 + warp; i < row1; i += sweep::kConsumerWarps) {
+      const T* p = X + static_cast<size_t>(i) * n + c0;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      int j = lane;
+      for (; j + 96 < cols; j += 128) {
+        a0 = fmaf(to_f32(p[j]), vs[j], a0);
+        a1 = fmaf(to_f32(p[j + 32]), vs[j + 32], a1);
+        a2 = fmaf(to_f32(p[j + 64]), vs[j + 64], a2);
+        a3 = fmaf(to_f32(p[j + 96]), vs[j + 96], a3);
+      }
+      for (; j < cols; j += 32) a0 = fmaf(to_f32(p[j]), vs[j], a0);
+      const float sum = warp_sum((a0 + a1) + (a2 + a3));
+      if (lane == 0) g[i] = c0 == 0 ? -sum : g[i] - sum;
     }
-  } else if (live > 0) {
-    for (int j = lane; j < n; j += 32) {
-      const float v = y[j] * xi[j];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        if (r < live) acc[r] = fmaf(to_f32(p[r * ld + j]), v, acc[r]);
-    }
   }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+}
+
+template <typename T>
+cudaError_t launch_grad(const void* X, const float* y, const float* xi, int m,
+                        int n, int valid_m, int bulk, int grid, int chunk_cols,
+                        int piece_cols, int stages, float* g, cudaStream_t s) {
+  const T* x = static_cast<const T*>(X);
+  if (!bulk) {
+    const int smem = chunk_cols * 4;
+    cudaError_t err = cudaFuncSetAttribute(
+        hinge_grad_scalar<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    hinge_grad_scalar<T><<<grid, sweep::kConsumers, smem, s>>>(
+        x, y, xi, m, n, valid_m, chunk_cols, g);
+    return cudaGetLastError();
   }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    if (lane == r && row0 + r < m) g[row0 + r] = r < live ? -acc[r] : 0.f;
-  }
+  const int smem = GradSmem(chunk_cols, piece_cols, stages, sizeof(T)).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      hinge_grad_bulk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  hinge_grad_bulk<T><<<grid, sweep::kThreads, smem, s>>>(
+      x, y, xi, m, n, valid_m, chunk_cols, piece_cols, stages, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -196,23 +345,20 @@ int margin_obj(const void* X, int x_bf16, const float* w, const float* y,
   return cudaGetLastError();
 }
 
-// g = -X (y * xi) over rows < valid_m, zeros below. Returns cudaGetLastError().
+// g = -X (y * xi) over rows < valid_m, zeros below. The walk is the plan of
+// kernels/hinge.py `grad_plan` (bulk, grid, chunk_cols, piece_cols,
+// stages <= sweep::kMaxStages). Returns cudaGetLastError().
 int hinge_grad(const void* X, int x_bf16, const float* y, const float* xi,
-               int m, int n, int valid_m, float* g, int device, void* stream) {
+               int m, int n, int valid_m, int bulk, int grid, int chunk_cols,
+               int piece_cols, int stages, float* g, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows_per_block = (kGradThreads / 32) * kRowsPerWarp;
-  const int blocks = (m + rows_per_block - 1) / rows_per_block;
-  if (blocks == 0) return cudaSuccess;
-  if (x_bf16) {
-    hinge_grad_kernel<__nv_bfloat16><<<blocks, kGradThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(X), y, xi, m, n, valid_m, g);
-  } else {
-    hinge_grad_kernel<float><<<blocks, kGradThreads, 0, s>>>(
-        static_cast<const float*>(X), y, xi, m, n, valid_m, g);
-  }
-  return cudaGetLastError();
+  return x_bf16 ? launch_grad<__nv_bfloat16>(X, y, xi, m, n, valid_m, bulk,
+                                             grid, chunk_cols, piece_cols,
+                                             stages, g, s)
+                : launch_grad<float>(X, y, xi, m, n, valid_m, bulk, grid,
+                                     chunk_cols, piece_cols, stages, g, s);
 }
 
 }  // extern "C"

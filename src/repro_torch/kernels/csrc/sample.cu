@@ -15,17 +15,26 @@
 //
 // Bound on this card: one read of X (m * n * sizeof(X) bytes) and 4 m n
 // flops, ~1 flop per byte of fp32 X: HBM-bound (0.60 ms for an fp32
-// 50,000 x 10,000 X at 3.35 TB/s). The access pattern is the margin
-// kernel's (csrc/hinge.cu `margin_partial_kernel`), and so is the design:
-//  * the sample axis is contiguous, so one thread owns one column and a
-//    warp's load of a row segment is one 128-byte line;
+// 50,000 x 10,000 X at 3.35 TB/s). Tensor cores and wgmma cannot help a
+// column reduction (no operand reuse). The design (csrc/sweep.cuh):
 //  * the TPU carries the m-sum across its sequential grid; Hopper blocks
-//    cannot, so m is split across blockIdx.y (several blocks per SM) and
-//    each block writes two fp32 partial column sums (x.w1 and x.x) to
-//    scratch; a second kernel sums the partials in a fixed order and
-//    applies the finalizer. No float atomics: repeated calls give the same
-//    bits;
-//  * ragged edges are masked in the kernel, so nothing is padded;
+//    cannot. X is cut into tiles of a row slab x a column segment of up to
+//    4 x 16 bytes a consumer thread (3,360 fp32 columns, 13 KB a row, at
+//    n = 10,000); a persistent grid of one block per SM walks them
+//    (kernels/hinge.py `column_sweep_plan` makes the tile count a multiple
+//    of the grid: one tile a block at 50,000 x 10,000);
+//  * one producer thread streams each tile's row segments into a 4-stage
+//    shared-memory ring by cp.async.bulk (one copy a segment row, up to
+//    48 KB a stage); each consumer thread carries the two accumulators x.w1
+//    and x.x for its columns down the slab in row order, reading 16 bytes
+//    of shared memory a unit. On an H100 13 KB segments ran 7% faster
+//    than 4 KB ones (fewer, longer copies; scripts/torch_sweep_tune.py);
+//  * each slab writes two fp32 partial column sums (x.w1, x.x) to scratch;
+//    a second kernel sums the slabs in a fixed order and applies the
+//    finalizer. No float atomics: repeated calls give the same bits;
+//  * rows that are not 16-byte aligned (fp32 n % 4 != 0, bf16 n % 8 != 0,
+//    an offset view) take `sample_partial_scalar`, the same walk with
+//    direct loads; ragged edges are masked in the kernel, nothing is padded;
 //  * both mins propagate NaN (as jnp.minimum and torch.minimum do; CUDA's
 //    fminf drops it), so a poisoned anchor gives a NaN surplus, which the
 //    rule keeps.
@@ -35,15 +44,12 @@
 
 #include <cstddef>
 
+#include "sweep.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // columns per block, both kernels
+constexpr int kThreads = 256;  // columns per finalize block
 constexpr float kBig = 1e30f;  // stands in for inf (kernels/screen.py _BIG)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // min that propagates NaN from either side (jnp.minimum, torch.minimum)
 __device__ __forceinline__ float nmin(float a, float b) {
@@ -55,38 +61,78 @@ __device__ __forceinline__ float nmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// part[s, j] = sum_{i in split s} X[i, j] w1[i];
-// part[splits + s, j] = sum_{i in split s} X[i, j]^2
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sample_partial_kernel(const T* __restrict__ X, const float* __restrict__ w,
-                      int m, int n, int rows_per_split, int splits,
-                      float* __restrict__ part) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= n) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(r0 + rows_per_split, m);
-  const size_t ld = static_cast<size_t>(n);
-  const T* p = X + static_cast<size_t>(r0) * ld + j;
-  float acc_u = 0.f, acc_s = 0.f;
-  int i = r0;
-  for (; i + 8 <= r1; i += 8, p += 8 * ld) {
-    float x[8];
+// One consumer thread's sums for kSlots columns down a slab:
+// part[s, j] = sum_{i in slab s} X[i, j] w1[i];
+// part[slabs + s, j] = sum_{i in slab s} X[i, j]^2
+template <int kSlots>
+struct SurplusAcc {
+  const float* __restrict__ w;
+  float* __restrict__ part;
+  int n, slabs;
+  float u[kSlots], s[kSlots];
+
+  __device__ void begin() {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) x[r] = to_f32(p[r * ld]);
+    for (int q = 0; q < kSlots; ++q) u[q] = s[q] = 0.f;
+  }
+  __device__ void row(const float* x, int i) {
+    const float wi = __ldg(w + i);
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      acc_u = fmaf(x[r], __ldg(w + i + r), acc_u);
-      acc_s = fmaf(x[r], x[r], acc_s);
+    for (int q = 0; q < kSlots; ++q) {
+      u[q] = fmaf(x[q], wi, u[q]);
+      s[q] = fmaf(x[q], x[q], s[q]);
     }
   }
-  for (; i < r1; ++i, p += ld) {
-    const float x = to_f32(*p);
-    acc_u = fmaf(x, __ldg(w + i), acc_u);
-    acc_s = fmaf(x, x, acc_s);
+  __device__ void store(int slab, int q, int col) {
+    part[static_cast<size_t>(slab) * n + col] = u[q];
+    part[static_cast<size_t>(slabs + slab) * n + col] = s[q];
   }
-  part[static_cast<size_t>(blockIdx.y) * ld + j] = acc_u;
-  part[static_cast<size_t>(splits + blockIdx.y) * ld + j] = acc_s;
+};
+
+template <typename T, int kUnits>
+__global__ void __launch_bounds__(sweep::kThreads, 1)
+sample_partial_bulk(const T* __restrict__ X, const float* __restrict__ w,
+                    const sweep::ColumnPlan p, float* __restrict__ part) {
+  SurplusAcc<kUnits * sweep::Vec<T>::kN> acc{w, part, p.n, p.slabs};
+  sweep::column_sweep_bulk<T, kUnits>(X, p, acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(sweep::kConsumers)
+sample_partial_scalar(const T* __restrict__ X, const float* __restrict__ w,
+                      const sweep::ColumnPlan p, float* __restrict__ part) {
+  SurplusAcc<sweep::Vec<T>::kN> acc{w, part, p.n, p.slabs};
+  sweep::column_sweep_scalar(X, p, acc);
+}
+
+template <typename T, int kUnits>
+cudaError_t launch_bulk(const T* X, const float* w1, const sweep::ColumnPlan& p,
+                        int grid, float* part, cudaStream_t s) {
+  const int smem = sweep::column_smem_bytes(p, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(sample_partial_bulk<T, kUnits>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  sample_partial_bulk<T, kUnits><<<grid, sweep::kThreads, smem, s>>>(X, w1, p, part);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_partial(const void* X, const float* w1,
+                           const sweep::ColumnPlan& p, int bulk, int grid,
+                           float* part, cudaStream_t s) {
+  const T* x = static_cast<const T*>(X);
+  if (!bulk) {
+    sample_partial_scalar<T><<<grid, sweep::kConsumers, 0, s>>>(x, w1, p, part);
+    return cudaGetLastError();
+  }
+  // 16-byte units of a segment row per consumer thread: 1, 2 or 4
+  const int units = (p.seg_cols * static_cast<int>(sizeof(T)) + 16 * sweep::kConsumers - 1) /
+                    (16 * sweep::kConsumers);
+  if (units == 1) return launch_bulk<T, 1>(x, w1, p, grid, part, s);
+  if (units == 2) return launch_bulk<T, 2>(x, w1, p, grid, part, s);
+  if (units <= 4) return launch_bulk<T, 4>(x, w1, p, grid, part, s);
+  return cudaErrorInvalidValue;
 }
 
 // u = sum of the x.w1 partials + b1; surplus from u, ||x||^2, y, u_prev.
@@ -121,31 +167,28 @@ sample_finalize_kernel(const float* __restrict__ part, int splits, int n,
 
 extern "C" {
 
-// (surplus, u) for every sample column of X. Scratch: part is
-// (2 * splits, n) fp32. scalars: the 12 packed fp32 values of
-// kernels/screen.py pack_sample_scalars. u_prev is read only when
-// scalars[5] (has_history) is set. Returns cudaGetLastError().
+// (surplus, u) for every sample column of X. The walk is the plan of
+// kernels/hinge.py `column_sweep_plan` (bulk, grid, seg_cols, slabs,
+// stage_rows, stages). Scratch: part is (2 * slabs, n) fp32. scalars: the
+// 12 packed fp32 values of kernels/screen.py pack_sample_scalars. u_prev is
+// read only when scalars[5] (has_history) is set. Returns
+// cudaGetLastError().
 int screen_bounds_samples(const void* X, int x_bf16, const float* w1,
                           const float* y, const float* u_prev,
-                          const float* scalars, int m, int n,
-                          int rows_per_split, int splits, float* part,
-                          float* u, float* surplus, int device, void* stream) {
+                          const float* scalars, int m, int n, int bulk,
+                          int grid, int seg_cols, int slabs, int stage_rows,
+                          int stages, float* part, float* u, float* surplus,
+                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const sweep::ColumnPlan p{m, n, seg_cols, slabs, stage_rows, stages};
+  err = x_bf16 ? launch_partial<__nv_bfloat16>(X, w1, p, bulk, grid, part, s)
+               : launch_partial<float>(X, w1, p, bulk, grid, part, s);
+  if (err != cudaSuccess) return err;
   const int col_blocks = (n + kThreads - 1) / kThreads;
-  const dim3 grid(col_blocks, splits);
-  if (x_bf16) {
-    sample_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(X), w1, m, n, rows_per_split,
-        splits, part);
-  } else {
-    sample_partial_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(X), w1, m, n, rows_per_split, splits, part);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   sample_finalize_kernel<<<col_blocks, kThreads, 0, s>>>(
-      part, splits, n, y, u_prev, scalars, u, surplus);
+      part, slabs, n, y, u_prev, scalars, u, surplus);
   return cudaGetLastError();
 }
 

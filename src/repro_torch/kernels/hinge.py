@@ -17,7 +17,9 @@ the plain version beside it. The kernels replace the reference's Pallas
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,6 +27,8 @@ from . import build
 
 #: launches of each kernel in this process (reset by ``ops.reset_launch_counts``)
 LAUNCHES = {"margin_obj": 0, "hinge_grad": 0}
+#: launches of each variant of the redesigned gradient kernel
+VARIANTS = {"hinge_grad": {"bulk": 0, "scalar": 0}}
 
 _MARGIN_THREADS = 256     # csrc/hinge.cu kMarginThreads (= kFinThreads)
 _BLOCKS_PER_SM = 4        # margin partial blocks to aim for on each SM
@@ -58,6 +62,189 @@ def margin_splits(valid_m: int, n: int, device: torch.device) -> tuple[int, int]
     splits = max(1, min(want, valid_m // _MIN_ROWS_PER_SPLIT))
     rows_per_split = max(1, -(-valid_m // splits))
     return rows_per_split, max(1, -(-valid_m // rows_per_split))
+
+
+# -- launch plans of the persistent sweeps (csrc/sweep.cuh) -------------------
+# A bulk-variant block is one producer warp, which streams X into a ring of
+# shared-memory stages by cp.async.bulk, and SWEEP_CONSUMERS threads that
+# reduce from the ring. The scalar variant (rows not 16-byte aligned) runs
+# the same walk with direct loads. The grid is a whole number of waves of
+# the card's SMs; the plans depend only on the shape, the item size, the
+# alignment and the SM count, so a repeated call sums in the same order.
+SWEEP_CONSUMERS = 256          # csrc/sweep.cuh kConsumers
+MAX_STAGES = 8                 # csrc/sweep.cuh kMaxStages
+MAX_STAGE_ROWS = 8             # csrc/sweep.cuh kMaxStageRows
+SMEM_PER_BLOCK = 232_448       # the most dynamic shared memory a block may use
+SCALAR_BLOCKS_PER_SM = 4       # the scalar variants hold no ring
+# the gradient: v = y * xi staged GRAD_V_COLS columns at a time (64 KB);
+# each row read in pieces of at most GRAD_STAGE_BYTES, one piece a stage
+GRAD_V_COLS = 16 * 1024
+GRAD_STAGE_BYTES = 32 * 1024
+GRAD_STAGES = 4
+# the column sweep: a segment row is up to COLUMN_UNITS 16-byte units a
+# consumer thread (csrc/sample.cu instantiates 1, 2 and 4), its width a
+# multiple of 128 bytes; a stage holds up to COLUMN_STAGE_BYTES of segment
+# rows (at most MAX_STAGE_ROWS). Chosen on an H100 at 50,000 x 10,000
+# fp32 with scripts/torch_sweep_tune.py: 4 units and 48 KB stages ran 7%
+# faster than 1 unit and 32 KB.
+COLUMN_UNITS = 4
+COLUMN_STAGE_BYTES = 48 * 1024
+COLUMN_STAGES = 4
+COLUMN_SEG_ALIGN = 128
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+def split_start(i: int, total: int, parts: int) -> int:
+    """Start of run ``i`` when ``total`` items are cut into ``parts``
+    consecutive runs whose lengths differ by at most one (csrc/sweep.cuh
+    ``split_start``)."""
+    q, r = divmod(total, parts)
+    return i * q + min(i, r)
+
+
+def rows_aligned(address: int, n: int, itemsize: int) -> bool:
+    """True when every row of an (m, n) row-major array at ``address``
+    starts on a 16-byte boundary, the condition of the bulk copies: the base
+    address and the row length in bytes are multiples of 16 (fp32
+    n % 4 == 0, bf16 n % 8 == 0)."""
+    return address % 16 == 0 and (n * itemsize) % 16 == 0
+
+
+def bulk_aligned(X: torch.Tensor) -> bool:
+    return rows_aligned(X.data_ptr(), X.shape[1], X.element_size())
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class GradPlan(NamedTuple):
+    """How ``hinge_grad_op`` cuts ``g = -X v``: block ``b`` owns the live
+    rows :meth:`rows` (a tile is one row); every row is read in the column
+    pieces :meth:`pieces`, in that order. ``v`` is staged ``chunk_cols``
+    columns at a time; a bulk-variant ring stage holds one piece."""
+
+    bulk: bool
+    grid: int
+    valid_m: int
+    n: int
+    itemsize: int
+    chunk_cols: int
+    piece_cols: int
+    stages: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block takes (csrc/hinge.cu GradSmem)."""
+        if not self.bulk:
+            return self.chunk_cols * 4
+        v = 16 * MAX_STAGES + 2 * (SWEEP_CONSUMERS // 32) * 4  # barriers, row sums
+        ring = _round_up(v + self.chunk_cols * 4, 128)
+        return ring + self.stages * _round_up(self.piece_cols * self.itemsize, 128)
+
+    def rows(self, b: int) -> range:
+        return range(split_start(b, self.valid_m, self.grid),
+                     split_start(b + 1, self.valid_m, self.grid))
+
+    def pieces(self) -> list[tuple[int, int]]:
+        out = []
+        for c0 in range(0, self.n, self.chunk_cols):
+            c1 = min(c0 + self.chunk_cols, self.n)
+            out += [(p, min(p + self.piece_cols, c1))
+                    for p in range(c0, c1, self.piece_cols)]
+        return out
+
+
+@functools.lru_cache(maxsize=256)
+def grad_plan(valid_m: int, n: int, itemsize: int, aligned: bool,
+              sms: int) -> GradPlan:
+    """The gradient sweep's plan (see :class:`GradPlan`). Bulk variant: one
+    block per SM (its ring and v take ~120 KB of shared memory at n =
+    10,000 fp32); scalar variant: :data:`SCALAR_BLOCKS_PER_SM`."""
+    vec = 16 // itemsize
+    grid = sms * (1 if aligned else SCALAR_BLOCKS_PER_SM)
+    chunk = _round_up(_cdiv(n, _cdiv(n, GRAD_V_COLS)), vec)
+    piece = chunk
+    if aligned:
+        piece = _round_up(_cdiv(chunk, _cdiv(chunk * itemsize, GRAD_STAGE_BYTES)), vec)
+    return GradPlan(aligned, grid, valid_m, n, itemsize, chunk, piece, GRAD_STAGES)
+
+
+class ColumnSweepPlan(NamedTuple):
+    """How a column-reduction sweep (the sample surplus here; the margin
+    sweep's next design) cuts X: ``segs`` column segments of ``seg_cols``
+    columns (COLUMN_UNITS x 16 bytes a consumer thread) times ``slabs`` row
+    slabs whose sizes differ by at most one row. Tile ``t`` is segment
+    ``t // slabs``, slab ``t % slabs``; block ``b`` takes the consecutive
+    tiles :meth:`tiles_of`. Slab ``s`` writes its partial column sums to row
+    ``s`` of the scratch, and a finalizer sums the slabs in order. A ring
+    stage holds ``stage_rows`` segment rows of one tile."""
+
+    bulk: bool
+    grid: int
+    m: int
+    n: int
+    itemsize: int
+    seg_cols: int
+    slabs: int
+    stage_rows: int
+    stages: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block takes (csrc/sweep.cuh
+        column_smem_bytes)."""
+        if not self.bulk:
+            return 0
+        return 16 * MAX_STAGES + self.stages * self.stage_rows * self.seg_cols * self.itemsize
+
+    @property
+    def segs(self) -> int:
+        return _cdiv(self.n, self.seg_cols)
+
+    @property
+    def tiles(self) -> int:
+        return self.segs * self.slabs
+
+    def tiles_of(self, b: int) -> range:
+        return range(split_start(b, self.tiles, self.grid),
+                     split_start(b + 1, self.tiles, self.grid))
+
+    def tile(self, t: int) -> tuple[range, range]:
+        """(rows, columns) of tile ``t``."""
+        c, s = divmod(t, self.slabs)
+        c0 = c * self.seg_cols
+        return (range(split_start(s, self.m, self.slabs),
+                      split_start(s + 1, self.m, self.slabs)),
+                range(c0, min(c0 + self.seg_cols, self.n)))
+
+
+@functools.lru_cache(maxsize=256)
+def column_sweep_plan(m: int, n: int, itemsize: int, aligned: bool,
+                      sms: int) -> ColumnSweepPlan:
+    """The column sweep's plan (see :class:`ColumnSweepPlan`). The slab
+    count is the least that makes the tile count a multiple of the grid, so
+    every block takes the same number of tiles, unless m has too few rows
+    for it (then the counts differ by at most one). The scalar variant
+    takes one 16-byte unit a thread."""
+    units = COLUMN_UNITS if aligned else 1
+    grid = sms * (1 if aligned else SCALAR_BLOCKS_PER_SM)
+    align = (COLUMN_SEG_ALIGN if aligned else 16) // itemsize
+    seg = _round_up(_cdiv(n, _cdiv(n * itemsize, units * 16 * SWEEP_CONSUMERS)), align)
+    seg = min(seg, units * 16 * SWEEP_CONSUMERS // itemsize)
+    segs = _cdiv(n, seg)
+    slabs = max(1, min(grid // math.gcd(grid, segs), m // MAX_STAGE_ROWS))
+    rows = max(1, min(MAX_STAGE_ROWS, COLUMN_STAGE_BYTES // (seg * itemsize)))
+    return ColumnSweepPlan(aligned, grid, m, n, itemsize, seg, slabs, rows,
+                           COLUMN_STAGES)
 
 
 def margin_obj_op(X, w, y, b, valid_m: Optional[int] = None):
@@ -115,11 +302,14 @@ def hinge_grad_op(X, y, xi, valid_m: Optional[int] = None):
     vm = _live_rows(X, valid_m)
     build.check_vector(y, n, X, "y")
     build.check_vector(xi, n, X, "xi")
+    plan = grad_plan(vm, n, X.element_size(), bulk_aligned(X), sm_count(X.device))
     g = torch.empty((m,), dtype=torch.float32, device=X.device)
     dev, stream = build.stream_and_device(X)
     err = build.library().hinge_grad(
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
-        xi.data_ptr(), m, n, vm, g.data_ptr(), dev, stream)
+        xi.data_ptr(), m, n, vm, int(plan.bulk), plan.grid, plan.chunk_cols,
+        plan.piece_cols, plan.stages, g.data_ptr(), dev, stream)
     build.check(err, "hinge_grad")
     LAUNCHES["hinge_grad"] += 1
+    VARIANTS["hinge_grad"]["bulk" if plan.bulk else "scalar"] += 1
     return g

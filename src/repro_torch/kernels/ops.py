@@ -20,6 +20,7 @@ from .screen import (  # noqa: F401
 )
 
 _COUNTERS = (_hinge.LAUNCHES, _screen.LAUNCHES)
+_VARIANTS = (_hinge.VARIANTS, _screen.VARIANTS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -30,7 +31,20 @@ def launch_counts() -> dict[str, int]:
     return out
 
 
+def variant_counts() -> dict[str, dict[str, int]]:
+    """Launches of each variant (``"bulk"``, ``"scalar"``) of the kernels
+    that have two, by kernel name."""
+    out: dict[str, dict[str, int]] = {}
+    for counter in _VARIANTS:
+        out.update({name: dict(v) for name, v in counter.items()})
+    return out
+
+
 def reset_launch_counts() -> None:
     for counter in _COUNTERS:
         for name in counter:
             counter[name] = 0
+    for counter in _VARIANTS:
+        for per_variant in counter.values():
+            for v in per_variant:
+                per_variant[v] = 0

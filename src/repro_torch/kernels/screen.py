@@ -31,10 +31,12 @@ from ..core.screening import (
     shared_scalars,
 )
 from . import build
-from .hinge import margin_splits
+from .hinge import bulk_aligned, column_sweep_plan, sm_count
 
 #: launches of the kernel in this process (reset by ``ops.reset_launch_counts``)
 LAUNCHES = {"screen_bounds": 0, "sample_surplus": 0}
+#: launches of each variant of the redesigned sample-surplus kernel
+VARIANTS = {"sample_surplus": {"bulk": 0, "scalar": 0}}
 
 NUM_SCALARS = 12  # packed scalars, padded as in the reference
 _BIG = 1e30  # stands in for inf in the sample finalizer (no 0 * inf = NaN)
@@ -146,9 +148,10 @@ def sample_surplus_op(X, w1, y, b1, dw=float("inf"), db=float("inf"),
         build.check_vector(u_prev, n, X, "u_prev")
     scalars = pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
                                   u_prev is not None, device=X.device)
-    rows_per_split, splits = margin_splits(m, n, X.device)
+    plan = column_sweep_plan(m, n, X.element_size(), bulk_aligned(X),
+                             sm_count(X.device))
     f32 = dict(dtype=torch.float32, device=X.device)
-    part = torch.empty((2 * splits, n), **f32)
+    part = torch.empty((2 * plan.slabs, n), **f32)
     u = torch.empty((n,), **f32)
     surplus = torch.empty((n,), **f32)
     dev, stream = build.stream_and_device(X)
@@ -156,8 +159,10 @@ def sample_surplus_op(X, w1, y, b1, dw=float("inf"), db=float("inf"),
     err = build.library().screen_bounds_samples(
         X.data_ptr(), int(X.dtype == torch.bfloat16), w1.data_ptr(),
         y.data_ptr(), (y if u_prev is None else u_prev).data_ptr(),
-        scalars.data_ptr(), m, n, rows_per_split, splits, part.data_ptr(),
-        u.data_ptr(), surplus.data_ptr(), dev, stream)
+        scalars.data_ptr(), m, n, int(plan.bulk), plan.grid, plan.seg_cols,
+        plan.slabs, plan.stage_rows, plan.stages, part.data_ptr(), u.data_ptr(),
+        surplus.data_ptr(), dev, stream)
     build.check(err, "sample_surplus")
     LAUNCHES["sample_surplus"] += 1
+    VARIANTS["sample_surplus"]["bulk" if plan.bulk else "scalar"] += 1
     return surplus, u

@@ -11,6 +11,7 @@ absolute floor of 1e-5 of the output's scale, for fp32 and bf16 X alike
 ``valid_m`` are zero in X and w, as the compaction contract requires.
 """
 
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -187,24 +188,145 @@ def test_sample_surplus_propagates_nan():
     assert torch.isnan(surplus[5]) and bool(torch.isfinite(surplus[6:]).all())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", SHAPES + [(4096, 10000)])
+# -- launch plans of the persistent sweeps (pure Python, no card) -----------
+PLAN_SHAPES = [(64, 64), (128, 256), (300, 200), (513, 130), (4096, 10000),
+               (50000, 10000)]
+PLAN_SMS = [114, 132]
+ITEMSIZE = {"f32": 4, "bf16": 2}
+# base address offsets in bytes: aligned, one fp32 / bf16 item in
+OFFSETS = [0, 4, 2]
+
+
+def _plan_cases():
+    for m, n in PLAN_SHAPES:
+        for dt, es in ITEMSIZE.items():
+            for sms in PLAN_SMS:
+                for off in OFFSETS:
+                    yield pytest.param(m, n, es, sms, off,
+                                       id=f"{m}x{n}-{dt}-sm{sms}-off{off}")
+
+
+@pytest.mark.parametrize("m,n,itemsize,sms,offset", list(_plan_cases()))
+def test_grad_plan_covers_rows_and_columns_once(m, n, itemsize, sms, offset):
+    aligned = hinge.rows_aligned(4096 + offset, n, itemsize)
+    assert aligned == (offset == 0 and (n * itemsize) % 16 == 0)
+    for vm in (m, m // 3, 37 % (m + 1), 1):
+        plan = hinge.grad_plan(vm, n, itemsize, aligned, sms)
+        assert plan == hinge.grad_plan(vm, n, itemsize, aligned, sms)
+        assert plan.bulk == aligned
+        assert plan.grid % sms == 0  # whole waves
+        rows = [list(plan.rows(b)) for b in range(plan.grid)]
+        assert sorted(r for rs in rows for r in rs) == list(range(vm))
+        sizes = [len(rs) for rs in rows]
+        assert max(sizes) - min(sizes) <= 1  # a tile is one row
+        pieces = plan.pieces()
+        assert [p for p0, p1 in pieces for p in range(p0, p1)] == list(range(n))
+        assert plan.chunk_cols <= hinge.GRAD_V_COLS
+        assert 1 <= plan.stages <= hinge.MAX_STAGES
+        assert plan.smem_bytes <= hinge.SMEM_PER_BLOCK
+        if plan.bulk:  # every copy is whole 16-byte units, at most one stage
+            vec = 16 // itemsize
+            assert all(p0 % vec == 0 and (p1 - p0) % vec == 0 for p0, p1 in pieces)
+            assert max(p1 - p0 for p0, p1 in pieces) * itemsize <= hinge.GRAD_STAGE_BYTES
+
+
+@pytest.mark.parametrize("m,n,itemsize,sms,offset", list(_plan_cases()))
+def test_column_sweep_plan_covers_every_cell_once(m, n, itemsize, sms, offset):
+    aligned = hinge.rows_aligned(4096 + offset, n, itemsize)
+    plan = hinge.column_sweep_plan(m, n, itemsize, aligned, sms)
+    assert plan == hinge.column_sweep_plan(m, n, itemsize, aligned, sms)
+    assert plan.bulk == aligned
+    assert plan.grid % sms == 0  # whole waves
+    owned = [t for b in range(plan.grid) for t in plan.tiles_of(b)]
+    assert owned == list(range(plan.tiles))  # each tile in one block, in order
+    counts = [len(plan.tiles_of(b)) for b in range(plan.grid)]
+    assert max(counts) - min(counts) <= 1
+    if plan.grid // math.gcd(plan.grid, plan.segs) <= m // hinge.MAX_STAGE_ROWS:
+        assert plan.tiles % plan.grid == 0  # enough rows: equal shares
+    # segments x slabs partition the matrix: columns and rows each once
+    segs = [plan.tile(c * plan.slabs)[1] for c in range(plan.segs)]
+    assert [j for seg in segs for j in seg] == list(range(n))
+    slabs = [plan.tile(s)[0] for s in range(plan.slabs)]
+    assert [i for sl in slabs for i in sl] == list(range(m))
+    assert max(map(len, slabs)) - min(map(len, slabs)) <= 1
+    assert all(plan.tile(t) == (slabs[t % plan.slabs], segs[t // plan.slabs])
+               for t in range(plan.tiles))
+    units = hinge.COLUMN_UNITS if plan.bulk else 1  # 16-byte units a thread
+    assert plan.seg_cols * itemsize <= units * 16 * hinge.SWEEP_CONSUMERS
+    assert 1 <= plan.stage_rows <= hinge.MAX_STAGE_ROWS
+    assert 1 <= plan.stages <= hinge.MAX_STAGES
+    assert plan.smem_bytes <= hinge.SMEM_PER_BLOCK
+    if plan.bulk:
+        assert (plan.seg_cols * itemsize) % 16 == 0
+    if m * n <= 300 * 200:  # small shapes: count every cell
+        hits = np.zeros((m, n), np.int64)
+        for t in range(plan.tiles):
+            rows, cols = plan.tile(t)
+            hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+        assert (hits == 1).all()
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-def test_cuda_kernels_match_plain(shape, dtype):
+def test_bulk_variant_follows_the_tensors_alignment(dtype):
+    """Views that start off a 16-byte boundary, or rows whose length is not
+    a multiple of 16 bytes, take the scalar variant."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    base = torch.zeros((9, 8 * vec), dtype=dtype)
+    assert hinge.bulk_aligned(base) == (base.data_ptr() % 16 == 0)
+    odd = torch.zeros((9, 8 * vec + 1), dtype=dtype)
+    assert not hinge.bulk_aligned(odd) and not hinge.bulk_aligned(odd[1:])
+    assert hinge.bulk_aligned(base[1:]) == hinge.bulk_aligned(base)
+    assert not hinge.bulk_aligned(base.view(-1)[1:].view(-1)[: 8 * 8 * vec].view(8, -1))
+
+
+# card shapes: the ragged ones, the path's width, bf16 n % 8 != 0 with fp32
+# n % 4 == 0, and rows wider than one staged v chunk (aligned and not)
+GPU_SHAPES = SHAPES + [(4096, 10000), (128, 260), (96, 20000), (40, 20001)]
+
+
+def _launched(table, call):
+    """(result, variants launched) of one wrapper call."""
+    before = dict(table)
+    out = call()
+    return out, [v for v in table if table[v] > before[v]]
+
+
+def _on_card(t, offset):
+    """``t`` on the card; with ``offset``, as the view ``X[1:]`` of a
+    buffer one row taller (its base moves by one row's bytes)."""
+    if not offset:
+        return t.cuda()
+    buf = torch.zeros((t.shape[0] + 1, *t.shape[1:]), dtype=t.dtype, device="cuda")
+    buf[1:] = t.cuda()
+    return buf[1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
+def test_cuda_kernels_match_plain(shape, dtype, offset):
     """Card only: each CUDA kernel against its plain version on the same
-    device tensors. Tolerance rtol 1e-5 (fp32 sums in different orders)."""
+    device tensors; the gradient takes the bulk variant exactly when X's
+    rows are 16-byte aligned and repeats its bits. Tolerance rtol 1e-5
+    (fp32 sums in different orders)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     m, n = shape
     for valid_m in (1, 37, m):
-        X, w, y, xi = (t.cuda() for t in _inputs(m, n, dtype, valid_m, seed=7))
+        X, w, y, xi = _inputs(m, n, dtype, valid_m, seed=7)
+        X, w, y, xi = _on_card(X, offset), w.cuda(), y.cuda(), xi.cuda()
         b = torch.tensor(0.21, device="cuda")
         for got, want in zip(hinge.margin_obj_op(X, w, y, b, valid_m),
                              hinge.margin_obj_plain(X, w, y, b, valid_m)):
             _close(got.cpu(), want.cpu())
-        _close(hinge.hinge_grad_op(X, y, xi, valid_m).cpu(),
-               hinge.hinge_grad_plain(X, y, xi, valid_m).cpu())
+        g, launched = _launched(hinge.VARIANTS["hinge_grad"],
+                                lambda: hinge.hinge_grad_op(X, y, xi, valid_m))
+        assert launched == ["bulk" if hinge.bulk_aligned(X) else "scalar"]
+        _close(g.cpu(), hinge.hinge_grad_plain(X, y, xi, valid_m).cpu())
+        assert bool((g[valid_m:] == 0).all())
+        assert torch.equal(g, hinge.hinge_grad_op(X, y, xi, valid_m))
     lmax = float(lambda_max(X.float(), y))
     theta = theta_at_lambda_max(y, lmax)
     sh = shared_scalars(y, lmax, 0.5 * lmax, theta, delta=0.02)
@@ -213,23 +335,27 @@ def test_cuda_kernels_match_plain(shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SHAPES + [(4096, 10000)])
+@pytest.mark.parametrize("shape", GPU_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-def test_cuda_sample_surplus_matches_plain(shape, dtype):
+@pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
+def test_cuda_sample_surplus_matches_plain(shape, dtype, offset):
     """Card only: the sample-surplus kernel against its plain version, with
-    and without history, radii inf and finite; a repeated call gives the
-    same bits. Tolerance rtol 1e-5 (fp32 sums in different orders)."""
+    and without history, radii inf and finite, in the variant X's alignment
+    allows; a repeated call gives the same bits. Tolerance rtol 1e-5 (fp32
+    sums in different orders)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     m, n = shape
     for history in (False, True):
         X, w1, y, u_prev = _sample_inputs(m, n, dtype, history, seed=10)
-        X, w1, y = X.cuda(), w1.cuda(), y.cuda()
+        X, w1, y = _on_card(X, offset), w1.cuda(), y.cuda()
         u_prev = None if u_prev is None else u_prev.cuda()
         for dw, db in RADII.values():
             args = (X, w1, y, 0.17, dw, db, u_prev)
-            got = screen.sample_surplus_op(*args)
+            got, launched = _launched(screen.VARIANTS["sample_surplus"],
+                                      lambda: screen.sample_surplus_op(*args))
+            assert launched == ["bulk" if hinge.bulk_aligned(X) else "scalar"]
             want = screen.sample_surplus_plain(*args)
             for g, p in zip(got, want):
                 _close(g.cpu(), p.cpu())

@@ -135,3 +135,21 @@ def test_refused_certificate_keeps_every_feature(bench, monkeypatch):
     assert not any(h & HEALTH_SCREEN_REFUSED for i, h in
                    enumerate(res.extras["health"]) if i != 3)
     np.testing.assert_allclose(res.objectives, port.objectives, rtol=REL)
+
+
+@pytest.mark.parametrize("reduce", ["gather", "mask"])
+def test_kept_samples_match_reference(reduce):
+    """A grid that starts below lambda_max solves step 0 unscreened: both
+    packages report kept[0] = m and the reference's kept_samples[0] = 0."""
+    ds = make_sparse_classification(m=300, n=120, seed=21)
+    L = float(lipschitz_estimate(torch.from_numpy(ds.X)))
+    lmax = RefDriver("composite", L=L, reduce=reduce).run(
+        ds.X, ds.y, n_lambdas=2).extras["lam_max"]
+    lams = lmax * np.geomspace(0.8, 0.1, 4)
+    r = RefDriver("composite", L=L, reduce=reduce).run(ds.X, ds.y, lambdas=lams)
+    p = PathDriver("composite", L=L, reduce=reduce, device="cpu").run(
+        ds.X, ds.y, lambdas=lams)
+    assert p.solver_iters[0] > 0
+    assert p.kept[0] == r.kept[0] == 300
+    assert p.kept_samples[0] == r.kept_samples[0]
+    np.testing.assert_allclose(p.objectives, r.objectives, rtol=REL)
