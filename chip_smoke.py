@@ -20,10 +20,11 @@ n = 10,000 samples, fp32):
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
-gradient or sample-surplus kernel ran its scalar variant there (the
-full-width paths' rows are 16-byte aligned: every launch must take the
-bulk-copy variant). The kernel checks include shapes and views that reach
-both variants of both kernels (``VARIANT_CASES``). Every phase
+margin, gradient or sample-surplus kernel ran its scalar variant there
+(the full-width paths' rows are 16-byte aligned: every launch must take
+the bulk-copy variant). The kernel checks include shapes and views that
+reach both variants of all three kernels (``VARIANT_CASES``), and the
+margin with no live row (``valid_m = 0``). Every phase
 prints one JSON line; any failed check raises and the script exits
 non-zero. The last lines are the ``{"kernels": [...]}`` record (times on
 this card, bounds, launch counts) and ``{"ok": true, "device": {...}}``.
@@ -104,12 +105,13 @@ class Kernels:
         self.hinge, self.screen, self.shared_scalars = hinge, screen, shared_scalars
         self.max_err = {"margin_obj": 0.0, "hinge_grad": 0.0, "screen_bounds": 0.0,
                         "sample_surplus": 0.0}
-        self.variants_seen = {"hinge_grad": set(), "sample_surplus": set()}
+        self.variants_seen = {"margin_obj": set(), "hinge_grad": set(),
+                              "sample_surplus": set()}
 
     def _variant(self, name, counts, X, where):
         """The variant a kernel just launched: the bulk one exactly when
         X's rows are 16-byte aligned."""
-        table = (self.hinge.VARIANTS if name == "hinge_grad" else self.screen.VARIANTS)[name]
+        table = {**self.hinge.VARIANTS, **self.screen.VARIANTS}[name]
         launched = [v for v in table if table[v] > counts[v]]
         want = "bulk" if self.hinge.bulk_aligned(X) else "scalar"
         require(launched == [want], f"{name} {where}: launched {launched}, want {want}")
@@ -125,13 +127,18 @@ class Kernels:
 
     def margin(self, X, w, y, b, vm, where):
         h = self.hinge
+        before = dict(h.VARIANTS["margin_obj"])
         got = h.margin_obj_op(X, w, y, b, vm)
+        variant = self._variant("margin_obj", before, X, where)
         want = h.margin_obj_plain(X, w, y, b, vm)
         torch.cuda.synchronize()
+        if vm == 0:  # no live row: nothing is read
+            require(bool((got[0] == 0).all()), f"margin_obj {where}: u not 0")
         # u sums vm terms; xi inherits u's error; the loss sums n terms
         k = vm + X.shape[1]
-        return {part: self._check("margin_obj", g, p, k, f"{where} {part}")
-                for part, g, p in zip(("u", "xi", "loss"), got, want)}
+        out = {part: self._check("margin_obj", g, p, k, f"{where} {part}")
+               for part, g, p in zip(("u", "xi", "loss"), got, want)}
+        return {**out, "variant": variant}
 
     def grad(self, X, y, xi, vm, where):
         before = dict(self.hinge.VARIANTS["hinge_grad"])
@@ -200,8 +207,9 @@ def phase_build(build) -> None:
 
 def phase_kernels_ragged(K, gen) -> None:
     """Every kernel at the ragged test shapes and the variant cases, fp32
-    and bf16, valid_m < m; each redesigned kernel must take the variant its
-    input's alignment allows, and both variants of both kernels must run."""
+    and bf16, valid_m < m (the margin also at valid_m = 0); each redesigned
+    kernel must take the variant its input's alignment allows, and both
+    variants of each must run."""
     for m, n, off in [(m, n, 0) for m, n in RAGGED] + VARIANT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             X = torch.randn(m + off, n, generator=gen).to("cuda", dtype)[off:]
@@ -209,7 +217,7 @@ def phase_kernels_ragged(K, gen) -> None:
             y = torch.where(torch.rand(n, generator=gen) < 0.6, 1.0, -1.0).cuda()
             xi = torch.rand(n, generator=gen).cuda()
             b = torch.tensor(0.2, device="cuda")
-            res = {}
+            res = {"margin_vm0": K.margin(X, w, y, b, 0, f"{m}x{n} {dtype} vm=0")}
             for vm in (1, 37, m):
                 res[f"margin_vm{vm}"] = K.margin(X, w, y, b, vm, f"{m}x{n} {dtype} vm={vm}")
                 res[f"grad_vm{vm}"] = K.grad(X, y, xi, vm, f"{m}x{n} {dtype} vm={vm}")
@@ -241,7 +249,8 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
             res[f"grad_vm{vm}"] = K.grad(Xd, y, xi, vm, f"full {dtype} vm={vm}")
         res["screen"] = K.bounds(Xd, y, theta, sh, f"full {dtype}")
         res["sample_surplus"] = K.surplus(Xd, w, y, gen, f"full {dtype}")
-        require(res["grad_vm%d" % m]["variant"] == "bulk"
+        require(res["margin_vm%d" % m]["variant"] == "bulk"
+                and res["grad_vm%d" % m]["variant"] == "bulk"
                 and res["sample_surplus"]["hist=True dw=0.37 variant"] == "bulk",
                 f"full {dtype}: the redesigned kernels did not take the bulk variant")
         # the stop rule ties on fp32 plateaus: a repeated call must give the
@@ -285,7 +294,7 @@ def phase_path(svm_path, ops, X, y) -> tuple:
     launches = ops.launch_counts()
     require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds")),
             f"a kernel of the path was never launched: {launches}")
-    variants = require_bulk(ops, launches, ("hinge_grad",), "feature path")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"), "feature path")
     require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
     require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
     solve_s = res.extras["solve_times"]
@@ -389,7 +398,7 @@ def phase_composite_path(svm_path, ops, X, y) -> tuple:
     require(launches["sample_surplus"] == steps,
             f"sample_surplus launched {launches['sample_surplus']} times, "
             f"not once on each of the {steps} screened steps")
-    variants = require_bulk(ops, launches, ("hinge_grad", "sample_surplus"),
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad", "sample_surplus"),
                             "composite path")
     require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
     require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
@@ -570,8 +579,10 @@ def phase_timing(K, res, launches, res_c, launches_c, X, y, max_err) -> list:
         row["launches_composite_path"] = int(launches_c[row["name"]])
     sms = hinge.sm_count(X.device)
     gp = hinge.grad_plan(kept, n, Xr.element_size(), hinge.bulk_aligned(Xr), sms)
+    mp = hinge.column_sweep_plan(kept, n, Xr.element_size(), hinge.bulk_aligned(Xr), sms)
     cp = hinge.column_sweep_plan(m, n, X.element_size(), hinge.bulk_aligned(X), sms)
     emit({"phase": "plans", "sms": sms,
+          "margin_obj": {**mp._asdict(), "tiles": mp.tiles, "smem_bytes": mp.smem_bytes},
           "hinge_grad": {**gp._asdict(), "smem_bytes": gp.smem_bytes},
           "sample_surplus": {**cp._asdict(), "tiles": cp.tiles,
                              "smem_bytes": cp.smem_bytes}})

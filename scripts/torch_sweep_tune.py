@@ -1,6 +1,7 @@
-"""Time the port's persistent sweeps (the sample-surplus column sweep and the
-gradient) under several choices of their launch-plan constants, in one
-process on one GPU, beside the PyTorch call that reads the same bytes.
+"""Time the port's persistent sweeps (the column sweep of the margin and of
+the sample surplus, and the gradient) under several choices of their
+launch-plan constants, in one process on one GPU, beside the PyTorch call
+that reads the same bytes.
 
     python scripts/torch_sweep_tune.py
 
@@ -8,9 +9,11 @@ Each choice sets the constants of ``kernels/hinge.py`` (for the column
 sweep: ``COLUMN_UNITS``, ``COLUMN_STAGE_BYTES``, ``COLUMN_STAGES``,
 ``COLUMN_SEG_ALIGN``; for the gradient: ``GRAD_STAGE_BYTES``,
 ``GRAD_STAGES``), checks the kernel against its plain version, and times
-it (CUDA events, mean of 30 calls). The first choice of each list is
-repeated last, to show the drift within the run. X is fp32 (and, for the
-column sweep, bf16) 50,000 x 10,000 from a seeded CUDA generator. Prints
+it (CUDA events, mean of 30 calls). The column sweep's choices are timed
+for the margin (all rows live; ``torch.mv(X.t(), w)`` beside it) and for
+the sample surplus (``torch.mv(X.t(), w1)``). The first choice of each list
+is repeated last, to show the drift within the run. X is fp32 (and, for
+the column sweep, bf16) 50,000 x 10,000 from a seeded CUDA generator. Prints
 one JSON line a choice and the card's name and power limit. Needs a CUDA
 GPU and nvcc.
 """
@@ -28,6 +31,7 @@ from repro_torch.kernels import build, hinge, screen  # noqa: E402
 # (COLUMN_UNITS, COLUMN_STAGE_BYTES, COLUMN_STAGES, COLUMN_SEG_ALIGN)
 COLUMN = [(1, 32768, 4, 16), (2, 32768, 4, 16), (4, 32768, 4, 16),
           (4, 49152, 4, 16), (4, 49152, 4, 128), (4, 65536, 3, 128),
+          (4, 32768, 6, 128),
           (1, 32768, 4, 16)]
 # (GRAD_STAGE_BYTES, GRAD_STAGES)
 GRAD = [(32768, 4), (8192, 8), (16384, 6), (49152, 4), (32768, 4)]
@@ -67,21 +71,26 @@ def main() -> int:
     u_prev = torch.randn(n, device="cuda", generator=g)
     v = y * xi
     sms = hinge.sm_count(X.device)
+    b = torch.tensor(0.1, device="cuda")
     for Xd in (X, X.to(torch.bfloat16)):
-        args = (Xd, w1, y, 0.1, 0.3, 0.02, u_prev)
-        want = screen.sample_surplus_plain(*args)
         lib = timed_ms(lambda: torch.mv(Xd.t(), w1.to(Xd.dtype)))
-        for cfg in COLUMN:
-            (hinge.COLUMN_UNITS, hinge.COLUMN_STAGE_BYTES, hinge.COLUMN_STAGES,
-             hinge.COLUMN_SEG_ALIGN) = cfg
-            hinge.column_sweep_plan.cache_clear()
-            plan = hinge.column_sweep_plan(m, n, Xd.element_size(), True, sms)
-            err = max_err(screen.sample_surplus_op(*args), want)
-            print(json.dumps({
-                "kernel": "sample_surplus", "dtype": str(Xd.dtype), "choice": cfg,
-                "plan": plan._asdict(), "smem_bytes": plan.smem_bytes,
-                "max_abs_err": err, "ms": timed_ms(lambda: screen.sample_surplus_op(*args)),
-                "library_ms": lib}), flush=True)
+        sweeps = (
+            ("margin_obj", (Xd, w1, y, b), hinge.margin_obj_op, hinge.margin_obj_plain),
+            ("sample_surplus", (Xd, w1, y, 0.1, 0.3, 0.02, u_prev),
+             screen.sample_surplus_op, screen.sample_surplus_plain))
+        for name, args, op, plain in sweeps:
+            want = plain(*args)
+            for cfg in COLUMN:
+                (hinge.COLUMN_UNITS, hinge.COLUMN_STAGE_BYTES, hinge.COLUMN_STAGES,
+                 hinge.COLUMN_SEG_ALIGN) = cfg
+                hinge.column_sweep_plan.cache_clear()
+                plan = hinge.column_sweep_plan(m, n, Xd.element_size(), True, sms)
+                err = max_err(op(*args), want)
+                print(json.dumps({
+                    "kernel": name, "dtype": str(Xd.dtype), "choice": cfg,
+                    "plan": plan._asdict(), "smem_bytes": plan.smem_bytes,
+                    "max_abs_err": err, "ms": timed_ms(lambda: op(*args)),
+                    "library_ms": lib}), flush=True)
     want = hinge.hinge_grad_plain(X, y, xi)
     lib = timed_ms(lambda: torch.mv(X, v))
     for cfg in GRAD:

@@ -9,20 +9,24 @@
 // Bound on this card: each call reads X once (m * n * sizeof(X) bytes) and
 // does 2 m n flops, ~0.5 flop per byte of fp32 X, far below the H100's
 // ~20 fp32 flop/byte ridge. Both kernels are HBM-bound: at 3.35 TB/s an
-// fp32 50,000 x 10,000 X takes 0.60 ms. Design against that bound:
-//  * both sweeps read X along n, the contiguous axis: neighbouring threads
-//    read neighbouring addresses, so a warp's load is one 128-byte line;
-//  * margin: the TPU carries the m-sum across its sequential grid, which
-//    Hopper blocks cannot do. m is split across blockIdx.y so that there
-//    are several blocks per SM (40 column tiles alone would leave most of
-//    the 132 SMs idle); each block writes an fp32 partial column sum to
-//    scratch and a second kernel sums the partials, forms u and xi, and
-//    writes per-block loss partials that a one-block third kernel sums.
-//    Every sum has a fixed order and there are no float atomics, so
-//    repeated calls give bitwise-equal results (the solver's stop rule
-//    ties on fp32 plateaus);
-//  * gradient (redesigned for Hopper; csrc/sweep.cuh): a persistent grid of
-//    one block per SM, each owning a run of consecutive live rows
+// fp32 50,000 x 10,000 X takes 0.60 ms. Tensor cores and wgmma cannot help
+// a matrix-vector product (no operand reuse). Both sweeps are persistent
+// grids fed by a cp.async.bulk ring (csrc/sweep.cuh):
+//  * margin: the column sweep of csrc/sweep.cuh, as for the sample surplus
+//    (csrc/sample.cu) but with one accumulator, x.w. The TPU carries the
+//    m-sum across its sequential grid, which Hopper blocks cannot do: the
+//    live rows are cut into slabs and the columns into segments of up to
+//    4 x 16 bytes a consumer thread (kernels/hinge.py `column_sweep_plan`
+//    over valid_m rows: at 50,000 x 10,000 fp32, 3 segments of 3,360
+//    columns x 44 slabs, one tile a block). One producer thread streams
+//    each tile's row segments into a 4-stage ring; each consumer thread
+//    carries its columns' sums down the slab in row order and writes one
+//    fp32 partial a slab. A second kernel sums the slabs in order and forms
+//    u and xi and per-block loss partials, which a one-block third kernel
+//    sums. Every sum has a fixed order and there are no float atomics, so
+//    repeated calls give bitwise-equal results (the solver's stop rule ties
+//    on fp32 plateaus);
+//  * gradient: one block per SM, each owning a run of consecutive live rows
 //    (kernels/hinge.py `grad_plan`: runs differ by at most one row). The
 //    block stages v = y * xi in shared memory once (up to 16,384 columns;
 //    wider rows are cut into column chunks, v restaged per chunk). One
@@ -30,16 +34,15 @@
 //    ring of stages by cp.async.bulk; the 8 consumer warps together own the
 //    row: each thread takes 16-byte units of the piece in a fixed order
 //    against v from shared memory, then a fixed shuffle tree and a fixed
-//    sum over the warps give the row's dot product. Rows whose start is
-//    not 16-byte aligned take `hinge_grad_scalar`: a warp owns a row, v in
-//    shared memory, direct loads. Tensor cores and wgmma cannot help a
-//    matrix-vector product (no operand reuse). Rows >= valid_m are
+//    sum over the warps give the row's dot product. Rows >= valid_m are
 //    written as 0 and never read;
-//  * the margin sweep reads only rows < valid_m (the gathered buffer's
-//    zero padding is skipped), and ragged edges are masked in the kernel,
-//    so no padding or loss correction is needed.
-// The margin sweep takes the column-sweep design of csrc/sweep.cuh next;
-// it is the simple first version.
+//  * rows whose start is not 16-byte aligned take each sweep's scalar
+//    variant (`margin_partial_scalar`, `hinge_grad_scalar`): the same walk
+//    and sum order, direct loads;
+//  * neither sweep reads a row >= valid_m (the gathered buffer's zero
+//    padding is skipped; valid_m = 0 reads nothing and gives u = 0), and
+//    ragged edges are masked in the kernels, so no padding or loss
+//    correction is needed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,8 +53,7 @@
 
 namespace {
 
-constexpr int kMarginThreads = 256;  // columns per margin block
-constexpr int kFinThreads = 256;     // columns per finalize block
+constexpr int kFinThreads = 256;  // columns per finalize block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -74,34 +76,66 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-// part[s, j] = sum_{i in split s, i < valid_m} X[i, j] w[i]
-template <typename T>
-__global__ void __launch_bounds__(kMarginThreads)
-margin_partial_kernel(const T* __restrict__ X, const float* __restrict__ w,
-                      int n, int valid_m, int rows_per_split,
-                      float* __restrict__ part) {
-  const int j = blockIdx.x * kMarginThreads + threadIdx.x;
-  if (j >= n) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(r0 + rows_per_split, valid_m);
-  const size_t ld = static_cast<size_t>(n);
-  const T* p = X + static_cast<size_t>(r0) * ld + j;
-  float acc = 0.f;
-  int i = r0;
-  for (; i + 8 <= r1; i += 8, p += 8 * ld) {
-    float x[8];
+// One consumer thread's sums for kSlots columns down a slab:
+// part[s, j] = sum_{i in slab s} X[i, j] w[i]
+template <int kSlots>
+struct MarginAcc {
+  const float* __restrict__ w;
+  float* __restrict__ part;
+  int n;
+  float u[kSlots];
+
+  __device__ void begin() {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) x[r] = to_f32(p[r * ld]);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) acc = fmaf(x[r], __ldg(w + i + r), acc);
+    for (int q = 0; q < kSlots; ++q) u[q] = 0.f;
   }
-  for (; i < r1; ++i, p += ld) acc = fmaf(to_f32(*p), __ldg(w + i), acc);
-  part[static_cast<size_t>(blockIdx.y) * ld + j] = acc;
+  __device__ void row(const float* x, int i) {
+    const float wi = __ldg(w + i);
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) u[q] = fmaf(x[q], wi, u[q]);
+  }
+  __device__ void store(int slab, int q, int col) {
+    part[static_cast<size_t>(slab) * n + col] = u[q];
+  }
+};
+
+template <typename T, int kUnits>
+__global__ void __launch_bounds__(sweep::kThreads, 1)
+margin_partial_bulk(const T* __restrict__ X, const float* __restrict__ w,
+                    const sweep::ColumnPlan p, float* __restrict__ part) {
+  MarginAcc<kUnits * sweep::Vec<T>::kN> acc{w, part, p.n};
+  sweep::column_sweep_bulk<T, kUnits>(X, p, acc);
 }
 
-// u = sum of the partials, xi = max(0, 1 - y (u + b)), loss partial per block
+template <typename T>
+__global__ void __launch_bounds__(sweep::kConsumers)
+margin_partial_scalar(const T* __restrict__ X, const float* __restrict__ w,
+                      const sweep::ColumnPlan p, float* __restrict__ part) {
+  MarginAcc<sweep::Vec<T>::kN> acc{w, part, p.n};
+  sweep::column_sweep_scalar(X, p, acc);
+}
+
+template <typename T>
+cudaError_t launch_margin_partial(const void* X, const float* w,
+                                  const sweep::ColumnPlan& p, int bulk,
+                                  int grid, float* part, cudaStream_t s) {
+  const T* x = static_cast<const T*>(X);
+  if (!bulk) {
+    margin_partial_scalar<T><<<grid, sweep::kConsumers, 0, s>>>(x, w, p, part);
+    return cudaGetLastError();
+  }
+  const int units = sweep::column_units(p, sizeof(T));
+  if (units > 4) return cudaErrorInvalidValue;
+  return sweep::launch_column_bulk(units == 1   ? margin_partial_bulk<T, 1>
+                                   : units == 2 ? margin_partial_bulk<T, 2>
+                                                : margin_partial_bulk<T, 4>,
+                                   p, sizeof(T), grid, s, x, w, p, part);
+}
+
+// u = the slabs' partials summed in slab order, xi = max(0, 1 - y (u + b)),
+// loss partial per block
 __global__ void __launch_bounds__(kFinThreads)
-margin_finalize_kernel(const float* __restrict__ part, int splits, int n,
+margin_finalize_kernel(const float* __restrict__ part, int slabs, int n,
                        const float* __restrict__ y,
                        const float* __restrict__ b, float* __restrict__ u,
                        float* __restrict__ xi, float* __restrict__ loss_part) {
@@ -110,7 +144,7 @@ margin_finalize_kernel(const float* __restrict__ part, int splits, int n,
   float sq = 0.f;
   if (j < n) {
     float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += part[static_cast<size_t>(s) * n + j];
+    for (int s = 0; s < slabs; ++s) acc += part[static_cast<size_t>(s) * n + j];
     const float x = relu_nan(1.f - y[j] * (acc + *b));
     u[j] = acc;
     xi[j] = x;
@@ -318,28 +352,25 @@ const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// (u, xi, loss) from one read of X's first valid_m rows. Scratch: part is
-// (splits, n), loss_part is (ceil(n / 256),). Returns cudaGetLastError().
+// (u, xi, loss) from one read of X's first valid_m rows. The walk is the
+// plan of kernels/hinge.py `column_sweep_plan` over the valid_m live rows
+// (bulk, grid, seg_cols, slabs, stage_rows, stages). Scratch: part is
+// (slabs, n), loss_part is (ceil(n / 256),). Returns cudaGetLastError().
 int margin_obj(const void* X, int x_bf16, const float* w, const float* y,
-               const float* b, int n, int valid_m, int rows_per_split,
-               int splits, float* part, float* u, float* xi, float* loss_part,
+               const float* b, int n, int valid_m, int bulk, int grid,
+               int seg_cols, int slabs, int stage_rows, int stages,
+               float* part, float* u, float* xi, float* loss_part,
                float* loss, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kMarginThreads - 1) / kMarginThreads, splits);
-  if (x_bf16) {
-    margin_partial_kernel<__nv_bfloat16><<<grid, kMarginThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(X), w, n, valid_m, rows_per_split,
-        part);
-  } else {
-    margin_partial_kernel<float><<<grid, kMarginThreads, 0, s>>>(
-        static_cast<const float*>(X), w, n, valid_m, rows_per_split, part);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const sweep::ColumnPlan p{valid_m, n, seg_cols, slabs, stage_rows, stages};
+  err = x_bf16 ? launch_margin_partial<__nv_bfloat16>(X, w, p, bulk, grid, part, s)
+               : launch_margin_partial<float>(X, w, p, bulk, grid, part, s);
+  if (err != cudaSuccess) return err;
   const int fin_blocks = (n + kFinThreads - 1) / kFinThreads;
   margin_finalize_kernel<<<fin_blocks, kFinThreads, 0, s>>>(
-      part, splits, n, y, b, u, xi, loss_part);
+      part, slabs, n, y, b, u, xi, loss_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   loss_sum_kernel<<<1, kFinThreads, 0, s>>>(loss_part, fin_blocks, loss);
   return cudaGetLastError();

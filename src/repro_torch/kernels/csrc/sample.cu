@@ -105,18 +105,6 @@ sample_partial_scalar(const T* __restrict__ X, const float* __restrict__ w,
   sweep::column_sweep_scalar(X, p, acc);
 }
 
-template <typename T, int kUnits>
-cudaError_t launch_bulk(const T* X, const float* w1, const sweep::ColumnPlan& p,
-                        int grid, float* part, cudaStream_t s) {
-  const int smem = sweep::column_smem_bytes(p, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(sample_partial_bulk<T, kUnits>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err != cudaSuccess) return err;
-  sample_partial_bulk<T, kUnits><<<grid, sweep::kThreads, smem, s>>>(X, w1, p, part);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_partial(const void* X, const float* w1,
                            const sweep::ColumnPlan& p, int bulk, int grid,
@@ -126,13 +114,12 @@ cudaError_t launch_partial(const void* X, const float* w1,
     sample_partial_scalar<T><<<grid, sweep::kConsumers, 0, s>>>(x, w1, p, part);
     return cudaGetLastError();
   }
-  // 16-byte units of a segment row per consumer thread: 1, 2 or 4
-  const int units = (p.seg_cols * static_cast<int>(sizeof(T)) + 16 * sweep::kConsumers - 1) /
-                    (16 * sweep::kConsumers);
-  if (units == 1) return launch_bulk<T, 1>(x, w1, p, grid, part, s);
-  if (units == 2) return launch_bulk<T, 2>(x, w1, p, grid, part, s);
-  if (units <= 4) return launch_bulk<T, 4>(x, w1, p, grid, part, s);
-  return cudaErrorInvalidValue;
+  const int units = sweep::column_units(p, sizeof(T));
+  if (units > 4) return cudaErrorInvalidValue;
+  return sweep::launch_column_bulk(units == 1   ? sample_partial_bulk<T, 1>
+                                   : units == 2 ? sample_partial_bulk<T, 2>
+                                                : sample_partial_bulk<T, 4>,
+                                   p, sizeof(T), grid, s, x, w1, p, part);
 }
 
 // u = sum of the x.w1 partials + b1; surplus from u, ||x||^2, y, u_prev.

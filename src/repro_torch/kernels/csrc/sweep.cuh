@@ -1,6 +1,7 @@
 // Building blocks of the persistent sweeps over X for Hopper (sm_90a): the
-// gradient sweep (hinge.cu `hinge_grad_bulk`) and the column sweep (sample.cu
-// `sample_partial_bulk`; the margin sweep's next design).
+// gradient sweep (hinge.cu `hinge_grad_bulk`) and the column sweep, which
+// carries both the margin (hinge.cu `margin_partial_bulk`) and the sample
+// surplus (sample.cu `sample_partial_bulk`).
 //
 // Every sweep here is a matrix-vector product or a column reduction: 0.5 to
 // 1 flop per byte of X, against the card's ~20 fp32 flop/byte ridge, so HBM
@@ -241,6 +242,26 @@ __device__ __forceinline__ void block_tiles(const ColumnPlan& p, int* t0, int* t
 __host__ __device__ __forceinline__ int column_smem_bytes(const ColumnPlan& p,
                                                           int item) {
   return kBarrierBytes + p.stages * p.stage_rows * p.seg_cols * item;
+}
+
+// 16-byte units of a bulk column sweep's segment row a consumer thread: 1,
+// 2 or 4, the instantiations of each bulk column kernel (the plan keeps
+// seg_cols * item <= 4 * 16 * kConsumers).
+__host__ __forceinline__ int column_units(const ColumnPlan& p, int item) {
+  return (p.seg_cols * item + 16 * kConsumers - 1) / (16 * kConsumers);
+}
+
+// Launch a bulk column-sweep kernel (kThreads a block) with the plan's ring
+// in dynamic shared memory, which needs the attribute set first.
+template <typename... Params, typename... Args>
+cudaError_t launch_column_bulk(void (*kernel)(Params...), const ColumnPlan& p,
+                               int item, int grid, cudaStream_t s, Args... args) {
+  const int smem = column_smem_bytes(p, item);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
 }
 
 // One bulk-variant column sweep. Consumer thread tid owns the 16-byte

@@ -6,7 +6,14 @@
 
 Both take a host ``valid_m``: only the first ``valid_m`` rows of X are
 live (the path driver's gather buffer zero-pads the rest). The margin sweep
-reads only those rows; the gradient writes zeros past them without reading.
+reads only those rows (none at ``valid_m = 0``, where ``u = 0``); the
+gradient writes zeros past them without reading.
+
+Both kernels are persistent sweeps of ``csrc/sweep.cuh`` whose launch plans
+are made here: the margin is a column sweep (:func:`column_sweep_plan` over
+the live rows, shared with the sample surplus of ``screen.py``), the
+gradient a row sweep (:func:`grad_plan`). Each has a bulk-copy variant, for
+16-byte aligned rows, and a scalar one; :data:`VARIANTS` counts which ran.
 
 For a CUDA ``X`` each wrapper checks its inputs, allocates its outputs and
 scratch with ``torch.empty``, launches ``csrc/hinge.cu`` on the current
@@ -27,12 +34,11 @@ from . import build
 
 #: launches of each kernel in this process (reset by ``ops.reset_launch_counts``)
 LAUNCHES = {"margin_obj": 0, "hinge_grad": 0}
-#: launches of each variant of the redesigned gradient kernel
-VARIANTS = {"hinge_grad": {"bulk": 0, "scalar": 0}}
+#: launches of each variant of the persistent-sweep kernels
+VARIANTS = {"margin_obj": {"bulk": 0, "scalar": 0},
+            "hinge_grad": {"bulk": 0, "scalar": 0}}
 
-_MARGIN_THREADS = 256     # csrc/hinge.cu kMarginThreads (= kFinThreads)
-_BLOCKS_PER_SM = 4        # margin partial blocks to aim for on each SM
-_MIN_ROWS_PER_SPLIT = 64  # below this a split costs more than it spreads
+_FIN_THREADS = 256  # csrc/hinge.cu kFinThreads: columns per finalize block
 
 
 def _live_rows(X: torch.Tensor, valid_m: Optional[int]) -> int:
@@ -49,19 +55,6 @@ def margin_obj_plain(X, w, y, b, valid_m: Optional[int] = None):
     u = torch.mv(X[:vm].float().t(), w[:vm].float())
     xi = torch.clamp_min(1.0 - y * (u + b), 0.0)
     return u, xi, 0.5 * torch.sum(xi * xi)
-
-
-def margin_splits(valid_m: int, n: int, device: torch.device) -> tuple[int, int]:
-    """``(rows_per_split, splits)``: how a column-reduction kernel (the
-    margin sweep here, the sample sweep in ``screen.py``) cuts the live rows
-    across ``blockIdx.y`` so the card holds ~4 blocks per SM. Depends only
-    on the shape and the card, so repeated calls sum in the same order."""
-    col_blocks = -(-n // _MARGIN_THREADS)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, -(-_BLOCKS_PER_SM * sms // col_blocks))
-    splits = max(1, min(want, valid_m // _MIN_ROWS_PER_SPLIT))
-    rows_per_split = max(1, -(-valid_m // splits))
-    return rows_per_split, max(1, -(-valid_m // rows_per_split))
 
 
 # -- launch plans of the persistent sweeps (csrc/sweep.cuh) -------------------
@@ -82,11 +75,14 @@ GRAD_V_COLS = 16 * 1024
 GRAD_STAGE_BYTES = 32 * 1024
 GRAD_STAGES = 4
 # the column sweep: a segment row is up to COLUMN_UNITS 16-byte units a
-# consumer thread (csrc/sample.cu instantiates 1, 2 and 4), its width a
-# multiple of 128 bytes; a stage holds up to COLUMN_STAGE_BYTES of segment
-# rows (at most MAX_STAGE_ROWS). Chosen on an H100 at 50,000 x 10,000
-# fp32 with scripts/torch_sweep_tune.py: 4 units and 48 KB stages ran 7%
-# faster than 1 unit and 32 KB.
+# consumer thread (csrc/hinge.cu and csrc/sample.cu instantiate 1, 2 and
+# 4), its width a multiple of 128 bytes; a stage holds up to
+# COLUMN_STAGE_BYTES of segment rows (at most MAX_STAGE_ROWS). Chosen on an
+# H100 at 50,000 x 10,000 fp32 with scripts/torch_sweep_tune.py: for the
+# sample surplus 4 units and 48 KB stages ran 7% faster than 1 unit and
+# 32 KB; the margin shares them: they ran 0.651 ms against 0.684 for 1 unit
+# and 32 KB, and its best choice (64 KB stages, 3 stages: 0.649 ms; bf16
+# 0.346 against 0.348) was less than 1% faster.
 COLUMN_UNITS = 4
 COLUMN_STAGE_BYTES = 48 * 1024
 COLUMN_STAGES = 4
@@ -179,10 +175,11 @@ def grad_plan(valid_m: int, n: int, itemsize: int, aligned: bool,
 
 
 class ColumnSweepPlan(NamedTuple):
-    """How a column-reduction sweep (the sample surplus here; the margin
-    sweep's next design) cuts X: ``segs`` column segments of ``seg_cols``
-    columns (COLUMN_UNITS x 16 bytes a consumer thread) times ``slabs`` row
-    slabs whose sizes differ by at most one row. Tile ``t`` is segment
+    """How a column-reduction sweep (the margin over the live rows, the
+    sample surplus over all rows) cuts X's first ``m`` rows: ``segs``
+    column segments of ``seg_cols`` columns (COLUMN_UNITS x 16 bytes a
+    consumer thread) times ``slabs`` row slabs whose sizes differ by at
+    most one row. Tile ``t`` is segment
     ``t // slabs``, slab ``t % slabs``; block ``b`` takes the consecutive
     tiles :meth:`tiles_of`. Slab ``s`` writes its partial column sums to row
     ``s`` of the scratch, and a finalizer sums the slabs in order. A ring
@@ -218,6 +215,11 @@ class ColumnSweepPlan(NamedTuple):
         return range(split_start(b, self.tiles, self.grid),
                      split_start(b + 1, self.tiles, self.grid))
 
+    def scratch_shape(self, accumulators: int) -> tuple[int, int]:
+        """Shape of the fp32 partials of a sweep that carries
+        ``accumulators`` sums a column: one row per slab and sum."""
+        return (accumulators * self.slabs, self.n)
+
     def tile(self, t: int) -> tuple[range, range]:
         """(rows, columns) of tile ``t``."""
         c, s = divmod(t, self.slabs)
@@ -230,7 +232,9 @@ class ColumnSweepPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def column_sweep_plan(m: int, n: int, itemsize: int, aligned: bool,
                       sms: int) -> ColumnSweepPlan:
-    """The column sweep's plan (see :class:`ColumnSweepPlan`). The slab
+    """The column sweep's plan (see :class:`ColumnSweepPlan`) over X's
+    first ``m`` rows: the live rows for the margin (``m = 0`` gives tiles of
+    no rows, so nothing is read), all rows for the sample surplus. The slab
     count is the least that makes the tile count a multiple of the grid, so
     every block takes the same number of tiles, unless m has too few rows
     for it (then the counts differ by at most one). The scalar variant
@@ -264,21 +268,24 @@ def margin_obj_op(X, w, y, b, valid_m: Optional[int] = None):
     b = torch.as_tensor(b, dtype=torch.float32, device=X.device)
     if b.dim() != 0:
         raise ValueError(f"b must be a scalar, got shape {tuple(b.shape)}")
-    rows_per_split, splits = margin_splits(vm, n, X.device)
+    plan = column_sweep_plan(vm, n, X.element_size(), bulk_aligned(X),
+                             sm_count(X.device))
     f32 = dict(dtype=torch.float32, device=X.device)
-    part = torch.empty((splits, n), **f32)
+    part = torch.empty(plan.scratch_shape(1), **f32)
     u = torch.empty((n,), **f32)
     xi = torch.empty((n,), **f32)
-    loss_part = torch.empty((-(-n // _MARGIN_THREADS),), **f32)
+    loss_part = torch.empty((_cdiv(n, _FIN_THREADS),), **f32)
     loss = torch.empty((), **f32)
     dev, stream = build.stream_and_device(X)
     err = build.library().margin_obj(
         X.data_ptr(), int(X.dtype == torch.bfloat16), w.data_ptr(),
-        y.data_ptr(), b.data_ptr(), n, vm, rows_per_split, splits,
+        y.data_ptr(), b.data_ptr(), n, vm, int(plan.bulk), plan.grid,
+        plan.seg_cols, plan.slabs, plan.stage_rows, plan.stages,
         part.data_ptr(), u.data_ptr(), xi.data_ptr(), loss_part.data_ptr(),
         loss.data_ptr(), dev, stream)
     build.check(err, "margin_obj")
     LAUNCHES["margin_obj"] += 1
+    VARIANTS["margin_obj"]["bulk" if plan.bulk else "scalar"] += 1
     return u, xi, loss
 
 

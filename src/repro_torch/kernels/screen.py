@@ -151,7 +151,7 @@ def sample_surplus_op(X, w1, y, b1, dw=float("inf"), db=float("inf"),
     plan = column_sweep_plan(m, n, X.element_size(), bulk_aligned(X),
                              sm_count(X.device))
     f32 = dict(dtype=torch.float32, device=X.device)
-    part = torch.empty((2 * plan.slabs, n), **f32)
+    part = torch.empty(plan.scratch_shape(2), **f32)
     u = torch.empty((n,), **f32)
     surplus = torch.empty((n,), **f32)
     dev, stream = build.stream_and_device(X)

@@ -82,6 +82,25 @@ def test_margin_obj_plain_matches_pallas(ref, shape, dtype):
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_margin_obj_plain_no_live_rows_matches_pallas(ref, shape, dtype):
+    """valid_m = 0: no row is read, even where X's rows are not zero, so
+    u = 0 and xi = max(0, 1 - y b), as the Pallas kernel (which skips every
+    block) gives."""
+    m, n = shape
+    X, w, y, _ = _inputs(m, n, dtype, m, seed=12)
+    b = 0.29
+    u, xi, loss = hinge.margin_obj_plain(X, w, y, torch.tensor(b), 0)
+    u_r, xi_r, loss_r = ref.ops.margin_obj_op(
+        _to_jax(ref, X), ref.jnp.asarray(w.numpy()),
+        ref.jnp.asarray(y.numpy()), b, block_m=64, block_n=128,
+        interpret=True, valid_m=ref.jnp.int32(0))
+    assert bool((u == 0).all()) and float(np.abs(np.asarray(u_r)).max()) == 0.0
+    _close(xi, xi_r)
+    _close(float(loss), float(loss_r))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_hinge_grad_plain_matches_pallas(ref, shape, dtype):
     m, n = shape
     for valid_m in (1, 37, m):
@@ -266,6 +285,38 @@ def test_column_sweep_plan_covers_every_cell_once(m, n, itemsize, sms, offset):
         assert (hits == 1).all()
 
 
+@pytest.mark.parametrize("m,n,itemsize,sms,offset", list(_plan_cases()))
+def test_margin_plan_covers_live_rows_once(m, n, itemsize, sms, offset):
+    """The margin's column sweep is planned over the live rows alone
+    (``column_sweep_plan(valid_m, ...)``): its tiles cover rows
+    [0, valid_m) and every column exactly once and reach no row at or past
+    valid_m; valid_m = 0 gives tiles of no rows (nothing read, every
+    partial 0). The variant follows the rows' alignment; the scratch holds
+    one partial row a slab. A repeated call reuses the cached plan (the
+    solver asks for it once an iteration)."""
+    aligned = hinge.rows_aligned(4096 + offset, n, itemsize)
+    for vm in (m, m // 3, 37 % (m + 1), 1, 0):
+        plan = hinge.column_sweep_plan(vm, n, itemsize, aligned, sms)
+        assert plan is hinge.column_sweep_plan(vm, n, itemsize, aligned, sms)
+        assert plan.bulk == aligned and plan.m == vm and plan.n == n
+        assert plan.grid % sms == 0  # whole waves
+        assert plan.scratch_shape(1) == (plan.slabs, n)
+        owned = [t for b in range(plan.grid) for t in plan.tiles_of(b)]
+        assert owned == list(range(plan.tiles))  # each tile in one block
+        tiles = [plan.tile(t) for t in range(plan.tiles)]
+        assert all(rows.stop <= vm for rows, _ in tiles)
+        slabs = [plan.tile(s)[0] for s in range(plan.slabs)]
+        assert [i for sl in slabs for i in sl] == list(range(vm))
+        segs = [plan.tile(c * plan.slabs)[1] for c in range(plan.segs)]
+        assert [j for seg in segs for j in seg] == list(range(n))
+        assert plan.smem_bytes <= hinge.SMEM_PER_BLOCK
+        if vm * n <= 300 * 200:  # small shapes: count every cell
+            hits = np.zeros((m, n), np.int64)
+            for rows, cols in tiles:
+                hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+            assert (hits[:vm] == 1).all() and (hits[vm:] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_bulk_variant_follows_the_tensors_alignment(dtype):
     """Views that start off a 16-byte boundary, or rows whose length is not
@@ -307,9 +358,10 @@ def _on_card(t, offset):
 @pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
 def test_cuda_kernels_match_plain(shape, dtype, offset):
     """Card only: each CUDA kernel against its plain version on the same
-    device tensors; the gradient takes the bulk variant exactly when X's
-    rows are 16-byte aligned and repeats its bits. Tolerance rtol 1e-5
-    (fp32 sums in different orders)."""
+    device tensors; the margin and the gradient take the bulk variant
+    exactly when X's rows are 16-byte aligned and repeat their bits, and
+    the margin at valid_m = 0 reads no row (u = 0 over nonzero rows).
+    Tolerance rtol 1e-5 (fp32 sums in different orders)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -318,15 +370,23 @@ def test_cuda_kernels_match_plain(shape, dtype, offset):
         X, w, y, xi = _inputs(m, n, dtype, valid_m, seed=7)
         X, w, y, xi = _on_card(X, offset), w.cuda(), y.cuda(), xi.cuda()
         b = torch.tensor(0.21, device="cuda")
-        for got, want in zip(hinge.margin_obj_op(X, w, y, b, valid_m),
-                             hinge.margin_obj_plain(X, w, y, b, valid_m)):
-            _close(got.cpu(), want.cpu())
+        got, launched = _launched(hinge.VARIANTS["margin_obj"],
+                                  lambda: hinge.margin_obj_op(X, w, y, b, valid_m))
+        assert launched == ["bulk" if hinge.bulk_aligned(X) else "scalar"]
+        for g, p in zip(got, hinge.margin_obj_plain(X, w, y, b, valid_m)):
+            _close(g.cpu(), p.cpu())
+        again = hinge.margin_obj_op(X, w, y, b, valid_m)
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
         g, launched = _launched(hinge.VARIANTS["hinge_grad"],
                                 lambda: hinge.hinge_grad_op(X, y, xi, valid_m))
         assert launched == ["bulk" if hinge.bulk_aligned(X) else "scalar"]
         _close(g.cpu(), hinge.hinge_grad_plain(X, y, xi, valid_m).cpu())
         assert bool((g[valid_m:] == 0).all())
         assert torch.equal(g, hinge.hinge_grad_op(X, y, xi, valid_m))
+    u, xi0, loss = hinge.margin_obj_op(X, w, y, b, 0)  # X's rows are not all 0
+    assert bool((u == 0).all())
+    for g, p in zip((xi0, loss), hinge.margin_obj_plain(X, w, y, b, 0)[1:]):
+        _close(g.cpu(), p.cpu())
     lmax = float(lambda_max(X.float(), y))
     theta = theta_at_lambda_max(y, lmax)
     sh = shared_scalars(y, lmax, 0.5 * lmax, theta, delta=0.02)
