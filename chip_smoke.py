@@ -16,15 +16,24 @@ n = 10,000 samples, fp32):
   lam_min_ratio 0.02), checked for objectives against float64, the
   zero-slack certificate of every screened sample at the accepted
   solution, and card-vs-CPU agreement on the bench instance in both
-  reductions (``"gather"``, ``"mask"``).
+  reductions (``"gather"``, ``"mask"``);
+* both again with dynamic (in-solver) screening every 50 iterations
+  (``dynamic=True``): the feature path in gather mode, checked against
+  float64, against the unscreened path for safety and against the
+  sequential path's objectives (rel 1e-5); the composite path in mask mode
+  with the in-solver sample re-screen, checked for the zero-slack
+  certificate; and the bench instance dynamic on the card and the CPU.
+  Both dynamic paths are then timed against their sequential twins in turns
+  (``path_walls``), and one refresh is timed in its parts.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
 margin, gradient or sample-surplus kernel ran its scalar variant there
 (the full-width paths' rows are 16-byte aligned: every launch must take
 the bulk-copy variant). The kernel checks include shapes and views that
-reach both variants of all three kernels (``VARIANT_CASES``), and the
-margin with no live row (``valid_m = 0``). Every phase
+reach both variants of all three kernels (``VARIANT_CASES``), the margin
+with no live row (``valid_m = 0``), and the feature screen's dynamic
+variant (sample weights, the gap-sphere cap, a NaN theta). Every phase
 prints one JSON line; any failed check raises and the script exits
 non-zero. The last lines are the ``{"kernels": [...]}`` record (times on
 this card, bounds, launch counts) and ``{"ok": true, "device": {...}}``.
@@ -55,6 +64,7 @@ EPS32 = float(np.finfo(np.float32).eps)
 FULL = dict(m=50_000, n=10_000, density=1.0, seed=0)
 N_LAMBDAS, LAM_MIN_RATIO, SAFETY_STEPS = 8, 0.1, 4
 COMPOSITE_RATIO = 0.02  # a deep grid: the sample rule screens from step 4 on
+SCREEN_EVERY = 50       # dynamic paths: a refresh every 50 FISTA iterations
 RAGGED = [(64, 64), (128, 256), (300, 200), (513, 130)]
 # shapes and views that reach each variant of the redesigned kernels:
 # (m, n, offset rows): bf16 n % 8 != 0 with fp32 n % 4 == 0, an aligned
@@ -65,6 +75,8 @@ VARIANT_CASES = [(128, 260, 0), (300, 200, 1), (301, 203, 1), (96, 20000, 0),
 # sample-surplus kernel cases: (secant history, trust radii dw, db)
 SURPLUS_CASES = [(False, math.inf, math.inf), (True, math.inf, math.inf),
                  (False, 0.37, 0.05), (True, 0.37, 0.05)]
+# feature-screen dynamic variant cases: (sample weights, gap-sphere cap)
+DYNAMIC_CASES = [(False, True), (True, False), (True, True)]
 
 
 def emit(obj) -> None:
@@ -101,10 +113,11 @@ def tolerance(k: int, scale: float) -> float:
 class Kernels:
     """Runs each kernel against its plain version and keeps the worst error."""
 
-    def __init__(self, hinge, screen, shared_scalars):
+    def __init__(self, hinge, screen, shared_scalars, stats):
         self.hinge, self.screen, self.shared_scalars = hinge, screen, shared_scalars
+        self.stats = stats  # core/screening.shared_scalars_from_stats
         self.max_err = {"margin_obj": 0.0, "hinge_grad": 0.0, "screen_bounds": 0.0,
-                        "sample_surplus": 0.0}
+                        "screen_bounds_dynamic": 0.0, "sample_surplus": 0.0}
         self.variants_seen = {"margin_obj": set(), "hinge_grad": set(),
                               "sample_surplus": set()}
 
@@ -155,6 +168,66 @@ class Kernels:
         want = self.screen.screen_bounds_plain(X, y, theta, sh)
         torch.cuda.synchronize()
         return self._check("screen_bounds", got, want, X.shape[1], where)
+
+    def dynamic_shared(self, y, lam, theta, delta, weights):
+        """The at-lambda region's scalars from the weighted statistics, as
+        ``core/solver.py`` ``refresh_bounds`` builds them."""
+        s = torch.ones_like(y) if weights is None else weights
+        lam = torch.tensor(lam, device=y.device)
+        return self.stats(lam, lam, one_y=torch.sum(y * s),
+                          theta_dot_one=theta.sum(), theta_dot_y=theta @ y,
+                          theta_sq=theta @ theta, n_tot=s.sum(),
+                          delta=torch.tensor(delta, device=y.device))
+
+    def _check_nonfinite(self, name, got, want, k, where):
+        """Kernel vs plain where some outputs are NaN or inf: the same
+        entries must be NaN, the same +-inf, and the finite ones close."""
+        require(torch.equal(torch.isnan(got), torch.isnan(want)),
+                f"{name} {where}: NaN entries differ")
+        inf = torch.isinf(want)
+        require(torch.equal(torch.isinf(got), inf)
+                and torch.equal(got[inf], want[inf]), f"{name} {where}: inf entries differ")
+        fin = torch.isfinite(want)
+        if bool(fin.any()):
+            return self._check(name, got[fin], want[fin], k, where)
+        return {"max_abs_err": 0.0, "finite": 0}
+
+    def dynamic(self, X, y, gen, where):
+        """The feature screen's dynamic variant in every DYNAMIC_CASES case
+        at delta 0.05, then with delta = inf (the sphere term is inf or
+        NaN) and with a NaN theta, which must give NaN bounds. Each launch
+        must count as ``screen_bounds_dynamic``. The sums have k = n terms."""
+        n = X.shape[1]
+        sc = self.screen
+        s = (torch.rand(n, generator=gen) < 0.7).float().cuda()
+        theta = (torch.rand(n, generator=gen) / 5.0).cuda() * s
+        out = {}
+
+        def run(th, delta, weights, cap, tag):
+            sh = self.dynamic_shared(y, 5.0, th, delta, weights)
+            cap_delta = torch.tensor(delta, device="cuda") if cap else None
+            before = sc.LAUNCHES["screen_bounds_dynamic"]
+            got = sc.screen_bounds_from_shared(X, y, th, sh, weights, cap_delta)
+            require(sc.LAUNCHES["screen_bounds_dynamic"] == before + 1,
+                    f"screen_bounds_dynamic {where} {tag}: not counted")
+            want = sc.screen_bounds_plain(X, y, th, sh, weights, cap_delta)
+            torch.cuda.synchronize()
+            return got, want
+
+        for weighted, cap in DYNAMIC_CASES:
+            tag = f"weights={weighted} cap={cap}"
+            got, want = run(theta, 0.05, s if weighted else None, cap, tag)
+            out[tag] = self._check("screen_bounds_dynamic", got, want, n, f"{where} {tag}")
+        got, want = run(theta, math.inf, s, True, "delta=inf")
+        out["delta=inf"] = self._check_nonfinite("screen_bounds_dynamic", got, want, n,
+                                                 f"{where} delta=inf")
+        bad = theta.clone()
+        bad[n // 2] = float("nan")
+        got, want = run(bad, math.inf, s, True, "nan theta")
+        require(bool(torch.isnan(got).all()) and bool(torch.isnan(want).all()),
+                f"screen_bounds_dynamic {where}: a NaN theta did not propagate")
+        out["nan_theta"] = "all NaN"
+        return out
 
     def surplus(self, X, w1, y, gen, where):
         """The sample-surplus kernel in every SURPLUS_CASES case: the
@@ -224,6 +297,7 @@ def phase_kernels_ragged(K, gen) -> None:
             theta = (torch.rand(n, generator=gen) / 5.0).cuda()
             sh = K.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
             res["screen"] = K.bounds(X, y, theta, sh, f"{m}x{n} {dtype}")
+            res["screen_dynamic"] = K.dynamic(X, y, gen, f"{m}x{n} {dtype}")
             res["sample_surplus"] = K.surplus(X, w, y, gen, f"{m}x{n} {dtype}")
             emit({"phase": "kernels_ragged", "shape": [m, n], "row_offset": off,
                   "dtype": str(dtype), "bulk_aligned": K.hinge.bulk_aligned(X),
@@ -248,6 +322,7 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
             res[f"margin_vm{vm}"] = K.margin(Xd, w, y, b, vm, f"full {dtype} vm={vm}")
             res[f"grad_vm{vm}"] = K.grad(Xd, y, xi, vm, f"full {dtype} vm={vm}")
         res["screen"] = K.bounds(Xd, y, theta, sh, f"full {dtype}")
+        res["screen_dynamic"] = K.dynamic(Xd, y, gen, f"full {dtype}")
         res["sample_surplus"] = K.surplus(Xd, w, y, gen, f"full {dtype}")
         require(res["margin_vm%d" % m]["variant"] == "bulk"
                 and res["grad_vm%d" % m]["variant"] == "bulk"
@@ -257,11 +332,17 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         # same bits (fixed summation order, no float atomics)
         vm = m // 3
         u_prev = torch.randn(n, generator=gen).cuda()
+        s = (torch.rand(n, generator=gen) < 0.7).float().cuda()
+        sh_d = K.dynamic_shared(y, lmax, theta * s, 1e-3, s)
+        cap = torch.tensor(1e-3, device="cuda")
         for name, call in (
                 ("margin_obj", lambda: K.hinge.margin_obj_op(Xd, w, y, b, vm)),
                 ("hinge_grad", lambda: (K.hinge.hinge_grad_op(Xd, y, xi, vm),)),
                 ("screen_bounds",
                  lambda: (K.screen.screen_bounds_from_shared(Xd, y, theta, sh),)),
+                ("screen_bounds_dynamic",
+                 lambda: (K.screen.screen_bounds_from_shared(
+                     Xd, y, theta * s, sh_d, s, cap),)),
                 ("sample_surplus", lambda: K.screen.sample_surplus_op(
                     Xd, w, y, 0.13, 0.37, 0.05, u_prev))):
             first, again = call(), call()
@@ -310,7 +391,7 @@ def phase_path(svm_path, ops, X, y) -> tuple:
     return res, launches
 
 
-def phase_objective_check(res, X, y) -> None:
+def phase_objective_check(res, X, y, phase="objective_f64") -> None:
     """Objectives against a float64 recomputation from the returned (w, b)."""
     Xd, yd = X.double(), y.double()
     rel = []
@@ -321,7 +402,7 @@ def phase_objective_check(res, X, y) -> None:
         rel.append(abs(obj - res.objectives[k]) / abs(obj))
     del Xd
     require(max(rel) <= 1e-4, f"objective vs float64 recomputation: rel {max(rel):.3e}")
-    emit({"phase": "objective_f64", "max_rel": max(rel), "tol": 1e-4})
+    emit({"phase": phase, "max_rel": max(rel), "tol": 1e-4})
 
 
 def phase_small_vs_plain(PathDriver, lipschitz_estimate, make) -> None:
@@ -351,11 +432,19 @@ def phase_small_vs_plain(PathDriver, lipschitz_estimate, make) -> None:
     require(rel <= 1e-6, f"card vs CPU path at 300 iterations per step: rel {rel:.3e}")
 
 
-def phase_safety(svm_path, res, X, y) -> None:
+def missed_features(full, k, live) -> tuple:
+    """``(support size, features nonzero in the unscreened step k that the
+    mask ``live`` dropped)``."""
+    w = np.abs(full.weights[k])
+    support = w > 1e-6 * w.max() if w.max() > 0 else np.zeros_like(w, bool)
+    return int(support.sum()), int(np.sum(support & ~live))
+
+
+def phase_safety(svm_path, res, X, y):
     """Unscreened path on the first lambdas: every feature it makes nonzero
     is kept by the screened path at that step. The objective difference is
     reported, not checked: the two solves stop on fp32 plateaus of their
-    own (see :func:`phase_small_vs_plain`)."""
+    own (see :func:`phase_small_vs_plain`). Returns the unscreened path."""
     lams = res.lambdas[:SAFETY_STEPS]
     t0 = time.perf_counter()
     full = svm_path(X, y, lambdas=lams, screening=False, device="cuda")
@@ -363,16 +452,15 @@ def phase_safety(svm_path, res, X, y) -> None:
     masks = res.extras["keep_masks"]
     out = []
     for k in range(1, len(lams)):
-        w = np.abs(full.weights[k])
-        support = w > 1e-6 * w.max() if w.max() > 0 else np.zeros_like(w, bool)
-        missed = int(np.sum(support & ~masks[k]))
+        support, missed = missed_features(full, k, masks[k])
         rel = abs(full.objectives[k] - res.objectives[k]) / abs(full.objectives[k])
-        out.append({"step": k, "support": int(support.sum()), "kept": int(res.kept[k]),
+        out.append({"step": k, "support": support, "kept": int(res.kept[k]),
                     "missed": missed, "rel_obj": float(rel)})
         require(missed == 0, f"step {k}: {missed} active features were screened out")
     emit({"phase": "safety", "shape": [int(X.shape[0]), int(X.shape[1])],
           "steps": out, "unscreened_wall_s": secs,
           "unscreened_iters": full.solver_iters.tolist()})
+    return full
 
 
 def phase_composite_path(svm_path, ops, X, y) -> tuple:
@@ -393,7 +481,8 @@ def phase_composite_path(svm_path, ops, X, y) -> tuple:
     total = time.perf_counter() - t0
     launches = ops.launch_counts()
     steps = len(res.lambdas) - 1
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds",
+                                          "sample_surplus")),
             f"a kernel of the composite path was never launched: {launches}")
     require(launches["sample_surplus"] == steps,
             f"sample_surplus launched {launches['sample_surplus']} times, "
@@ -471,6 +560,204 @@ def phase_composite_small_vs_plain(PathDriver, lipschitz_estimate, make) -> None
     emit(out)
 
 
+def dynamic_summary(res) -> dict:
+    """Per-step telemetry of a dynamic path: each step's kept counts after
+    every refresh (and its live-sample counts), and the refresh count."""
+    tele = res.extras["dynamic"]
+    return {"kept_per_segment": {k: d["kept_per_segment"] for k, d in tele.items()},
+            "kept_samples_per_segment": {k: d["kept_samples_per_segment"]
+                                         for k, d in tele.items()
+                                         if "kept_samples_per_segment" in d},
+            "gap_last": {k: d["gap_per_segment"][-1] for k, d in tele.items()
+                         if d["gap_per_segment"]},
+            "refreshes": int(sum(d["segments"] for d in tele.values()))}
+
+
+def phase_dynamic_feature_path(svm_path, ops, X, y, res_seq, full) -> dict:
+    """The feature-rule path of :func:`phase_path` with dynamic screening
+    (gather mode, a refresh every SCREEN_EVERY iterations).
+
+    Checked: every kernel of the path launched (the dynamic variant once a
+    refresh), the bulk variants only, no guard trip or refused refresh;
+    objectives within rel 1e-4 of a float64 recomputation; no feature that
+    the unscreened path (``full``, :func:`phase_safety`) makes nonzero was
+    dropped, between the steps or inside a solve; and objectives within rel
+    1e-5 of the sequential path ``res_seq``, the fp32 stop rule's stall
+    scale (a failure there is a finding, not a tolerance to widen)."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svm_path(X, y, n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO,
+                   dynamic=True, screen_every=SCREEN_EVERY, device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    summary = dynamic_summary(res)
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds",
+                                          "screen_bounds_dynamic")),
+            f"a kernel of the dynamic feature path was never launched: {launches}")
+    require(launches["screen_bounds_dynamic"] == summary["refreshes"],
+            f"screen_bounds_dynamic launched {launches['screen_bounds_dynamic']} "
+            f"times for {summary['refreshes']} refreshes")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"),
+                            "dynamic feature path")
+    require(not np.any(res.extras["health"]), f"health {res.extras['health']}")
+    require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
+    phase_objective_check(res, X, y, "dynamic_feature_objective_f64")
+    require(np.array_equal(res.lambdas[:len(full.lambdas)], full.lambdas),
+            "the dynamic path's grid differs from the unscreened one's")
+    live = res.extras["dynamic_keep_masks"]
+    safety = []
+    for k in range(1, len(full.lambdas)):
+        support, missed = missed_features(full, k, live[k])
+        safety.append({"step": k, "support": support, "live": int(live[k].sum()),
+                       "missed": missed})
+        require(missed == 0, f"dynamic step {k}: {missed} active features were dropped")
+    rel = np.abs(res.objectives - res_seq.objectives) / np.abs(res_seq.objectives)
+    require(float(rel.max()) <= 1e-5,
+            f"dynamic vs sequential feature path: rel {float(rel.max()):.3e} > 1e-5")
+    emit({"phase": "dynamic_feature_path", "shape": [int(X.shape[0]), int(X.shape[1])],
+          "screen_every": SCREEN_EVERY, "kept": res.kept.tolist(),
+          "active": res.active.tolist(), "iters": res.solver_iters.tolist(),
+          "objectives": res.objectives.tolist(),
+          "max_rel_obj_vs_sequential": float(rel.max()), "safety": safety, **summary,
+          "wall_s": res.wall_times.tolist(),
+          "solve_s": res.extras["solve_times"].tolist(), "path_wall_s": total,
+          "sequential_iters": res_seq.solver_iters.tolist(),
+          "launches": launches, "variants": variants})
+    return launches
+
+
+def phase_dynamic_composite_path(svm_path, ops, X, y) -> dict:
+    """The composite path in mask mode with dynamic screening and the
+    in-solver sample re-screen, then the same path sequential (walls side
+    by side).
+
+    Checked on the dynamic run: every kernel launched (sample surplus once a
+    screened step, the dynamic variant once a refresh), the bulk variants
+    only, no guard trip or refused refresh, objectives within rel 1e-4 of
+    float64, and at every step every screened sample (the rule's and the
+    solver's drops, verified) has ``xi <= 1e-6`` at the accepted solution in
+    float64."""
+    kw = dict(rules="composite", reduce="mask", n_lambdas=N_LAMBDAS,
+              lam_min_ratio=COMPOSITE_RATIO, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svm_path(X, y, dynamic=True, screen_every=SCREEN_EVERY, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    summary = dynamic_summary(res)
+    steps = len(res.lambdas) - 1
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the dynamic composite path was never launched: {launches}")
+    require(launches["sample_surplus"] == steps,
+            f"sample_surplus launched {launches['sample_surplus']} times, not {steps}")
+    # the telemetry holds the accepted solve's refreshes; a verification
+    # re-solve refreshes too
+    require(launches["screen_bounds_dynamic"] >= summary["refreshes"] > 0,
+            f"screen_bounds_dynamic launched {launches['screen_bounds_dynamic']} "
+            f"times for {summary['refreshes']} refreshes")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad", "sample_surplus"),
+                            "dynamic composite path")
+    require(not np.any(res.extras["health"]), f"health {res.extras['health']}")
+    require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
+    # the in-solver sample re-screen ran in every step's first solve (a
+    # verification re-solve runs without it)
+    first = [k for k in range(1, steps + 1) if res.verify_rounds[k] == 0]
+    require(all(k in summary["kept_samples_per_segment"] for k in first),
+            "the in-solver sample re-screen did not run")
+    Xd, yd = X.double(), y.double()
+    rel, xi_screened = [], []
+    masks = res.extras["sample_masks"]
+    for k in range(len(res.lambdas)):
+        w = torch.from_numpy(res.weights[k]).cuda()
+        xi = torch.clamp_min(1.0 - yd * (Xd.t() @ w + res.biases[k]), 0.0)
+        obj = float(0.5 * (xi * xi).sum() + res.lambdas[k] * w.abs().sum())
+        rel.append(abs(obj - res.objectives[k]) / abs(obj))
+        screened = torch.from_numpy(~masks.get(k, np.ones(X.shape[1], bool))).cuda()
+        worst = float(xi[screened].max()) if bool(screened.any()) else 0.0
+        xi_screened.append(worst)
+        require(worst <= 1e-6, f"dynamic step {k}: a screened sample has xi {worst:.3e}")
+    del Xd
+    require(max(rel) <= 1e-4, f"objective vs float64 recomputation: rel {max(rel):.3e}")
+    t0 = time.perf_counter()
+    seq = svm_path(X, y, **kw)
+    torch.cuda.synchronize()
+    seq_total = time.perf_counter() - t0
+    rel_seq = np.abs(res.objectives - seq.objectives) / np.abs(seq.objectives)
+    emit({"phase": "dynamic_composite_path", "shape": [int(X.shape[0]), int(X.shape[1])],
+          "reduce": "mask", "screen_every": SCREEN_EVERY, "lambdas": res.lambdas.tolist(),
+          "kept": res.kept.tolist(), "kept_samples": res.kept_samples.tolist(),
+          "verify_rounds": res.verify_rounds.tolist(),
+          "iters": res.solver_iters.tolist(), "objectives": res.objectives.tolist(),
+          "max_rel_obj_f64": max(rel), "max_xi_screened_f64": xi_screened, **summary,
+          "wall_s": res.wall_times.tolist(), "path_wall_s": total,
+          "sequential": {"path_wall_s": seq_total, "iters": seq.solver_iters.tolist(),
+                         "kept_samples": seq.kept_samples.tolist(),
+                         "verify_rounds": seq.verify_rounds.tolist(),
+                         "max_rel_obj_dynamic_vs_sequential": float(rel_seq.max())},
+          "launches": launches, "variants": variants})
+    return launches
+
+
+def phase_dynamic_small_vs_plain(PathDriver, lipschitz_estimate, make) -> None:
+    """The bench instance (2000 x 400, seed 11) with dynamic screening on
+    the card and on the CPU, same L, at fixed iterations (``tol=-1``): the
+    feature rule in gather mode (10 lambdas, 0.05, 300 iterations a step, as
+    :func:`phase_small_vs_plain`) and the composite rule in mask mode with
+    the in-solver sample re-screen (8 lambdas, 0.02, 2000 iterations, as
+    :func:`phase_composite_small_vs_plain`). Checked: per-step objectives
+    agree to rel 1e-6 (on the CPU, runs whose L differs by 3e-7 spread by
+    1.5e-7 and 1.9e-7). Both sides' kept counts per segment are printed,
+    not checked: a bound within rounding of tau may fall either way."""
+    ds = make(m=2000, n=400, seed=11)
+    L = float(lipschitz_estimate(torch.from_numpy(ds.X)))
+    out = {"phase": "dynamic_bench_card_vs_cpu", "shape": [2000, 400], "tol": 1e-6}
+    for label, rules, reduce, grid, iters in (
+            ("feature_gather", "feature_vi", "gather",
+             dict(n_lambdas=10, lam_min_ratio=0.05), 300),
+            ("composite_mask", "composite", "mask",
+             dict(n_lambdas=N_LAMBDAS, lam_min_ratio=COMPOSITE_RATIO), 2000)):
+        kw = dict(rules=rules, reduce=reduce, L=L, tol=-1.0, max_iters=iters,
+                  dynamic=True, screen_every=SCREEN_EVERY)
+        gpu = PathDriver(device="cuda", **kw).run(ds.X, ds.y, **grid)
+        cpu = PathDriver(device="cpu", **kw).run(ds.X, ds.y, **grid)
+        rel = float((np.abs(gpu.objectives - cpu.objectives) / np.abs(cpu.objectives)).max())
+        out[label] = {"iters": iters, "max_rel_obj": rel,
+                      "kept_per_segment_card": dynamic_summary(gpu)["kept_per_segment"],
+                      "kept_per_segment_cpu": dynamic_summary(cpu)["kept_per_segment"],
+                      "kept_samples_card": gpu.kept_samples.tolist(),
+                      "kept_samples_cpu": cpu.kept_samples.tolist()}
+        require(rel <= 1e-6, f"dynamic {label}: card vs CPU at {iters} iterations "
+                             f"per step: rel {rel:.3e}")
+    emit(out)
+
+
+def phase_path_walls(svm_path, X, y) -> None:
+    """Dynamic against sequential path walls at full width, in turns
+    (sequential, dynamic, dynamic, sequential) after every path has run
+    once: the feature path (gather) and the composite path in mask mode.
+    Reported, not checked; the total FISTA iterations beside each wall
+    tell the refreshes' cost from the iterations that momentum restarts
+    add."""
+    def run(**kw):
+        t0 = time.perf_counter()
+        res = svm_path(X, y, device="cuda", **kw)
+        torch.cuda.synchronize()
+        return [time.perf_counter() - t0, int(res.solver_iters.sum())]
+
+    dyn = dict(dynamic=True, screen_every=SCREEN_EVERY)
+    out = {"phase": "path_walls", "order": "sequential, dynamic, dynamic, sequential",
+           "entry": "[wall_s, total FISTA iterations]"}
+    for label, kw in (("feature_gather", dict(n_lambdas=N_LAMBDAS,
+                                              lam_min_ratio=LAM_MIN_RATIO)),
+                      ("composite_mask", dict(rules="composite", reduce="mask",
+                                              n_lambdas=N_LAMBDAS,
+                                              lam_min_ratio=COMPOSITE_RATIO))):
+        out[label] = [run(**kw), run(**kw, **dyn), run(**kw, **dyn), run(**kw)]
+    emit(out)
+
+
 def _bucket(n: int) -> int:
     b = 8
     while b < n:
@@ -495,13 +782,17 @@ def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
     }
 
 
-def phase_timing(K, res, launches, res_c, launches_c, X, y, max_err) -> list:
+def phase_timing(K, res, launches, res_c, launches_c, dyn, X, y, max_err,
+                 solver) -> list:
     """Each kernel, its plain version and the one library call at the shape
     its path gave it, with the least time the card could take. The hinge
     kernels and the feature screen take their shapes and launch counts from
     the feature-rule path (``res``, ``launches``), the sample screen from
     the composite path (``res_c``, ``launches_c``); every row also carries
-    its launches in the composite path."""
+    its launches in the composite path. The feature screen's dynamic variant
+    (``dyn``: the dynamic paths' launch counts) is timed at the full width
+    with sample weights and the cap, as the composite dynamic path runs it,
+    and one whole refresh beside it."""
     hinge, screen = K.hinge, K.screen
     m, n = X.shape
     # the hinge kernels: the step whose solve swept the most rows in total
@@ -575,8 +866,48 @@ def phase_timing(K, res, launches, res_c, launches_c, X, y, max_err) -> list:
     rows.append(_row("sample_surplus", "src/repro/kernels/screen.py:165 _sample_kernel",
                      "src/repro_torch/kernels/csrc/sample.cu", smp, [m, n, m],
                      launches_c, max_err, T - 1))
+    # the dynamic variant: every refresh of the full-width dynamic paths reads
+    # all of X, with the live-sample weights in mask mode
+    lam = float(res_c.lambdas[T - 1])
+    s = torch.ones(n, device="cuda")
+    s[torch.randperm(n, device="cuda")[: n // 4]] = 0.0
+    w_last = torch.from_numpy(res_c.weights[T - 1]).float().cuda()
+    b_last = torch.tensor(float(res_c.biases[T - 1]), device="cuda")
+    u_last = torch.mv(X.t(), w_last)
+    theta_d, delta, _ = solver.gap_theta_delta(X, y, w_last, b_last, lam, s, u=u_last)
+    sh_d = K.dynamic_shared(y, lam, theta_d, float(delta), s)
+    sh_u = K.dynamic_shared(y, lam, theta_d, float(delta), None)
+    dyn_t = {
+        "ms": timed_ms(lambda: screen.screen_bounds_from_shared(
+            X, y, theta_d, sh_d, s, delta), 20),
+        "plain_ms": timed_ms(lambda: screen.screen_bounds_plain(
+            X, y, theta_d, sh_d, s, delta), 20),
+        "library_ms": None,
+        "bytes": m * n * 4 + 3 * n * 4 + 48 + m * 4,
+        "flops": 8 * m * n + 2 * n + 70 * m,
+    }
+    dyn_launches = {"screen_bounds_dynamic": dyn["feature"]["screen_bounds_dynamic"]}
+    rows.append(_row("screen_bounds_dynamic",
+                     "src/repro/kernels/screen.py:142 _feature_kernel (dynamic variant)",
+                     "src/repro_torch/kernels/csrc/screen.cu", dyn_t, [m, n, m],
+                     dyn_launches, max_err, T - 1))
     for row in rows:
         row["launches_composite_path"] = int(launches_c[row["name"]])
+        row["launches_dynamic_feature_path"] = int(dyn["feature"][row["name"]])
+        row["launches_dynamic_composite_path"] = int(dyn["composite"][row["name"]])
+    # one refresh of the dynamic solver at full width, in its parts: the
+    # certificate (5 GEMVs over X from the carried margins), the screen, the
+    # margin sweep of a restart
+    wm = w_last * (torch.rand(m, device="cuda") < 0.5)
+    refresh = {
+        "certificate_ms": timed_ms(lambda: solver.gap_theta_delta(
+            X, y, w_last, b_last, lam, s, u=u_last), 10),
+        "screen_ms": timed_ms(lambda: solver.refresh_bounds(
+            X, y, lam, theta_d, delta, s), 10),
+        "restart_margin_ms": timed_ms(lambda: hinge.margin_obj_op(X, wm, y, b_last), 10),
+    }
+    refresh["total_ms"] = sum(refresh.values())
+    emit({"phase": "refresh_timing", "shape": [m, n], "lam": lam, **refresh})
     sms = hinge.sm_count(X.device)
     gp = hinge.grad_plan(kept, n, Xr.element_size(), hinge.bulk_aligned(Xr), sms)
     mp = hinge.column_sweep_plan(kept, n, Xr.element_size(), hinge.bulk_aligned(Xr), sms)
@@ -588,7 +919,9 @@ def phase_timing(K, res, launches, res_c, launches_c, X, y, max_err) -> list:
                              "smem_bytes": cp.smem_bytes}})
     emit({"phase": "timing", "step": k, "kept": kept, "bucket": pad,
           "rows": [{key: r[key] for key in ("name", "ms", "plain_ms", "library_ms",
-                                             "bound_ms")} for r in rows]})
+                                             "bound_ms")} for r in rows],
+          "dynamic_unweighted_ms": timed_ms(lambda: screen.screen_bounds_from_shared(
+              X, y, theta_d, sh_u, None, delta), 20)})
     # the hinge kernels at the full width too (the unscreened solve's shape)
     w = torch.randn(m, device="cuda") * 0.01
     _, xi_f, _ = hinge.margin_obj_plain(X, w, y, b)
@@ -611,9 +944,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.dual import lambda_max, theta_at_lambda_max
+    from repro_torch.core import solver
     from repro_torch.core.path import PathDriver, svm_path
     from repro_torch.core.solver import lipschitz_estimate
-    from repro_torch.core.screening import shared_scalars
+    from repro_torch.core.screening import shared_scalars, shared_scalars_from_stats
     from repro_torch.data import make_sparse_classification
     from repro_torch.kernels import build, hinge, ops, screen
 
@@ -622,7 +956,7 @@ def main() -> int:
     info = phase_device()
     phase_build(build)
     gen = torch.Generator().manual_seed(1234)
-    K = Kernels(hinge, screen, shared_scalars)
+    K = Kernels(hinge, screen, shared_scalars, shared_scalars_from_stats)
     phase_kernels_ragged(K, gen)
 
     t0 = time.perf_counter()
@@ -637,11 +971,18 @@ def main() -> int:
     res, launches = phase_path(svm_path, ops, X, y)
     phase_objective_check(res, X, y)
     phase_small_vs_plain(PathDriver, lipschitz_estimate, make_sparse_classification)
-    phase_safety(svm_path, res, X, y)
+    full = phase_safety(svm_path, res, X, y)
     res_c, launches_c = phase_composite_path(svm_path, ops, X, y)
     phase_composite_small_vs_plain(PathDriver, lipschitz_estimate,
                                    make_sparse_classification)
-    rows = phase_timing(K, res, launches, res_c, launches_c, X, y, K.max_err)
+    launches_df = phase_dynamic_feature_path(svm_path, ops, X, y, res, full)
+    launches_dc = phase_dynamic_composite_path(svm_path, ops, X, y)
+    phase_dynamic_small_vs_plain(PathDriver, lipschitz_estimate,
+                                 make_sparse_classification)
+    phase_path_walls(svm_path, X, y)
+    rows = phase_timing(K, res, launches, res_c, launches_c,
+                        {"feature": launches_df, "composite": launches_dc},
+                        X, y, K.max_err, solver)
 
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

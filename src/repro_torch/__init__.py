@@ -13,4 +13,15 @@ Entry points run on the card by default (``device="cuda"``) and raise when
 no GPU is present; pass ``device="cpu"`` for the plain versions.
 """
 
+import importlib
+
 from .device import resolve_device  # noqa: F401
+
+
+def __getattr__(name):
+    """The entry points of :mod:`repro_torch.core` (``svm_path``,
+    ``PathDriver``, ``fista_solve_dynamic``, ...), imported on first access."""
+    core = importlib.import_module(".core", __name__)
+    if name in core.__all__:
+        return getattr(core, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -29,6 +29,15 @@ b_{k-1}|`` (inf until one step of history exists).
 X never leaves the device. The host keeps the per-step records (numpy) and
 the keep masks; the warm start stays on the device.
 
+``dynamic=True`` swaps every solve for the segmented
+``solver.fista_solve_dynamic``: the step's sequential screen seeds a live
+feature mask that the solver tightens every ``screen_every`` iterations
+from the gap-certified at-lambda region. In mask mode with a sample rule
+the solver also re-screens samples from its carried margins, on the first
+verification round only; those drops join the step's screened set, so the
+verification covers them. Per-step, per-segment kept counts and gaps land
+in ``PathResult.extras["dynamic"]``.
+
 The Lipschitz constant is estimated once per path on the full X (or given
 as ``PathDriver(L=)``) and reused by every reduced solve, verification
 re-solves included: removing rows or columns never increases
@@ -56,11 +65,19 @@ from .rules import (
     AXIS_SAMPLES,
     ConvexRegion,
     FeatureVIRule,
+    SampleVIRule,
+    dynamic_tau,
     make_rules,
     solve_with_verification,
 )
 from .screening import SAFE_TAU
-from .solver import HEALTH_SCREEN_REFUSED, fista_solve, lipschitz_estimate
+from .solver import (
+    HEALTH_SCREEN_REFUSED,
+    DynamicFistaResult,
+    fista_solve,
+    fista_solve_dynamic,
+    lipschitz_estimate,
+)
 
 __all__ = ["PathResult", "PathDriver", "svm_path", "default_lambda_grid"]
 
@@ -85,7 +102,10 @@ class PathResult:
     #: ``keep_masks`` (T, m) bool, the features fed to each step's solver,
     #: ``sample_masks`` ({step: (n,) bool}, each step's accepted sample
     #: mask; empty without a sample rule) and ``solve_times`` (T,) seconds in
-    #: the gathers, FISTA solves and verification rounds
+    #: the gathers, FISTA solves and verification rounds; with ``dynamic``
+    #: also ``dynamic`` ({step: per-segment telemetry}) and
+    #: ``dynamic_keep_masks`` (T, m) bool, the features still live at the
+    #: end of each step's accepted solve
     extras: dict = field(default_factory=dict)
 
 
@@ -115,6 +135,18 @@ def _validate_grid(lambdas) -> np.ndarray:
     return lambdas
 
 
+def _dynamic_telemetry(res: DynamicFistaResult) -> dict:
+    """Host view of one dynamic solve's per-segment screening trace."""
+    s = res.n_segments
+    out = {"segments": s,
+           "kept_per_segment": [int(v) for v in res.kept_per_segment[:s]],
+           "gap_per_segment": [float(v) for v in res.gap_per_segment[:s]]}
+    if res.kept_samples_per_segment is not None:
+        out["kept_samples_per_segment"] = [
+            int(v) for v in res.kept_samples_per_segment[:s]]
+    return out
+
+
 def _anchor_ok(theta: torch.Tensor, delta: torch.Tensor) -> bool:
     """Certificate gate: a region may only be built from a finite anchor; a
     poisoned ``(theta, delta)`` fails safe to keep-all for the next step."""
@@ -129,15 +161,17 @@ class PathDriver:
     ``[]`` for the unscreened path). ``reduce`` is ``"gather"`` or
     ``"mask"``. ``shrink_factor`` scales the observed movement into the
     next step's trust radii; ``max_verify_rounds`` bounds the re-solves
-    before a step falls back to every sample. ``L`` is a known upper bound
-    on the Lipschitz constant of ``[X; 1^T]``; without it the path
-    estimates one. ``device`` defaults to ``"cuda"`` and raises when no GPU
-    is present.
+    before a step falls back to every sample. ``dynamic`` re-screens inside
+    every solve each ``screen_every`` iterations (see the module
+    docstring). ``L`` is a known upper bound on the Lipschitz constant of
+    ``[X; 1^T]``; without it the path estimates one. ``device`` defaults to
+    ``"cuda"`` and raises when no GPU is present.
     """
 
     def __init__(self, rules="feature_vi", *, reduce: str = "gather",
                  tol: float = 1e-9, max_iters: int = 4000,
                  shrink_factor: float = 1.5, max_verify_rounds: int = 3,
+                 dynamic: bool = False, screen_every: int = 50,
                  L=None, device="cuda"):
         if reduce not in ("gather", "mask"):
             raise ValueError(f"reduce must be 'gather' or 'mask', got {reduce!r}")
@@ -151,10 +185,22 @@ class PathDriver:
         self.max_iters = int(max_iters)
         self.shrink_factor = float(shrink_factor)
         self.max_verify_rounds = int(max_verify_rounds)
+        self.dynamic = bool(dynamic)
+        self.screen_every = int(screen_every)
         self.L = L
         self.device = resolve_device(device)
 
-    def _solve(self, X, y, lam, w0, b0, L, valid_m=None, sample_mask=None):
+    def _solve(self, X, y, lam, w0, b0, L, valid_m=None, sample_mask=None,
+               feature_mask=None, sample_screen_kw=None):
+        """One solve; with ``dynamic`` the segmented solver, seeded with
+        ``feature_mask`` (default: every live row)."""
+        if self.dynamic:
+            return fista_solve_dynamic(
+                X, y, lam, w0=w0, b0=b0, max_iters=self.max_iters,
+                tol=self.tol, L=L, sample_mask=sample_mask,
+                feature_mask=feature_mask, screen_every=self.screen_every,
+                tau=dynamic_tau(self.rules), valid_m=valid_m,
+                **(sample_screen_kw or {}))
         return fista_solve(X, y, lam, w0=w0, b0=b0, max_iters=self.max_iters,
                            tol=self.tol, L=L, sample_mask=sample_mask,
                            valid_m=valid_m)
@@ -197,6 +243,8 @@ class PathDriver:
         solve_times = np.zeros((T,), dtype=np.float64)
         health = np.zeros((T,), dtype=np.int64)
         keep_masks = np.zeros((T, m), dtype=bool)
+        dyn_log: dict[int, dict] = {}
+        dyn_masks = np.zeros((T, m), dtype=bool)
         sample_masks: dict[int, np.ndarray] = {}
         rule_log: list[dict[str, dict]] = [{}]  # entry 0: unscreened step
 
@@ -225,12 +273,22 @@ class PathDriver:
             active[0] = int(np.sum(np.abs(weights[0]) > 1e-10))
             iters[0] = res0.n_iters
             health[0] |= res0.health
+            if self.dynamic:
+                dyn_log[0] = _dynamic_telemetry(res0)
+                dyn_masks[0] = res0.feature_mask.cpu().numpy()
             theta_prev, delta_prev = safe_theta_and_delta(
                 X, y, res0.w, res0.b, float(lambdas[0]))
         anchor_ok = _anchor_ok(theta_prev, delta_prev)
         lam_prev = float(lambdas[0])
         # trust-region movement (inf until one step of history exists)
         dw_pred = db_pred = float("inf")
+        # the in-solver sample re-screen: dynamic, mask mode (the solver's
+        # sample mask indexes every sample) and a sample rule whose slack
+        # model it borrows; gather mode screens samples between steps only
+        dyn_sample_rule = None
+        if self.dynamic and self.reduce == "mask":
+            dyn_sample_rule = next(
+                (r for r in sample_rules if isinstance(r, SampleVIRule)), None)
 
         for k in range(1, T):
             lam = float(lambdas[k])
@@ -267,14 +325,32 @@ class PathDriver:
             f_idx = np.nonzero(f_mask)[0]
             kept[k] = len(f_idx)
             keep_masks[k] = f_mask
-            warm = {"w": w_dev, "b": b_host}
+            warm = {"w": w_dev, "b": b_host, "rounds": 0}
+            skw = None
+            if dyn_sample_rule is not None:
+                # the rule's slack model: this step's trust radii and the
+                # secant from the margins its bounds just swept
+                skw = dict(dynamic_samples=True, sample_dw=dw_pred,
+                           sample_db=db_pred,
+                           sample_u_prev=dyn_sample_rule._u_prev,
+                           sample_shrink_factor=dyn_sample_rule.shrink_factor,
+                           sample_margin_floor=dyn_sample_rule.margin_floor)
 
             def solve(mask):
-                # each verification round warm-starts from the last one
-                res, w_full = self._solve_reduced(
+                # each verification round warm-starts from the last one; the
+                # in-solver sample screen runs on the first round only (a
+                # re-solve must not drop the violators it re-admits)
+                res, w_full, live = self._solve_reduced(
                     X, y, lam, f_idx, np.nonzero(mask)[0], warm["w"],
-                    warm["b"], L_path)
+                    warm["b"], L_path,
+                    sample_screen_kw=skw if warm["rounds"] == 0 else None)
                 warm["w"], warm["b"] = w_full, float(res.b)
+                warm["rounds"] += 1
+                warm["live"] = live
+                if getattr(res, "sample_mask", None) is not None:
+                    # the in-solver drops join the screened set, so the
+                    # verification below covers them
+                    mask &= res.sample_mask.cpu().numpy()
                 return res, w_full, res.b
 
             res, w_dev, b_dev, rounds = solve_with_verification(
@@ -285,6 +361,9 @@ class PathDriver:
             vrounds[k] = rounds
             if sample_rules:
                 sample_masks[k] = s_mask.copy()
+            if self.dynamic:
+                dyn_log[k] = _dynamic_telemetry(res)
+                dyn_masks[k] = warm["live"]
             health[k] |= res.health
             solve_times[k] = time.perf_counter() - st0
 
@@ -308,31 +387,51 @@ class PathDriver:
             iters[k] = res.n_iters
             wall[k] = time.perf_counter() - t0
 
+        extras = {"lam_max": lam_max_val, "health": health,
+                  "rule_telemetry": rule_log, "keep_masks": keep_masks,
+                  "sample_masks": sample_masks, "solve_times": solve_times}
+        if self.dynamic:
+            extras["dynamic"] = dyn_log
+            extras["dynamic_keep_masks"] = dyn_masks
         return PathResult(
             lambdas=lambdas, weights=weights, biases=biases,
             objectives=objectives, kept=kept, active=active,
             solver_iters=iters, wall_times=wall, screen_times=s_times,
             screened=bool(self.rules), kept_samples=kept_s,
             verify_rounds=vrounds, rules=tuple(r.name for r in self.rules),
-            extras={"lam_max": lam_max_val, "health": health,
-                    "rule_telemetry": rule_log, "keep_masks": keep_masks,
-                    "sample_masks": sample_masks, "solve_times": solve_times},
+            extras=extras,
         )
 
-    def _solve_reduced(self, X, y, lam, f_idx, s_idx, w_warm, b_warm, L):
+    def _solve_reduced(self, X, y, lam, f_idx, s_idx, w_warm, b_warm, L,
+                       sample_screen_kw=None):
         """Reduce X on both axes (``self.reduce``), solve, and scatter ``w``
         back to a full (m,) tensor on the device.
 
         ``f_idx`` / ``s_idx``: host indices of the kept features / samples;
         ``w_warm`` (m,) on the device and ``b_warm`` a float warm-start the
-        solve."""
+        solve; ``sample_screen_kw`` the in-solver sample re-screen's options
+        (mask mode only). Returns ``(result, w_full, live)``: ``live`` is the
+        (m,) host mask of the features still live at the end of a dynamic
+        solve (None without ``dynamic``)."""
         m, n = X.shape
         dev, dtype = X.device, X.dtype
         b0 = torch.as_tensor(b_warm, dtype=dtype, device=dev)
         kept, kept_s = len(f_idx), len(s_idx)
+
+        def live(res, f_idx=None):
+            if not self.dynamic:
+                return None
+            fm = res.feature_mask.cpu().numpy()
+            if f_idx is None:
+                return fm
+            out = np.zeros((m,), dtype=bool)
+            out[f_idx] = fm[:len(f_idx)]
+            return out
+
         if kept == m and kept_s == n:
-            res = self._solve(X, y, lam, w_warm, b0, L)
-            return res, res.w
+            res = self._solve(X, y, lam, w_warm, b0, L,
+                              sample_screen_kw=sample_screen_kw)
+            return res, res.w, live(res)
         fi = torch.from_numpy(f_idx).to(dev)
         smask = None
         if self.reduce == "mask":
@@ -343,8 +442,9 @@ class PathDriver:
                 smask = torch.zeros((n,), dtype=dtype, device=dev)
                 smask[torch.from_numpy(s_idx).to(dev)] = 1.0
             res = self._solve(Xr, y, lam, w_warm * f_mask, b0, L,
-                              sample_mask=smask)
-            return res, res.w * f_mask
+                              sample_mask=smask, feature_mask=f_mask,
+                              sample_screen_kw=sample_screen_kw)
+            return res, res.w * f_mask, live(res)
         # gather: kept rows into a zero-padded bucket (valid_m = kept live
         # rows), then kept columns into a zero-padded bucket with y = 0 there
         Xr, yr, wr, valid_m = X, y, w_warm, None
@@ -369,7 +469,7 @@ class PathDriver:
                           sample_mask=smask)
         w_full = torch.zeros((m,), dtype=dtype, device=dev)
         w_full[fi] = res.w[:kept]
-        return res, w_full
+        return res, w_full, live(res, f_idx if kept < m else None)
 
 
 def svm_path(
@@ -385,6 +485,8 @@ def svm_path(
     tau: float = SAFE_TAU,
     rules=None,
     engine: str = "host",
+    dynamic: bool = False,
+    screen_every: int = 50,
     device="cuda",
 ) -> PathResult:
     """Solve the L1-L2-SVM path with safe screening.
@@ -392,14 +494,17 @@ def svm_path(
     ``screening=True`` uses the paper's feature rule (with ``tau``);
     ``rules=`` picks others (``"sample_vi"``, ``"composite"``, a list, or
     instances), ``screening=False`` (or ``rules=[]``) disables screening.
-    ``reduce`` is ``"gather"`` (the default) or ``"mask"``. Only the host
-    engine is ported. Runs on ``device``, by default the GPU.
+    ``reduce`` is ``"gather"`` (the default) or ``"mask"``. ``dynamic=True``
+    also re-screens inside each solve every ``screen_every`` iterations (see
+    :class:`PathDriver`). Only the host engine is ported. Runs on
+    ``device``, by default the GPU.
     """
     if engine != "host":
         raise ValueError(f"this port runs engine='host' only, got {engine!r}")
     if rules is None:
         rules = [FeatureVIRule(tau=tau)] if screening else []
     driver = PathDriver(rules=rules, reduce="gather" if reduce is None else reduce,
-                        tol=tol, max_iters=max_iters, device=device)
+                        tol=tol, max_iters=max_iters, dynamic=dynamic,
+                        screen_every=screen_every, device=device)
     return driver.run(X, y, lambdas=lambdas, n_lambdas=n_lambdas,
                       lam_min_ratio=lam_min_ratio)

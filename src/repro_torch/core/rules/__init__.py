@@ -1,5 +1,5 @@
-"""Pluggable safe-screening rules: ``"feature_vi"``, ``"sample_vi"`` and the
-container ``"composite"`` (both)."""
+"""Pluggable safe-screening rules: ``"feature_vi"``, ``"dvi"``,
+``"sample_vi"`` and the container ``"composite"`` (both axes)."""
 
 from .base import (  # noqa: F401
     AXIS_FEATURES,
@@ -7,11 +7,13 @@ from .base import (  # noqa: F401
     ConvexRegion,
     ScreeningRule,
     available_rules,
+    dynamic_tau,
     get_rule,
     make_rules,
     register_rule,
     solve_with_verification,
 )
 from .feature_vi import FeatureVIRule  # noqa: F401
+from .dvi import DVIRule  # noqa: F401
 from .sample_vi import SampleVIRule, sample_slack_caps  # noqa: F401
 from .composite import CompositeRule  # noqa: F401

@@ -29,7 +29,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..screening import ScreenShared, shared_scalars
+from ..screening import SAFE_TAU, ScreenShared, shared_scalars
 
 __all__ = [
     "ConvexRegion",
@@ -39,6 +39,7 @@ __all__ = [
     "available_rules",
     "make_rules",
     "solve_with_verification",
+    "dynamic_tau",
     "AXIS_FEATURES",
     "AXIS_SAMPLES",
 ]
@@ -102,6 +103,20 @@ class ScreeningRule:
     #: ``needs_verification=True`` is checked by :meth:`verify` at the
     #: solved point before the step is accepted
     needs_verification: bool = False
+
+    def refresh(self, X, y, w, b, lam, sample_mask=None) -> ConvexRegion:
+        """The region rebuilt from the current iterate ``(w, b)`` at ``lam``
+        mid-solve (dynamic screening): the duality gap there certifies a
+        dual-feasible ``theta`` with ``||theta - theta*(lam)|| <= delta``
+        (``solver.gap_theta_delta``), and the at-lambda region (``lam1 =
+        lam2 = lam``) built from it tightens as the solve converges. Safe
+        for any rule that is safe on a path step's region. ``sample_mask``
+        restricts the certificate to the live samples."""
+        from ..solver import gap_theta_delta  # lazy: the solver imports rules
+
+        theta, delta, _ = gap_theta_delta(X, y, w, b, lam, sample_mask=sample_mask)
+        return ConvexRegion.build(y, lam, lam, theta, delta=delta, w1=w,
+                                  b1=float(b))
 
     def prepare(self, X: torch.Tensor, y: torch.Tensor) -> None:
         """Once-per-path hook (default: no-op)."""
@@ -194,6 +209,15 @@ def solve_with_verification(
             s_mask[:] = True  # give up screening this step: exact solve
         else:
             s_mask[np.unique(viol)] = True
+
+
+def dynamic_tau(rules: Sequence[ScreeningRule]) -> float:
+    """The in-solver screen's keep threshold for a rule mix: the smallest
+    ``tau`` of the feature rules (a smaller tau keeps more), or
+    :data:`~repro_torch.core.screening.SAFE_TAU` when none carries one."""
+    taus = [float(r.tau) for r in rules
+            if r.axis == AXIS_FEATURES and hasattr(r, "tau")]
+    return min(taus) if taus else SAFE_TAU
 
 
 RuleSpec = Union[None, str, ScreeningRule, Sequence[Union[str, ScreeningRule]]]

@@ -22,7 +22,7 @@ reductions and the finalizer are one kernel (``kernels/csrc/screen.cu``);
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -83,12 +83,23 @@ def row_dot(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def feature_reductions(X: torch.Tensor, y: torch.Tensor,
-                       theta1: torch.Tensor) -> FeatureReductions:
+                       theta1: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None) -> FeatureReductions:
     """The four O(mn) reductions, batched over all features (plain version;
-    the screen kernel computes them in one read of X)."""
-    d = X @ torch.stack([y * theta1, y, torch.ones_like(y)], dim=1)
+    the screen kernel computes them in one read of X).
+
+    ``weights`` (n,) restricts the three theta-independent reductions to
+    weighted samples, ``[f.(y s), f.s, f.(f s)]``: with a 0/1 live-sample
+    mask they are the reference dynamic solver's ``bound_statics``.
+    ``theta1`` is already zero off the live samples."""
+    if weights is None:
+        d = X @ torch.stack([y * theta1, y, torch.ones_like(y)], dim=1)
+        d_sq = torch.sum(X * X, dim=1)
+    else:
+        d = X @ torch.stack([y * theta1, y * weights, weights], dim=1)
+        d_sq = (X * X) @ weights
     return FeatureReductions(d_theta=d[:, 0], d_one=d[:, 1], d_y=d[:, 2],
-                             d_sq=torch.sum(X * X, dim=1))
+                             d_sq=d_sq)
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:

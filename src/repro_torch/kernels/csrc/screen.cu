@@ -22,6 +22,16 @@
 // row r. Ragged edges are masked in the kernel; nothing is padded. Every
 // max is NaN-propagating (as torch.maximum), so a poisoned anchor gives a
 // NaN bound, which the caller keeps.
+//
+// Dynamic variant (the in-solver refresh, src/repro/core/solver.py
+// `_dynamic_run`: `bound_statics` and the capped bound): optional sample
+// weights s (0/1 live samples in mask mode) make the reductions
+//   f_j . (y theta1), f_j . (y s), f_j . s, f_j . (f_j s),
+// so the region is that of the sample-masked problem, and a flag in the
+// packed scalars caps the bound at the gap sphere's
+//   |d_theta| + sqrt(max(d_sq, 0)) * delta
+// with a NaN-propagating min. Both stay in the one read of X; the weights
+// add one 4-byte load per column, shared by the warp's 4 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,9 +49,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// max that propagates NaN from either side (jnp.maximum, torch.maximum)
+// max and min that propagate NaN from either side (jnp.maximum,
+// torch.minimum); fmaxf / fminf drop it
 __device__ __forceinline__ float nmax(float a, float b) {
   return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
 }
 
 // The packed scalars of kernels/screen.py pack_shared, in its order.
@@ -49,6 +63,8 @@ struct Shared {
   float inv1, inv2, yc, ysq, r_h_sq, g0, qa_sq, a_norm, a_dot_y;
   float r_h;
   bool informative;  // halfspace_valid and ||Qa||^2 > 1e-9
+  bool cap;          // slot 10: min with the gap sphere's bound
+  float cap_delta;   // slot 11: the sphere's radius delta
 };
 
 __device__ __forceinline__ Shared load_shared(const float* __restrict__ sc) {
@@ -64,6 +80,8 @@ __device__ __forceinline__ Shared load_shared(const float* __restrict__ sc) {
   s.a_dot_y = sc[8];
   s.informative = (sc[9] > 0.5f) && (s.qa_sq > 1e-9f);
   s.r_h = sqrtf(nmax(s.r_h_sq, 0.f));
+  s.cap = sc[10] > 0.5f;
+  s.cap_delta = sc[11];
   return s;
 }
 
@@ -91,13 +109,19 @@ __device__ __forceinline__ float feature_bound(float d_theta, float d_one,
   const float qv_sq = d_sq - d_y * d_y / s.ysq;
   const float v_a = (d_theta - s.inv1 * d_one) / nmax(s.a_norm, kEps);
   const float qv_qa = v_a - d_y * s.a_dot_y / s.ysq;
-  return nmax(t_max(v_ch, qv_qa, qv_sq, s), t_max(-v_ch, -qv_qa, qv_sq, s));
+  const float vi = nmax(t_max(v_ch, qv_qa, qv_sq, s),
+                        t_max(-v_ch, -qv_qa, qv_sq, s));
+  // only when asked: with delta = inf and d_sq = 0 the sphere term is NaN
+  if (!s.cap) return vi;
+  return nmin(vi, fabsf(d_theta) + sqrtf(nmax(d_sq, 0.f)) * s.cap_delta);
 }
 
-template <typename T>
+// kWeighted: the reductions are weighted by w (n,); otherwise all ones
+template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
                        const float* __restrict__ theta,
+                       const float* __restrict__ w,
                        const float* __restrict__ sc, int m, int n,
                        float* __restrict__ bounds) {
   const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
@@ -114,14 +138,25 @@ screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
   for (int j = lane; j < n; j += 32) {
     const float yj = y[j];
     const float ytj = yj * theta[j];
+    float wj = 1.f, ywj = yj;
+    if constexpr (kWeighted) {
+      wj = w[j];
+      ywj = yj * wj;
+    }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       if (r < live) {
         const float x = to_f32(p[r * ld + j]);
         a_t[r] = fmaf(x, ytj, a_t[r]);
-        a_o[r] = fmaf(x, yj, a_o[r]);
-        a_y[r] += x;
-        a_s[r] = fmaf(x, x, a_s[r]);
+        a_o[r] = fmaf(x, ywj, a_o[r]);
+        if constexpr (kWeighted) {
+          const float xw = x * wj;
+          a_y[r] += xw;
+          a_s[r] = fmaf(xw, x, a_s[r]);
+        } else {
+          a_y[r] += x;
+          a_s[r] = fmaf(x, x, a_s[r]);
+        }
       }
     }
   }
@@ -143,16 +178,31 @@ screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
   }
 }
 
+template <typename T>
+void launch(const T* X, const float* y, const float* theta, const float* w,
+            const float* sc, int m, int n, float* bounds, int blocks,
+            cudaStream_t s) {
+  if (w != nullptr) {
+    screen_features_kernel<T, true><<<blocks, kThreads, 0, s>>>(
+        X, y, theta, w, sc, m, n, bounds);
+  } else {
+    screen_features_kernel<T, false><<<blocks, kThreads, 0, s>>>(
+        X, y, theta, w, sc, m, n, bounds);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// bounds[j] for every feature row of X. scalars: the 12 packed fp32 values
-// of kernels/screen.py pack_shared.
+// bounds[j] for every feature row of X. weights: (n,) sample weights, or
+// null for all ones. scalars: the 12 packed fp32 values of
+// kernels/screen.py pack_shared (slots 10-11: the gap-sphere cap).
 // Returns cudaGetLastError().
 int screen_bounds_features(const void* X, int x_bf16, const float* y,
-                           const float* theta, const float* scalars, int m,
-                           int n, float* bounds, int device, void* stream) {
+                           const float* theta, const float* weights,
+                           const float* scalars, int m, int n, float* bounds,
+                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -160,11 +210,11 @@ int screen_bounds_features(const void* X, int x_bf16, const float* y,
   const int blocks = (m + rows_per_block - 1) / rows_per_block;
   if (blocks == 0) return cudaSuccess;
   if (x_bf16) {
-    screen_features_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(X), y, theta, scalars, m, n, bounds);
+    launch(static_cast<const __nv_bfloat16*>(X), y, theta, weights, scalars,
+           m, n, bounds, blocks, s);
   } else {
-    screen_features_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(X), y, theta, scalars, m, n, bounds);
+    launch(static_cast<const float*>(X), y, theta, weights, scalars, m, n,
+           bounds, blocks, s);
   }
   return cudaGetLastError();
 }

@@ -16,6 +16,13 @@ applied per column. The slack scalars are packed by
 :func:`pack_sample_scalars`, in the reference's order and clamps. Kernel:
 ``csrc/sample.cu``, replacing the reference's Pallas ``_sample_kernel``.
 
+The feature screen has a dynamic variant for the in-solver refresh
+(``core/solver.py`` ``refresh_bounds``): sample weights restrict the three
+theta-independent reductions to the live samples, and a flag in the packed
+scalars caps the bound at the gap sphere's ``|d_theta| + ||f|| delta``. It
+is the same kernel and the same read of X, counted apart as
+``screen_bounds_dynamic``.
+
 For a CUDA ``X`` each entry point launches its kernel and counts the launch
 in :data:`LAUNCHES`; for a CPU ``X`` it runs the plain version beside it.
 """
@@ -34,7 +41,7 @@ from . import build
 from .hinge import bulk_aligned, column_sweep_plan, sm_count
 
 #: launches of the kernel in this process (reset by ``ops.reset_launch_counts``)
-LAUNCHES = {"screen_bounds": 0, "sample_surplus": 0}
+LAUNCHES = {"screen_bounds": 0, "screen_bounds_dynamic": 0, "sample_surplus": 0}
 #: launches of each variant of the redesigned sample-surplus kernel
 VARIANTS = {"sample_surplus": {"bulk": 0, "scalar": 0}}
 
@@ -42,40 +49,61 @@ NUM_SCALARS = 12  # packed scalars, padded as in the reference
 _BIG = 1e30  # stands in for inf in the sample finalizer (no 0 * inf = NaN)
 
 
-def pack_shared(sh: ScreenShared) -> torch.Tensor:
+def pack_shared(sh: ScreenShared, cap_delta=None) -> torch.Tensor:
     """Pack the scalars the finalizer reads into a flat (12,) fp32 vector:
     ``inv_lam1, inv_lam2, yc, ysq, r_h_sq, g0, qa_sq, a_norm, a_dot_y,
-    halfspace_valid``, zero-padded. Stays on the scalars' device."""
+    halfspace_valid``, then the gap-sphere cap ``(1, delta)`` when
+    ``cap_delta`` (a 0-d tensor on the scalars' device) is given, else
+    ``(0, 0)``. Stays on the scalars' device."""
     vals = [sh.inv_lam1, sh.inv_lam2, sh.yc, sh.ysq, sh.r_h_sq, sh.g0,
             sh.qa_sq, sh.a_norm, sh.a_dot_y, sh.halfspace_valid]
+    if cap_delta is not None:
+        vals += [torch.ones_like(sh.a_norm), cap_delta]
     v = torch.stack([torch.as_tensor(x).to(torch.float32) for x in vals])
     return torch.nn.functional.pad(v, (0, NUM_SCALARS - v.shape[0]))
 
 
-def screen_bounds_plain(X, y, theta1, sh: ScreenShared) -> torch.Tensor:
+def screen_bounds_plain(X, y, theta1, sh: ScreenShared, weights=None,
+                        cap_delta=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`screen_bounds_from_shared`."""
-    red = feature_reductions(X.float(), y.float(), theta1.float())
-    return screen_bounds_from_reductions(red, sh)
+    red = feature_reductions(X.float(), y.float(), theta1.float(),
+                             None if weights is None else weights.float())
+    bounds = screen_bounds_from_reductions(red, sh)
+    if cap_delta is None:
+        return bounds
+    delta = pack_shared(sh, cap_delta)[11]  # the fp32 value the kernel reads
+    sphere = torch.abs(red.d_theta) + torch.sqrt(torch.clamp_min(red.d_sq, 0.0)) * delta
+    return torch.minimum(bounds, sphere)  # NaN-propagating, as jnp.minimum
 
 
-def screen_bounds_from_shared(X, y, theta1, sh: ScreenShared) -> torch.Tensor:
+def screen_bounds_from_shared(X, y, theta1, sh: ScreenShared, weights=None,
+                              cap_delta=None) -> torch.Tensor:
     """Per-feature VI bounds ``(m,)`` fp32 from one sweep of X, given the
-    region's shared scalars ``sh`` (``core/screening.shared_scalars``)."""
+    region's shared scalars ``sh`` (``core/screening.shared_scalars``).
+
+    The dynamic variant: ``weights`` (n,) fp32 weights the theta-independent
+    reductions (``sh`` must come from the same weighted statistics), and
+    ``cap_delta`` (a 0-d tensor) takes the elementwise min with
+    ``|d_theta| + ||f|| * cap_delta``."""
     if not build.on_card(X):
-        return screen_bounds_plain(X, y, theta1, sh)
+        return screen_bounds_plain(X, y, theta1, sh, weights, cap_delta)
     build.check_matrix(X)
     m, n = X.shape
     build.check_vector(y, n, X, "y")
     build.check_vector(theta1, n, X, "theta1")
-    scalars = pack_shared(sh).to(X.device)
+    if weights is not None:
+        build.check_vector(weights, n, X, "weights")
+    scalars = pack_shared(sh, cap_delta).to(X.device)
     bounds = torch.empty((m,), dtype=torch.float32, device=X.device)
     dev, stream = build.stream_and_device(X)
+    name = ("screen_bounds" if weights is None and cap_delta is None
+            else "screen_bounds_dynamic")
     err = build.library().screen_bounds_features(
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
-        theta1.data_ptr(), scalars.data_ptr(), m, n, bounds.data_ptr(), dev,
-        stream)
-    build.check(err, "screen_bounds")
-    LAUNCHES["screen_bounds"] += 1
+        theta1.data_ptr(), None if weights is None else weights.data_ptr(),
+        scalars.data_ptr(), m, n, bounds.data_ptr(), dev, stream)
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return bounds
 
 

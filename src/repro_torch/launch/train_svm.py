@@ -4,13 +4,17 @@ Port of the reference launcher's host lane: it builds a seeded synthetic
 problem, runs the screened regularization path (``core/path.py``
 ``svm_path``) on ``--device`` (default the GPU) and prints one line per
 lambda step: kept features and samples, verification re-solves, active
-features, objective, FISTA iterations and wall time. No mesh, checkpoint or
-serve mode.
+features, objective, FISTA iterations and wall time. ``--dynamic`` re-screens
+inside every solve each ``--screen-every`` iterations and adds each step's
+per-segment kept counts to its line. No mesh, checkpoint or serve mode.
 
     PYTHONPATH=src python -m repro_torch.launch.train_svm --device cuda
     PYTHONPATH=src python -m repro_torch.launch.train_svm --m 2000 --n 400 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --rules composite \
         --reduce mask --lam-min-ratio 0.02 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --dynamic \
+        --screen-every 25 --rules composite --reduce mask --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --rules dvi --device cpu
 """
 
 from __future__ import annotations
@@ -34,9 +38,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-lambdas", type=int, default=8)
     ap.add_argument("--lam-min-ratio", type=float, default=0.1)
     ap.add_argument("--rules",
-                    choices=("feature_vi", "sample_vi", "composite", "none"),
+                    choices=("feature_vi", "dvi", "sample_vi", "composite", "none"),
                     default="feature_vi")
     ap.add_argument("--reduce", choices=("gather", "mask"), default="gather")
+    ap.add_argument("--dynamic", action="store_true",
+                    help="re-screen inside every FISTA solve each "
+                         "--screen-every iterations (gap-certified)")
+    ap.add_argument("--screen-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -50,17 +58,23 @@ def main(argv=None) -> int:
     res = svm_path(ds.X, ds.y, n_lambdas=args.n_lambdas,
                    lam_min_ratio=args.lam_min_ratio,
                    rules=[] if args.rules == "none" else args.rules,
-                   reduce=args.reduce, device=device)
+                   reduce=args.reduce, dynamic=args.dynamic,
+                   screen_every=args.screen_every, device=device)
     total = time.perf_counter() - t0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device={name} m={args.m} n={args.n} rules={args.rules} "
-          f"reduce={args.reduce} lam_max={res.extras['lam_max']:.6g}")
+          f"reduce={args.reduce} dynamic={args.dynamic} "
+          f"lam_max={res.extras['lam_max']:.6g}")
+    dyn = res.extras.get("dynamic", {})
     for k in range(len(res.lambdas)):
+        segs = ""
+        if k in dyn:
+            segs = f" kept_per_segment={dyn[k]['kept_per_segment']}"
         print(f"step {k:2d} lam={res.lambdas[k]:.6g} kept={res.kept[k]} "
               f"kept_samples={res.kept_samples[k]} "
               f"verify_rounds={res.verify_rounds[k]} "
               f"active={res.active[k]} obj={res.objectives[k]:.8g} "
-              f"iters={res.solver_iters[k]} wall={res.wall_times[k]:.4f}s")
+              f"iters={res.solver_iters[k]} wall={res.wall_times[k]:.4f}s{segs}")
     print(f"path wall {total:.3f}s")
     return 0
 

@@ -34,7 +34,8 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every submodule was imported
+    # every submodule was imported, core/rules/dvi.py among them
+    assert int(out.stdout.split()[-1]) >= 22
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):
@@ -49,9 +50,15 @@ def test_cuda_request_raises_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         svm_path(ds.X, ds.y)  # the default device is the GPU
     with pytest.raises(RuntimeError, match="cuda"):
+        svm_path(ds.X, ds.y, dynamic=True)
+    with pytest.raises(RuntimeError, match="cuda"):
         PathDriver()
     with pytest.raises(RuntimeError, match="cuda"):
+        PathDriver(dynamic=True)
+    with pytest.raises(RuntimeError, match="cuda"):
         main(["--m", "20", "--n", "10"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--m", "20", "--n", "10", "--dynamic", "--rules", "dvi"])
 
 
 def test_unknown_rule_and_engine_fail_early():

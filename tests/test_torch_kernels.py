@@ -1,6 +1,8 @@
 """Each kernel's plain version against the reference's Pallas kernel, and
 (on a GPU only) each CUDA kernel against its plain version: the margin and
-gradient sweeps, the feature screen and the sample-surplus sweep.
+gradient sweeps, the feature screen (and its dynamic variant, whose plain
+version is held against the reference in test_torch_dynamic.py) and the
+sample-surplus sweep.
 
 The reference kernels run as ``tests/test_kernels.py`` runs them on the
 CPU: ``interpret=True``. Inputs are identical bits in both packages (bf16
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.convert import state_from_numpy
 from repro_torch.core.dual import lambda_max, theta_at_lambda_max
-from repro_torch.core.screening import shared_scalars
+from repro_torch.core.screening import shared_scalars, shared_scalars_from_stats
 from repro_torch.data import make_sparse_classification
 from repro_torch.kernels import hinge, screen
 
@@ -421,3 +423,44 @@ def test_cuda_sample_surplus_matches_plain(shape, dtype, offset):
                 _close(g.cpu(), p.cpu())
             again = screen.sample_surplus_op(*args)
             assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+def _dynamic_shared(y, lam, theta, delta, weights):
+    """The at-lambda region's scalars from the weighted statistics (as
+    ``core/solver.py`` ``refresh_bounds`` builds them)."""
+    s = torch.ones_like(y) if weights is None else weights
+    lam = torch.tensor(lam, device=y.device)
+    return shared_scalars_from_stats(
+        lam, lam, one_y=torch.sum(y * s), theta_dot_one=torch.sum(theta),
+        theta_dot_y=theta @ y, theta_sq=theta @ theta, n_tot=torch.sum(s),
+        delta=torch.tensor(delta, device=y.device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cuda_dynamic_screen_matches_plain(shape, dtype):
+    """Card only: the feature screen's dynamic variant against its plain
+    version with and without sample weights, the gap-sphere cap on and off,
+    each launch counted as ``screen_bounds_dynamic``; a NaN theta gives NaN
+    bounds. Tolerance rtol 1e-5 (fp32 sums in different orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    m, n = shape
+    X, _, y, _ = _inputs(m, n, dtype, m, seed=24)
+    rng = np.random.default_rng(25)
+    X, y = X.cuda(), y.cuda()
+    s = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).cuda()
+    theta = torch.from_numpy((rng.random(n) / 3.0).astype(np.float32)).cuda() * s
+    cap = torch.tensor(0.05, device="cuda")
+    for w, c in ((s, None), (None, cap), (s, cap)):
+        sh = _dynamic_shared(y, 3.0, theta, 0.05, w)
+        before = screen.LAUNCHES["screen_bounds_dynamic"]
+        got = screen.screen_bounds_from_shared(X, y, theta, sh, w, c)
+        assert screen.LAUNCHES["screen_bounds_dynamic"] == before + 1
+        _close(got.cpu(), screen.screen_bounds_plain(X, y, theta, sh, w, c).cpu())
+    bad = theta.clone()
+    bad[n // 2] = float("nan")
+    sh = _dynamic_shared(y, 3.0, bad, float("inf"), s)
+    inf = torch.tensor(float("inf"), device="cuda")
+    assert bool(torch.isnan(screen.screen_bounds_from_shared(X, y, bad, sh, s, inf)).all())
