@@ -24,7 +24,15 @@ n = 10,000 samples, fp32):
   with the in-solver sample re-screen, checked for the zero-slack
   certificate; and the bench instance dynamic on the card and the CPU.
   Both dynamic paths are then timed against their sequential twins in turns
-  (``path_walls``), and one refresh is timed in its parts.
+  (``path_walls``), and one refresh is timed in its parts;
+* the rest of the feature-rule zoo: ``rules="edpp"`` and ``rules="auto"``
+  on the feature path's grid, checked for safety against the unscreened
+  path, objectives against float64 and their kept counts beside the VI
+  path's (``auto`` also prints its probes and sweep seconds), and
+  ``rules="sifs"`` (EDPP features, verified samples, gather) on the
+  composite grid, checked for the zero-slack certificate, with one float64
+  verification round timed; ``edpp`` and ``sifs`` again on the bench
+  instance, card against CPU at fixed iterations.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -32,8 +40,10 @@ margin, gradient or sample-surplus kernel ran its scalar variant there
 (the full-width paths' rows are 16-byte aligned: every launch must take
 the bulk-copy variant). The kernel checks include shapes and views that
 reach both variants of all three kernels (``VARIANT_CASES``), the margin
-with no live row (``valid_m = 0``), and the feature screen's dynamic
-variant (sample weights, the gap-sphere cap, a NaN theta). Every phase
+with no live row (``valid_m = 0``), the feature screen's dynamic
+variant (sample weights, the gap-sphere cap, a NaN theta) and its EDPP mode
+(exact, inexact and degenerate anchors, a NaN theta, never above the VI
+mode on the same anchor; timed in turns with the VI mode). Every phase
 prints one JSON line; any failed check raises and the script exits
 non-zero. The last lines are the ``{"kernels": [...]}`` record (times on
 this card, bounds, launch counts) and ``{"ok": true, "device": {...}}``.
@@ -79,8 +89,12 @@ SURPLUS_CASES = [(False, math.inf, math.inf), (True, math.inf, math.inf),
 DYNAMIC_CASES = [(False, True), (True, False), (True, True)]
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one phase's JSON line, with the seconds since the script began."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T_START, 3)}), flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -113,11 +127,15 @@ def tolerance(k: int, scale: float) -> float:
 class Kernels:
     """Runs each kernel against its plain version and keeps the worst error."""
 
-    def __init__(self, hinge, screen, shared_scalars, stats):
+    def __init__(self, hinge, screen, shared_scalars, stats, edpp_scalars, lam_max_fn,
+                 theta_fn):
         self.hinge, self.screen, self.shared_scalars = hinge, screen, shared_scalars
         self.stats = stats  # core/screening.shared_scalars_from_stats
+        self.edpp_scalars = edpp_scalars  # core/screening.edpp_scalars
+        self.lam_max, self.theta_max = lam_max_fn, theta_fn  # core/dual.py
         self.max_err = {"margin_obj": 0.0, "hinge_grad": 0.0, "screen_bounds": 0.0,
-                        "screen_bounds_dynamic": 0.0, "sample_surplus": 0.0}
+                        "screen_bounds_dynamic": 0.0, "screen_bounds_edpp": 0.0,
+                        "sample_surplus": 0.0}
         self.variants_seen = {"margin_obj": set(), "hinge_grad": set(),
                               "sample_surplus": set()}
 
@@ -229,6 +247,56 @@ class Kernels:
         out["nan_theta"] = "all NaN"
         return out
 
+    def edpp(self, X, y, gen, where):
+        """The feature screen's EDPP mode against its plain version (the
+        ``edpp`` rule program over the four reductions) on three anchors: the
+        exact one at lam_max with unbalanced classes, an inexact one (delta
+        0.02), and alternating (balanced) classes at lam_max (v1 = 0 up to
+        rounding: where the fallback fires, the bound is the VI bound up to
+        rounding). On every anchor the
+        bound is at most a VI-mode launch's on the same anchor, bit for bit;
+        a NaN theta gives NaN bounds. Each launch must count as
+        ``screen_bounds_edpp``. The sums have k = n terms."""
+        n = X.shape[1]
+        sc = self.screen
+        unbalanced = y.clone()
+        unbalanced[: n // 5] = 1.0
+        balanced = torch.where(torch.arange(n, device="cuda") % 2 == 0, 1.0, -1.0)
+        out = {}
+        anchors = ((unbalanced, "exact"), (y, "inexact"), (balanced, "balanced"))
+        for yy, kind in anchors:
+            lmax = float(self.lam_max(X.float(), yy))
+            theta, lam1, delta = self.theta_max(yy, lmax), lmax, 0.0
+            if kind == "inexact":
+                lam1, delta = 0.7 * lmax, 0.02
+                theta = (torch.rand(n, generator=gen) / lam1).cuda()
+            sh = self.shared_scalars(yy, lam1, 0.5 * lam1, theta, delta=delta)
+            e = self.edpp_scalars(yy, lam1, 0.5 * lam1, theta, delta=delta)
+            before = sc.LAUNCHES["screen_bounds_edpp"]
+            got = sc.screen_bounds_edpp(X, yy, theta, sh, e)
+            require(sc.LAUNCHES["screen_bounds_edpp"] == before + 1,
+                    f"screen_bounds_edpp {where} {kind}: not counted")
+            want = sc.screen_bounds_edpp_plain(X, yy, theta, sh, e)
+            vi = sc.screen_bounds_from_shared(X, yy, theta, sh)
+            torch.cuda.synchronize()
+            res = self._check("screen_bounds_edpp", got, want, n, f"{where} {kind}")
+            require(bool((got <= vi).all()), f"screen_bounds_edpp {where} {kind}: above VI")
+            res["below_vi"] = int((got < vi).sum())
+            res["degenerate"] = float(e.mu) == 0.0
+            if res["degenerate"]:  # the DPP ball: the VI bound up to rounding
+                self._check("screen_bounds_edpp", got, vi, n, f"{where} {kind} vs VI")
+            out[kind] = res
+        bad = theta.clone()
+        bad[n // 2] = float("nan")
+        sh = self.shared_scalars(balanced, 3.0, 2.0, bad, delta=0.01)
+        e = self.edpp_scalars(balanced, 3.0, 2.0, bad, delta=0.01)
+        got = sc.screen_bounds_edpp(X, balanced, bad, sh, e)
+        want = sc.screen_bounds_edpp_plain(X, balanced, bad, sh, e)
+        require(bool(torch.isnan(got).all()) and bool(torch.isnan(want).all()),
+                f"screen_bounds_edpp {where}: a NaN theta did not propagate")
+        out["nan_theta"] = "all NaN"
+        return out
+
     def surplus(self, X, w1, y, gen, where):
         """The sample-surplus kernel in every SURPLUS_CASES case: the
         surplus and the margins u it returns. Both sum k = m terms."""
@@ -298,6 +366,7 @@ def phase_kernels_ragged(K, gen) -> None:
             sh = K.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
             res["screen"] = K.bounds(X, y, theta, sh, f"{m}x{n} {dtype}")
             res["screen_dynamic"] = K.dynamic(X, y, gen, f"{m}x{n} {dtype}")
+            res["screen_edpp"] = K.edpp(X, y, gen, f"{m}x{n} {dtype}")
             res["sample_surplus"] = K.surplus(X, w, y, gen, f"{m}x{n} {dtype}")
             emit({"phase": "kernels_ragged", "shape": [m, n], "row_offset": off,
                   "dtype": str(dtype), "bulk_aligned": K.hinge.bulk_aligned(X),
@@ -323,6 +392,7 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
             res[f"grad_vm{vm}"] = K.grad(Xd, y, xi, vm, f"full {dtype} vm={vm}")
         res["screen"] = K.bounds(Xd, y, theta, sh, f"full {dtype}")
         res["screen_dynamic"] = K.dynamic(Xd, y, gen, f"full {dtype}")
+        res["screen_edpp"] = K.edpp(Xd, y, gen, f"full {dtype}")
         res["sample_surplus"] = K.surplus(Xd, w, y, gen, f"full {dtype}")
         require(res["margin_vm%d" % m]["variant"] == "bulk"
                 and res["grad_vm%d" % m]["variant"] == "bulk"
@@ -335,6 +405,7 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         s = (torch.rand(n, generator=gen) < 0.7).float().cuda()
         sh_d = K.dynamic_shared(y, lmax, theta * s, 1e-3, s)
         cap = torch.tensor(1e-3, device="cuda")
+        e = K.edpp_scalars(y, lmax, 0.5 * lmax, theta, delta=1e-3)
         for name, call in (
                 ("margin_obj", lambda: K.hinge.margin_obj_op(Xd, w, y, b, vm)),
                 ("hinge_grad", lambda: (K.hinge.hinge_grad_op(Xd, y, xi, vm),)),
@@ -343,6 +414,8 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
                 ("screen_bounds_dynamic",
                  lambda: (K.screen.screen_bounds_from_shared(
                      Xd, y, theta * s, sh_d, s, cap),)),
+                ("screen_bounds_edpp",
+                 lambda: (K.screen.screen_bounds_edpp(Xd, y, theta, sh, e),)),
                 ("sample_surplus", lambda: K.screen.sample_surplus_op(
                     Xd, w, y, 0.13, 0.37, 0.05, u_prev))):
             first, again = call(), call()
@@ -463,6 +536,27 @@ def phase_safety(svm_path, res, X, y):
     return full
 
 
+def screened_slack_f64(res, X, y) -> tuple:
+    """``(max rel objective error, worst screened-sample xi per step)``
+    against a float64 recomputation from the returned ``(w, b)`` over all n
+    samples; fails when a screened sample has ``xi > 1e-6``."""
+    Xd, yd = X.double(), y.double()
+    rel, xi_screened = [], []
+    masks = res.extras["sample_masks"]
+    for k in range(len(res.lambdas)):
+        w = torch.from_numpy(res.weights[k]).cuda()
+        xi = torch.clamp_min(1.0 - yd * (Xd.t() @ w + res.biases[k]), 0.0)
+        obj = float(0.5 * (xi * xi).sum() + res.lambdas[k] * w.abs().sum())
+        rel.append(abs(obj - res.objectives[k]) / abs(obj))
+        screened = torch.from_numpy(~masks.get(k, np.ones(X.shape[1], bool))).cuda()
+        worst = float(xi[screened].max()) if bool(screened.any()) else 0.0
+        xi_screened.append(worst)
+        require(worst <= 1e-6, f"step {k}: a screened sample has xi {worst:.3e} > 1e-6")
+    del Xd
+    require(max(rel) <= 1e-4, f"objective vs float64 recomputation: rel {max(rel):.3e}")
+    return max(rel), xi_screened
+
+
 def phase_composite_path(svm_path, ops, X, y) -> tuple:
     """The verified sample-screening path at full width: feature rule, then
     sample rule, gather on both axes, verification on the card.
@@ -491,27 +585,14 @@ def phase_composite_path(svm_path, ops, X, y) -> tuple:
                             "composite path")
     require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
     require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
-    Xd, yd = X.double(), y.double()
-    rel, xi_screened = [], []
-    masks = res.extras["sample_masks"]
-    for k in range(len(res.lambdas)):
-        w = torch.from_numpy(res.weights[k]).cuda()
-        xi = torch.clamp_min(1.0 - yd * (Xd.t() @ w + res.biases[k]), 0.0)
-        obj = float(0.5 * (xi * xi).sum() + res.lambdas[k] * w.abs().sum())
-        rel.append(abs(obj - res.objectives[k]) / abs(obj))
-        screened = torch.from_numpy(~masks.get(k, np.ones(X.shape[1], bool))).cuda()
-        worst = float(xi[screened].max()) if bool(screened.any()) else 0.0
-        xi_screened.append(worst)
-        require(worst <= 1e-6, f"step {k}: a screened sample has xi {worst:.3e} > 1e-6")
-    del Xd
-    require(max(rel) <= 1e-4, f"objective vs float64 recomputation: rel {max(rel):.3e}")
+    rel, xi_screened = screened_slack_f64(res, X, y)
     solve_s = res.extras["solve_times"]
     emit({"phase": "composite_path", "shape": [int(X.shape[0]), int(X.shape[1])],
           "lam_min_ratio": COMPOSITE_RATIO, "lambdas": res.lambdas.tolist(),
           "kept": res.kept.tolist(), "kept_samples": res.kept_samples.tolist(),
           "verify_rounds": res.verify_rounds.tolist(),
           "iters": res.solver_iters.tolist(), "objectives": res.objectives.tolist(),
-          "max_rel_obj_f64": max(rel), "max_xi_screened_f64": xi_screened,
+          "max_rel_obj_f64": rel, "max_xi_screened_f64": xi_screened,
           "wall_s": res.wall_times.tolist(), "screen_s": res.screen_times.tolist(),
           "solve_s": solve_s.tolist(), "path_wall_s": total, "launches": launches,
           "variants": variants})
@@ -648,7 +729,8 @@ def phase_dynamic_composite_path(svm_path, ops, X, y) -> dict:
     launches = ops.launch_counts()
     summary = dynamic_summary(res)
     steps = len(res.lambdas) - 1
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds",
+                                          "screen_bounds_dynamic", "sample_surplus")),
             f"a kernel of the dynamic composite path was never launched: {launches}")
     require(launches["sample_surplus"] == steps,
             f"sample_surplus launched {launches['sample_surplus']} times, not {steps}")
@@ -666,20 +748,7 @@ def phase_dynamic_composite_path(svm_path, ops, X, y) -> dict:
     first = [k for k in range(1, steps + 1) if res.verify_rounds[k] == 0]
     require(all(k in summary["kept_samples_per_segment"] for k in first),
             "the in-solver sample re-screen did not run")
-    Xd, yd = X.double(), y.double()
-    rel, xi_screened = [], []
-    masks = res.extras["sample_masks"]
-    for k in range(len(res.lambdas)):
-        w = torch.from_numpy(res.weights[k]).cuda()
-        xi = torch.clamp_min(1.0 - yd * (Xd.t() @ w + res.biases[k]), 0.0)
-        obj = float(0.5 * (xi * xi).sum() + res.lambdas[k] * w.abs().sum())
-        rel.append(abs(obj - res.objectives[k]) / abs(obj))
-        screened = torch.from_numpy(~masks.get(k, np.ones(X.shape[1], bool))).cuda()
-        worst = float(xi[screened].max()) if bool(screened.any()) else 0.0
-        xi_screened.append(worst)
-        require(worst <= 1e-6, f"dynamic step {k}: a screened sample has xi {worst:.3e}")
-    del Xd
-    require(max(rel) <= 1e-4, f"objective vs float64 recomputation: rel {max(rel):.3e}")
+    rel, xi_screened = screened_slack_f64(res, X, y)
     t0 = time.perf_counter()
     seq = svm_path(X, y, **kw)
     torch.cuda.synchronize()
@@ -690,7 +759,7 @@ def phase_dynamic_composite_path(svm_path, ops, X, y) -> dict:
           "kept": res.kept.tolist(), "kept_samples": res.kept_samples.tolist(),
           "verify_rounds": res.verify_rounds.tolist(),
           "iters": res.solver_iters.tolist(), "objectives": res.objectives.tolist(),
-          "max_rel_obj_f64": max(rel), "max_xi_screened_f64": xi_screened, **summary,
+          "max_rel_obj_f64": rel, "max_xi_screened_f64": xi_screened, **summary,
           "wall_s": res.wall_times.tolist(), "path_wall_s": total,
           "sequential": {"path_wall_s": seq_total, "iters": seq.solver_iters.tolist(),
                          "kept_samples": seq.kept_samples.tolist(),
@@ -730,6 +799,155 @@ def phase_dynamic_small_vs_plain(PathDriver, lipschitz_estimate, make) -> None:
                       "kept_samples_cpu": cpu.kept_samples.tolist()}
         require(rel <= 1e-6, f"dynamic {label}: card vs CPU at {iters} iterations "
                              f"per step: rel {rel:.3e}")
+    emit(out)
+
+
+def phase_rule_path(svm_path, ops, X, y, rules, res_vi, full) -> dict:
+    """A feature rule of this slice (``rules``: ``"edpp"``, or an
+    ``AutoRule`` instance) on the feature path's grid at full width.
+
+    Checked: the path launched the margin and gradient kernels (bulk
+    variants only) and the feature screen's EDPP mode once a screened step
+    (``auto`` adds one VI-mode launch a step it sweeps the old anchor); no
+    guard trip or refused screen; objectives within rel 1e-4 of float64; no
+    feature that the unscreened path (``full``, :func:`phase_safety`) makes
+    nonzero was screened; and the kept counts never above the VI path's
+    (``res_vi``) at the same step. Printed beside them: the VI path's kept
+    counts and, for ``auto``, its telemetry (probes, extra screened, sweep
+    seconds, the cost model)."""
+    label = rules if isinstance(rules, str) else rules.name
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svm_path(X, y, rules=rules, n_lambdas=N_LAMBDAS,
+                   lam_min_ratio=LAM_MIN_RATIO, device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = len(res.lambdas) - 1
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds_edpp")),
+            f"a kernel of the {label} path was never launched: {launches}")
+    require(launches["screen_bounds_edpp"] == steps,
+            f"{label}: screen_bounds_edpp launched {launches['screen_bounds_edpp']} "
+            f"times, not once on each of the {steps} screened steps")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"), f"{label} path")
+    require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
+    require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
+    phase_objective_check(res, X, y, f"{label}_objective_f64")
+    require(np.array_equal(res.lambdas, res_vi.lambdas), f"{label}: grid differs")
+    masks = res.extras["keep_masks"]
+    safety = []
+    for k in range(1, len(full.lambdas)):
+        support, missed = missed_features(full, k, masks[k])
+        safety.append({"step": k, "support": support, "kept": int(res.kept[k]),
+                       "missed": missed})
+        require(missed == 0, f"{label} step {k}: {missed} active features were screened out")
+    out = {"phase": f"{label}_path", "shape": [int(X.shape[0]), int(X.shape[1])],
+           "lambdas": res.lambdas.tolist(), "kept": res.kept.tolist(),
+           "kept_feature_vi": res_vi.kept.tolist(), "active": res.active.tolist(),
+           "iters": res.solver_iters.tolist(), "objectives": res.objectives.tolist(),
+           "max_rel_obj_vs_feature_vi": float(np.max(
+               np.abs(res.objectives - res_vi.objectives) / np.abs(res_vi.objectives))),
+           "safety": safety, "wall_s": res.wall_times.tolist(),
+           "screen_s": res.screen_times.tolist(),
+           "solve_s": res.extras["solve_times"].tolist(), "path_wall_s": total,
+           "launches": launches, "variants": variants}
+    if not isinstance(rules, str):  # auto: its telemetry
+        swept = [t for t in rules.telemetry if t["extra_swept"]]
+        require(launches["screen_bounds"] == len(swept),
+                f"auto: {launches['screen_bounds']} VI-mode launches for "
+                f"{len(swept)} old-anchor sweeps")
+        require(rules._solve_per_feat is not None and rules._solve_per_feat > 0,
+                "auto: PathDriver did not feed the cost model")
+        out["telemetry"] = rules.telemetry
+        out["solve_s_per_kept_feature_ema"] = rules._solve_per_feat
+    emit(out)
+    return launches
+
+
+def phase_sifs_path(svm_path, ops, X, y, verify_rule) -> tuple:
+    """``rules="sifs"`` (EDPP features, verified samples) with gather on
+    both axes, on the composite path's grid at full width.
+
+    Checked: every kernel of the path launched (the EDPP mode and the
+    sample surplus once a screened step), bulk variants only, no guard
+    trip, objectives within rel 1e-4 of float64, and every screened sample
+    at ``xi <= 1e-6`` in float64 at every step. Then one verification round
+    at the last step's accepted ``(w, b)`` over its screened samples
+    (``verify_rule``, the float64 test over the support of w), timed."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svm_path(X, y, rules="sifs", reduce="gather", n_lambdas=N_LAMBDAS,
+                   lam_min_ratio=COMPOSITE_RATIO, device="cuda")
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    steps = len(res.lambdas) - 1
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad",
+                                          "screen_bounds_edpp", "sample_surplus")),
+            f"a kernel of the sifs path was never launched: {launches}")
+    require(launches["screen_bounds_edpp"] == steps == launches["sample_surplus"],
+            f"sifs: EDPP {launches['screen_bounds_edpp']} and sample surplus "
+            f"{launches['sample_surplus']} launches for {steps} screened steps")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad", "sample_surplus"),
+                            "sifs path")
+    require(not np.any(res.extras["health"]), f"guard trips {res.extras['health']}")
+    require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
+    rel, xi_screened = screened_slack_f64(res, X, y)
+    require(bool(np.any(res.kept_samples[1:] < X.shape[1])), "sifs: no sample screened")
+    # one verification round at full width, as PathDriver runs it
+    k = len(res.lambdas) - 1
+    scr = torch.from_numpy(np.nonzero(~res.extras["sample_masks"][k])[0]).cuda()
+    w = torch.from_numpy(res.weights[k]).float().cuda()
+    b = torch.tensor(float(res.biases[k]), device="cuda")
+    viol = verify_rule.verify(X, y, w, b, scr)
+    require(viol.numel() == 0, f"sifs: {viol.numel()} violators at the accepted step")
+    reps = 20
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        verify_rule.verify(X, y, w, b, scr).cpu()
+    verify_ms = (time.perf_counter() - t1) / reps * 1e3
+    emit({"phase": "sifs_path", "shape": [int(X.shape[0]), int(X.shape[1])],
+          "reduce": "gather", "lam_min_ratio": COMPOSITE_RATIO,
+          "lambdas": res.lambdas.tolist(), "kept": res.kept.tolist(),
+          "kept_samples": res.kept_samples.tolist(),
+          "verify_rounds": res.verify_rounds.tolist(), "active": res.active.tolist(),
+          "iters": res.solver_iters.tolist(), "objectives": res.objectives.tolist(),
+          "max_rel_obj_f64": rel, "max_xi_screened_f64": xi_screened,
+          "wall_s": res.wall_times.tolist(), "screen_s": res.screen_times.tolist(),
+          "solve_s": res.extras["solve_times"].tolist(), "path_wall_s": total,
+          "verify_round_ms": verify_ms, "verify_screened": int(scr.numel()),
+          "verify_support": int((w != 0).sum()), "launches": launches,
+          "variants": variants})
+    return res, launches
+
+
+def phase_rules_small_vs_plain(PathDriver, lipschitz_estimate, make) -> None:
+    """The bench instance (2000 x 400, seed 11) on the card and on the CPU,
+    same L, at fixed iterations: ``edpp`` on the feature grid (10 lambdas,
+    0.05, 300 iterations a step, as :func:`phase_small_vs_plain`) and
+    ``sifs`` in gather mode on the deep grid (8 lambdas, 0.02, 2000
+    iterations, as :func:`phase_composite_small_vs_plain`). Checked:
+    per-step objectives agree to rel 1e-6, and the card's sifs path screens
+    samples."""
+    ds = make(m=2000, n=400, seed=11)
+    L = float(lipschitz_estimate(torch.from_numpy(ds.X)))
+    out = {"phase": "rules_bench_card_vs_cpu", "shape": [2000, 400], "tol": 1e-6}
+    for rules, grid, iters in (("edpp", dict(n_lambdas=10, lam_min_ratio=0.05), 300),
+                               ("sifs", dict(n_lambdas=N_LAMBDAS,
+                                             lam_min_ratio=COMPOSITE_RATIO), 2000)):
+        kw = dict(rules=rules, reduce="gather", L=L, tol=-1.0, max_iters=iters)
+        gpu = PathDriver(device="cuda", **kw).run(ds.X, ds.y, **grid)
+        cpu = PathDriver(device="cpu", **kw).run(ds.X, ds.y, **grid)
+        rel = float((np.abs(gpu.objectives - cpu.objectives) / np.abs(cpu.objectives)).max())
+        out[rules] = {"iters": iters, "max_rel_obj": rel, "kept_card": gpu.kept.tolist(),
+                      "kept_cpu": cpu.kept.tolist(),
+                      "kept_samples_card": gpu.kept_samples.tolist(),
+                      "kept_samples_cpu": cpu.kept_samples.tolist()}
+        require(rel <= 1e-6, f"{rules}: card vs CPU at {iters} iterations per step: "
+                             f"rel {rel:.3e}")
+    require(bool(np.any(np.array(out["sifs"]["kept_samples_card"][1:]) < 400)),
+            "sifs: no sample screened on the card")
     emit(out)
 
 
@@ -782,8 +1000,8 @@ def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
     }
 
 
-def phase_timing(K, res, launches, res_c, launches_c, dyn, X, y, max_err,
-                 solver) -> list:
+def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
+                 max_err, solver) -> list:
     """Each kernel, its plain version and the one library call at the shape
     its path gave it, with the least time the card could take. The hinge
     kernels and the feature screen take their shapes and launch counts from
@@ -792,7 +1010,9 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, X, y, max_err,
     its launches in the composite path. The feature screen's dynamic variant
     (``dyn``: the dynamic paths' launch counts) is timed at the full width
     with sample weights and the cap, as the composite dynamic path runs it,
-    and one whole refresh beside it."""
+    and one whole refresh beside it. The EDPP mode (``rule_launches``: the
+    launch counts of the ``edpp``, ``auto`` and ``sifs`` paths) is timed in
+    turns with the VI mode on the same anchor: VI, EDPP, EDPP, VI."""
     hinge, screen = K.hinge, K.screen
     m, n = X.shape
     # the hinge kernels: the step whose solve swept the most rows in total
@@ -828,13 +1048,32 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, X, y, max_err,
     lam1, lam2 = float(res.lambdas[k - 1]), float(res.lambdas[k])
     theta = (torch.rand(n, device="cuda") / lam1)
     sh = K.shared_scalars(y, lam1, lam2, theta, delta=1e-3)
+    e = K.edpp_scalars(y, lam1, lam2, theta, delta=1e-3)
+
+    def vi_mode():
+        return screen.screen_bounds_from_shared(X, y, theta, sh)
+
+    def edpp_mode():
+        return screen.screen_bounds_edpp(X, y, theta, sh, e)
+
+    turns = [timed_ms(f, 20) for f in (vi_mode, edpp_mode, edpp_mode, vi_mode)]
     scr = {
-        "ms": timed_ms(lambda: screen.screen_bounds_from_shared(X, y, theta, sh), 20),
+        "ms": 0.5 * (turns[0] + turns[3]),
         "plain_ms": timed_ms(lambda: screen.screen_bounds_plain(X, y, theta, sh), 20),
         "library_ms": None,
         "bytes": m * n * 4 + 2 * n * 4 + 48 + m * 4,
         "flops": 7 * m * n + n + 60 * m,
     }
+    edpp_t = {
+        "ms": 0.5 * (turns[1] + turns[2]),
+        "plain_ms": timed_ms(lambda: screen.screen_bounds_edpp_plain(X, y, theta, sh, e),
+                             20),
+        "library_ms": None,
+        "bytes": m * n * 4 + 2 * n * 4 + 64 + m * 4,
+        "flops": 7 * m * n + n + 80 * m,
+    }
+    emit({"phase": "screen_modes_in_turns", "shape": [m, n],
+          "order": "vi, edpp, edpp, vi", "ms": turns})
     rows = []
     specs = [
         ("margin_obj", "src/repro/kernels/hinge.py:36 _margin_kernel",
@@ -846,6 +1085,11 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, X, y, max_err,
     ]
     for name, replaces, source, t, shape in specs:
         rows.append(_row(name, replaces, source, t, shape, launches, max_err, k))
+    rows.append(_row("screen_bounds_edpp",
+                     "src/repro/kernels/screen.py:142 _feature_kernel (EDPP mode: "
+                     "src/repro/core/rules/programs.py:126 _edpp_bounds)",
+                     "src/repro_torch/kernels/csrc/screen.cu", edpp_t, [m, n, m],
+                     rule_launches["edpp"], max_err, k))
     # the sample screen: every composite step sweeps the full X from the
     # previous solution, with the secant history and the trust radii
     T = len(res_c.lambdas)
@@ -895,6 +1139,8 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, X, y, max_err,
         row["launches_composite_path"] = int(launches_c[row["name"]])
         row["launches_dynamic_feature_path"] = int(dyn["feature"][row["name"]])
         row["launches_dynamic_composite_path"] = int(dyn["composite"][row["name"]])
+        for label, counts in rule_launches.items():
+            row[f"launches_{label}_path"] = int(counts[row["name"]])
     # one refresh of the dynamic solver at full width, in its parts: the
     # certificate (5 GEMVs over X from the carried margins), the screen, the
     # margin sweep of a restart
@@ -947,7 +1193,12 @@ def main() -> int:
     from repro_torch.core import solver
     from repro_torch.core.path import PathDriver, svm_path
     from repro_torch.core.solver import lipschitz_estimate
-    from repro_torch.core.screening import shared_scalars, shared_scalars_from_stats
+    from repro_torch.core.rules import AutoRule, SampleVIRule
+    from repro_torch.core.screening import (
+        edpp_scalars,
+        shared_scalars,
+        shared_scalars_from_stats,
+    )
     from repro_torch.data import make_sparse_classification
     from repro_torch.kernels import build, hinge, ops, screen
 
@@ -956,7 +1207,8 @@ def main() -> int:
     info = phase_device()
     phase_build(build)
     gen = torch.Generator().manual_seed(1234)
-    K = Kernels(hinge, screen, shared_scalars, shared_scalars_from_stats)
+    K = Kernels(hinge, screen, shared_scalars, shared_scalars_from_stats, edpp_scalars,
+                lambda_max, theta_at_lambda_max)
     phase_kernels_ragged(K, gen)
 
     t0 = time.perf_counter()
@@ -979,10 +1231,16 @@ def main() -> int:
     launches_dc = phase_dynamic_composite_path(svm_path, ops, X, y)
     phase_dynamic_small_vs_plain(PathDriver, lipschitz_estimate,
                                  make_sparse_classification)
+    rule_launches = {
+        "edpp": phase_rule_path(svm_path, ops, X, y, "edpp", res, full),
+        "auto": phase_rule_path(svm_path, ops, X, y, AutoRule(), res, full),
+        "sifs": phase_sifs_path(svm_path, ops, X, y, SampleVIRule())[1],
+    }
+    phase_rules_small_vs_plain(PathDriver, lipschitz_estimate, make_sparse_classification)
     phase_path_walls(svm_path, X, y)
     rows = phase_timing(K, res, launches, res_c, launches_c,
                         {"feature": launches_df, "composite": launches_dc},
-                        X, y, K.max_err, solver)
+                        rule_launches, X, y, K.max_err, solver)
 
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

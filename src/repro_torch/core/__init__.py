@@ -20,8 +20,11 @@ _EXPORTS = {
     "screen": "screening", "SAFE_TAU": "screening",
     "ConvexRegion": "rules", "ScreeningRule": "rules", "FeatureVIRule": "rules",
     "DVIRule": "rules", "SampleVIRule": "rules", "CompositeRule": "rules",
+    "EDPPRule": "rules", "AutoRule": "rules", "SIFSRule": "rules",
     "available_rules": "rules", "get_rule": "rules", "make_rules": "rules",
-    "dynamic_tau": "rules",
+    "dynamic_tau": "rules", "PROGRAMS": "rules", "RuleProgram": "rules",
+    "resolve_programs": "rules", "stack_bounds": "rules",
+    "stack_needs_history": "rules",
 }
 __all__ = sorted(_EXPORTS)
 

@@ -157,8 +157,10 @@ class PathDriver:
     """Applies screening rules along the lambda path (host engine).
 
     ``rules`` accepts anything :func:`~repro_torch.core.rules.make_rules`
-    does (``"feature_vi"``, ``"sample_vi"``, ``"composite"``, instances,
-    ``[]`` for the unscreened path). ``reduce`` is ``"gather"`` or
+    does (``"feature_vi"``, ``"dvi"``, ``"edpp"``, ``"auto"``,
+    ``"sample_vi"``, ``"composite"``, ``"sifs"``, instances, ``[]`` for the
+    unscreened path). After each step, every feature rule with an
+    ``observe`` method is told the step's solve seconds and kept count. ``reduce`` is ``"gather"`` or
     ``"mask"``. ``shrink_factor`` scales the observed movement into the
     next step's trust radii; ``max_verify_rounds`` bounds the re-solves
     before a step falls back to every sample. ``dynamic`` re-screens inside
@@ -387,6 +389,14 @@ class PathDriver:
             iters[k] = res.n_iters
             wall[k] = time.perf_counter() - t0
 
+            # telemetry hand-back: rules with an ``observe`` hook (AutoRule's
+            # cost model) learn this step's solve wall per kept feature
+            solve_s = max(wall[k] - s_times[k], 0.0)
+            for rule in feature_rules:
+                obs = getattr(rule, "observe", None)
+                if obs is not None:
+                    obs(solve_seconds=solve_s, kept=int(kept[k]))
+
         extras = {"lam_max": lam_max_val, "health": health,
                   "rule_telemetry": rule_log, "keep_masks": keep_masks,
                   "sample_masks": sample_masks, "solve_times": solve_times}
@@ -492,8 +502,9 @@ def svm_path(
     """Solve the L1-L2-SVM path with safe screening.
 
     ``screening=True`` uses the paper's feature rule (with ``tau``);
-    ``rules=`` picks others (``"sample_vi"``, ``"composite"``, a list, or
-    instances), ``screening=False`` (or ``rules=[]``) disables screening.
+    ``rules=`` picks others (``"dvi"``, ``"edpp"``, ``"auto"``,
+    ``"sample_vi"``, ``"composite"``, ``"sifs"``, a list, or instances),
+    ``screening=False`` (or ``rules=[]``) disables screening.
     ``reduce`` is ``"gather"`` (the default) or ``"mask"``. ``dynamic=True``
     also re-screens inside each solve every ``screen_every`` iterations (see
     :class:`PathDriver`). Only the host engine is ported. Runs on

@@ -103,6 +103,10 @@ class ScreeningRule:
     #: ``needs_verification=True`` is checked by :meth:`verify` at the
     #: solved point before the step is accepted
     needs_verification: bool = False
+    #: the name of the rule's program in ``rules/programs.PROGRAMS`` (its
+    #: bounds as a plain function of the region's stats), or ``None`` for a
+    #: rule that has none (sample rules, containers)
+    program: Optional[str] = None
 
     def refresh(self, X, y, w, b, lam, sample_mask=None) -> ConvexRegion:
         """The region rebuilt from the current iterate ``(w, b)`` at ``lam``

@@ -32,7 +32,10 @@ __all__ = ["DVIRule"]
 @register_rule("dvi")
 class DVIRule(FeatureVIRule):
     """The min of the last and the step-before-last anchors' VI bounds.
-    A-priori safe (each bound is)."""
+    A-priori safe (each bound is). Its program is ``PROGRAMS["dvi"]``
+    (two anchors)."""
+
+    program = "dvi"
 
     def __init__(self, tau: float = SAFE_TAU):
         super().__init__(tau=tau)

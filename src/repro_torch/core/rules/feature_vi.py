@@ -28,6 +28,7 @@ class FeatureVIRule(ScreeningRule):
     """
 
     axis = AXIS_FEATURES
+    program = "feature_vi"
 
     def __init__(self, tau: float = SAFE_TAU):
         self.tau = float(tau)

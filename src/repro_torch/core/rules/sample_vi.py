@@ -15,10 +15,10 @@ guarantee in two:
    margin_floor`` (``u0``: the margins one anchor earlier, once there is
    history) and the trust-region model ``||x_i|| dw + db``.
 2. **KKT verification** (:meth:`SampleVIRule.verify`). At the solved
-   reduced point every screened sample's margin is re-checked; violators
-   are re-admitted and the step re-solved
-   (:func:`~repro_torch.core.rules.base.solve_with_verification`). On
-   acceptance every screened sample has ``xi_i = 0`` at the returned
+   reduced point every screened sample's margin is re-checked in float64,
+   as the reference checks it; violators are re-admitted and the step
+   re-solved (:func:`~repro_torch.core.rules.base.solve_with_verification`).
+   On acceptance every screened sample has ``xi_i = 0`` at the returned
    solution: zero false rejections, whatever the slack model predicted.
 
 On a CUDA X, :meth:`SampleVIRule.bounds` is one launch of the sample-axis
@@ -35,16 +35,18 @@ from typing import Optional
 
 import torch
 
-from ...kernels.ops import margin_obj_op, sample_surplus_op
+from ...kernels.ops import sample_surplus_op
 from ..screening import _EPS, _t_max
 from .base import AXIS_SAMPLES, ConvexRegion, ScreeningRule, register_rule
 
 __all__ = ["SampleVIRule", "sample_slack_caps", "sample_margin_surplus",
-           "margin_surplus_core", "violators_from_margins"]
+           "margin_surplus_core", "violators_from_margins", "margins_f64"]
 
 # stands in for the driver's "no movement bound yet" dw/db = inf inside the
 # arithmetic: 0 * inf = NaN for a zero-norm sample column
 _BIG = 1e30
+# elements of X that margins_f64 gathers at a time (32 MB in float64)
+_GATHER_ELEMS = 1 << 22
 
 
 def sample_slack_caps(region: ConvexRegion) -> torch.Tensor:
@@ -75,6 +77,29 @@ def margin_surplus_core(u1, y, x_sq, dw, db, u_prev=None,
         slack = torch.minimum(slack,
                               shrink_factor * torch.abs(u1 - u_prev) + margin_floor)
     return y * u1 - 1.0 - slack
+
+
+def margins_f64(X, w, b, idx) -> torch.Tensor:
+    """``x_i^T w + b`` in float64 for the samples ``idx`` (a device tensor
+    of column indices), on X's device: the reference's verification sums
+    (a numpy float32 X times a float64 ``w``, ``core/path.py``).
+
+    Only the support of ``w`` is read: a term with ``w_j = 0`` is exactly 0
+    in float64, so the sum over the support is the reference's sum up to
+    float64 rounding, with no fp32 rounding at all (an fp32 margin within
+    a few ulps of 1 can fall on either side of it). The ``|supp| x |idx|``
+    entries of X are gathered in pieces of at most ``_GATHER_ELEMS``; the
+    cost grows with ``nnz(w)``, not with X, and X is never copied to the
+    host."""
+    dev = X.device
+    out = torch.zeros((idx.shape[0],), dtype=torch.float64, device=dev)
+    out += torch.as_tensor(b, dtype=torch.float64, device=dev)
+    supp = torch.nonzero(w).squeeze(1)
+    step = max(1, _GATHER_ELEMS // max(idx.shape[0], 1))
+    for lo in range(0, supp.shape[0], step):
+        rows = supp[lo:lo + step]
+        out += X[rows[:, None], idx[None, :]].double().t() @ w[rows].double()
+    return out
 
 
 def violators_from_margins(y, margins, screened_idx):
@@ -133,7 +158,8 @@ class SampleVIRule(ScreeningRule):
         return ~(bounds >= 0.0)
 
     def verify(self, X, y, w, b, screened_idx) -> torch.Tensor:
-        """Screened samples whose margin at ``(w, b)`` is below 1: one
-        margin sweep of X on its device (the margin kernel on a CUDA X)."""
-        u, _, _ = margin_obj_op(X, w, y, b)
-        return violators_from_margins(y, u[screened_idx] + b, screened_idx)
+        """Screened samples whose margin at ``(w, b)`` is below 1, tested
+        in float64 over the support of ``w`` on X's device
+        (:func:`margins_f64`)."""
+        margins = margins_f64(X, w, b, screened_idx)
+        return violators_from_margins(y, margins, screened_idx)

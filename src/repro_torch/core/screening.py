@@ -37,6 +37,17 @@ __all__ = [
     "screen_bounds",
     "screen",
     "SAFE_TAU",
+    "AnchorStats",
+    "FixedStats",
+    "anchor_stats",
+    "fixed_stats",
+    "shared_scalars_from_anchor",
+    "finalize_from_anchor",
+    "EDPPShared",
+    "edpp_scalars",
+    "edpp_scalars_from_stats",
+    "edpp_scalars_from_anchor",
+    "edpp_bounds_from_reductions",
 ]
 
 # Keep a feature unless its bound is provably below 1; the tau margin absorbs
@@ -214,6 +225,159 @@ def screen_bounds_from_reductions(red: FeatureReductions,
     m_pos = _t_max(v_ch, qv_qa, qv_sq, sh)            # max  fhat^T theta
     m_neg = _t_max(-v_ch, -qv_qa, qv_sq, sh)          # max -fhat^T theta
     return torch.maximum(m_pos, m_neg)
+
+
+class AnchorStats(NamedTuple):
+    """A dual anchor ``theta1`` at ``lam`` as the scalars and the one
+    reduction every rule program reads (the anchor half of a rule's region).
+    The scalars are 0-d tensors on the anchor's device."""
+
+    lam: torch.Tensor            # anchor regularization (lam1)
+    delta: torch.Tensor          # ||theta1 - theta*(lam)|| inexactness radius
+    theta_dot_one: torch.Tensor  # theta1^T 1
+    theta_dot_y: torch.Tensor    # theta1^T y
+    theta_sq: torch.Tensor       # ||theta1||^2
+    d_theta: torch.Tensor        # (m,) fhat_j^T theta1 = f_j^T (y * theta1)
+
+
+class FixedStats(NamedTuple):
+    """Theta-independent statics shared by every anchor and every rule (the
+    fixed half of the region; computed once per path)."""
+
+    d_one: torch.Tensor   # (m,) fhat_j^T 1
+    d_y: torch.Tensor     # (m,) fhat_j^T y
+    d_sq: torch.Tensor    # (m,) ||fhat_j||^2
+    one_y: torch.Tensor   # y^T 1
+    n_tot: torch.Tensor   # ||y||^2 = #live samples
+
+
+def anchor_stats(y: torch.Tensor, lam, theta1: torch.Tensor, delta,
+                 d_theta: torch.Tensor) -> AnchorStats:
+    """:class:`AnchorStats` of an in-core anchor; the caller supplies the one
+    O(mn) reduction ``d_theta``. The scalars are those :func:`shared_scalars`
+    computes, so both entries give the same :class:`ScreenShared` bits."""
+    return AnchorStats(lam=_scalar(lam, theta1), delta=_scalar(delta, theta1),
+                       theta_dot_one=torch.sum(theta1), theta_dot_y=theta1 @ y,
+                       theta_sq=theta1 @ theta1, d_theta=d_theta)
+
+
+def fixed_stats(y: torch.Tensor, d_one: torch.Tensor, d_y: torch.Tensor,
+                d_sq: torch.Tensor) -> FixedStats:
+    """:class:`FixedStats` from an in-core ``y`` and the three
+    theta-independent reductions."""
+    return FixedStats(d_one=d_one, d_y=d_y, d_sq=d_sq, one_y=torch.sum(y),
+                      n_tot=_scalar(float(y.shape[0]), y))
+
+
+def shared_scalars_from_anchor(anchor: AnchorStats, lam2,
+                               fixed: FixedStats) -> ScreenShared:
+    """:class:`ScreenShared` of the VI set anchored at ``anchor``, targeting
+    ``lam2`` (converted to the anchor's dtype, as :func:`shared_scalars`
+    does)."""
+    return shared_scalars_from_stats(
+        anchor.lam, _scalar(lam2, anchor.theta_sq), one_y=fixed.one_y,
+        theta_dot_one=anchor.theta_dot_one, theta_dot_y=anchor.theta_dot_y,
+        theta_sq=anchor.theta_sq, n_tot=fixed.n_tot, delta=anchor.delta)
+
+
+def finalize_from_anchor(anchor: AnchorStats, lam2,
+                         fixed: FixedStats) -> torch.Tensor:
+    """The VI bound over the region: per-feature upper bounds on
+    ``|fhat_j^T theta*(lam2)|`` from one anchor's stats."""
+    sh = shared_scalars_from_anchor(anchor, lam2, fixed)
+    red = FeatureReductions(d_theta=anchor.d_theta, d_one=fixed.d_one,
+                            d_y=fixed.d_y, d_sq=fixed.d_sq)
+    return screen_bounds_from_reductions(red, sh)
+
+
+class EDPPShared(NamedTuple):
+    """Feature-independent scalars of the EDPP projection ball on the
+    hyperplane (``core/rules/programs.py``), 0-d tensors on the anchor's
+    device. With :class:`ScreenShared`'s ``inv_lam1``, ``inv_lam2`` and
+    ``ysq`` they are all the per-feature EDPP bound reads."""
+
+    mu: torch.Tensor      # <v1, v2> / ||v1||^2, 0 when v1 is degenerate
+    yc: torch.Tensor      # y^T (ball center)
+    r_h_sq: torch.Tensor  # delta-inflated radius^2 inside the hyperplane
+
+
+def edpp_scalars_from_stats(lam1, lam2, one_y, theta_dot_one, theta_dot_y,
+                            theta_sq, n_tot, delta) -> EDPPShared:
+    """:class:`EDPPShared` from the anchor's global scalars (the arguments
+    of :func:`shared_scalars_from_stats`, 0-d tensors of one dtype).
+
+    With ``o_k = (1/lam_k) 1``, ``v1 = o1 - theta1`` lies in the normal cone
+    at ``theta1`` and ``theta2`` lies in the ball of center ``theta1 +
+    v2perp/2`` and radius ``||v2perp||/2``, ``v2 = o2 - theta1``, ``v2perp =
+    v2 - mu v1``. An inexact anchor inflates the radius by ``2 delta + 2
+    delta (||v2|| + delta) / max(||v1|| - delta, eps)``; a ``v1`` at noise
+    scale (balanced classes at ``lam_max``, or ``||v1|| ~ delta``) falls
+    back to ``mu = 0``, the DPP ball, with the plain ``delta`` inflation.
+    Same arithmetic as the reference's ``_edpp_bounds``."""
+    inv1 = 1.0 / lam1
+    inv2 = 1.0 / lam2
+    v1_sq = theta_sq - 2.0 * inv1 * theta_dot_one + inv1 * inv1 * n_tot
+    v2_sq = theta_sq - 2.0 * inv2 * theta_dot_one + inv2 * inv2 * n_tot
+    v1v2 = inv1 * inv2 * n_tot - (inv1 + inv2) * theta_dot_one + theta_sq
+    v1_norm = torch.sqrt(torch.clamp_min(v1_sq, 0.0))
+    v2_norm = torch.sqrt(torch.clamp_min(v2_sq, 0.0))
+
+    scale = torch.sqrt(theta_sq + inv1 * inv1 * n_tot)
+    degenerate = v1_norm <= torch.maximum(10.0 * delta, 1e-6 * scale)
+    zero = torch.zeros_like(v1_sq)
+    mu = torch.where(degenerate, zero, v1v2 / torch.clamp_min(v1_sq, _EPS))
+
+    vperp_sq = torch.clamp_min(v2_sq - 2.0 * mu * v1v2 + mu * mu * v1_sq, 0.0)
+    r = 0.5 * torch.sqrt(vperp_sq)
+    infl = torch.where(
+        degenerate, delta,
+        2.0 * delta + 2.0 * delta * (v2_norm + delta)
+        / torch.clamp_min(v1_norm - delta, _EPS))
+    r_infl = r + infl
+
+    y_v1 = inv1 * one_y - theta_dot_y
+    y_v2 = inv2 * one_y - theta_dot_y
+    yc = theta_dot_y + 0.5 * (y_v2 - mu * y_v1)
+    return EDPPShared(mu=mu, yc=yc, r_h_sq=r_infl * r_infl - yc * yc / n_tot)
+
+
+def edpp_scalars(y: torch.Tensor, lam1, lam2, theta1: torch.Tensor,
+                 delta=0.0) -> EDPPShared:
+    """:class:`EDPPShared` of an in-core anchor, in ``theta1``'s dtype and on
+    its device (the scalars of :func:`shared_scalars`)."""
+    return edpp_scalars_from_stats(
+        _scalar(lam1, theta1), _scalar(lam2, theta1), one_y=torch.sum(y),
+        theta_dot_one=torch.sum(theta1), theta_dot_y=theta1 @ y,
+        theta_sq=theta1 @ theta1, n_tot=_scalar(float(y.shape[0]), theta1),
+        delta=_scalar(delta, theta1))
+
+
+def edpp_scalars_from_anchor(anchor: AnchorStats, lam2,
+                             fixed: FixedStats) -> EDPPShared:
+    """:class:`EDPPShared` of the region anchored at ``anchor``, targeting
+    ``lam2`` (converted to the anchor's dtype)."""
+    return edpp_scalars_from_stats(
+        anchor.lam, _scalar(lam2, anchor.theta_sq), one_y=fixed.one_y,
+        theta_dot_one=anchor.theta_dot_one, theta_dot_y=anchor.theta_dot_y,
+        theta_sq=anchor.theta_sq, n_tot=fixed.n_tot, delta=anchor.delta)
+
+
+def edpp_bounds_from_reductions(red: FeatureReductions, sh: ScreenShared,
+                                e: EDPPShared) -> torch.Tensor:
+    """The EDPP ball on the hyperplane ``y^T theta = 0``, min-composed with
+    the VI bound of the same anchor (``sh``): per-feature upper bounds on
+    ``|fhat_j^T theta2|``. Both regions contain ``theta2``, so the min is a
+    valid bound, and it is never above the VI bound: EDPP keeps are a
+    subset of VI keeps. ``torch.minimum`` propagates NaN."""
+    v_v1 = sh.inv_lam1 * red.d_one - red.d_theta
+    v_v2 = sh.inv_lam2 * red.d_one - red.d_theta
+    v_c = red.d_theta + 0.5 * (v_v2 - e.mu * v_v1)     # fhat^T center
+    v_ch = v_c - (e.yc / sh.ysq) * red.d_y
+    qv_sq = torch.clamp_min(red.d_sq - red.d_y * red.d_y / sh.ysq, 0.0)
+    zero = torch.zeros_like(e.r_h_sq)
+    ball = (torch.abs(v_ch)
+            + torch.sqrt(torch.maximum(e.r_h_sq, zero)) * torch.sqrt(qv_sq))
+    return torch.minimum(ball, screen_bounds_from_reductions(red, sh))
 
 
 def screen_bounds(X: torch.Tensor, y: torch.Tensor, lam1, lam2,

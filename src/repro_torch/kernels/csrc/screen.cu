@@ -32,6 +32,23 @@
 //   |d_theta| + sqrt(max(d_sq, 0)) * delta
 // with a NaN-propagating min. Both stay in the one read of X; the weights
 // add one 4-byte load per column, shared by the warp's 4 rows.
+//
+// EDPP mode (src/repro/core/rules/programs.py `_edpp_bounds`, which the
+// reference evaluates in XLA from the four reductions): the same four sums
+// and the same VI bound, then the EDPP projection ball on the hyperplane
+//   |v_ch| + sqrt(max(r_h_sq_e, 0)) sqrt(max(d_sq - d_y^2 / ysq, 0)),
+//   v_ch = d_theta + (v_v2 - mu v_v1) / 2 - (yc_e / ysq) d_y,
+//   v_vk = inv_k d_one - d_theta,
+// from three more packed scalars (mu, yc_e, r_h_sq_e: slots 12-14), and the
+// NaN-propagating min of the two. One read of X as in the VI mode: the ball
+// adds ~15 flops a feature row to the finalizer and nothing to the sweep.
+// The mode is a kernel argument of the unweighted instantiation, not an
+// instantiation of its own: the VI bound of both modes comes from the same
+// compiled instructions, then goes to the store (VI) or into the min with
+// the ball (EDPP), so edpp <= vi holds bit for bit against a VI-mode launch
+// on the same anchor. In two instantiations the compiler may fuse a
+// multiply and an add of the VI finalizer in one and not in the other, and
+// the two VI bounds then differ in their last bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +83,19 @@ struct Shared {
   bool cap;          // slot 10: min with the gap sphere's bound
   float cap_delta;   // slot 11: the sphere's radius delta
 };
+
+// The EDPP mode's three scalars (slots 12-14 of pack_shared(..., edpp=)).
+struct EdppShared {
+  float mu, yc, r_h;  // r_h = sqrt(max(r_h_sq, 0))
+};
+
+__device__ __forceinline__ EdppShared load_edpp(const float* __restrict__ sc) {
+  EdppShared e;
+  e.mu = sc[12];
+  e.yc = sc[13];
+  e.r_h = sqrtf(nmax(sc[14], 0.f));
+  return e;
+}
 
 __device__ __forceinline__ Shared load_shared(const float* __restrict__ sc) {
   Shared s;
@@ -116,13 +146,29 @@ __device__ __forceinline__ float feature_bound(float d_theta, float d_one,
   return nmin(vi, fabsf(d_theta) + sqrtf(nmax(d_sq, 0.f)) * s.cap_delta);
 }
 
-// kWeighted: the reductions are weighted by w (n,); otherwise all ones
+// core/screening.py edpp_bounds_from_reductions: the EDPP ball, then the
+// min with the VI bound `vi` of the same anchor
+__device__ __forceinline__ float edpp_bound(float d_theta, float d_one,
+                                            float d_y, float d_sq, float vi,
+                                            const Shared& s,
+                                            const EdppShared& e) {
+  const float v_v1 = s.inv1 * d_one - d_theta;
+  const float v_v2 = s.inv2 * d_one - d_theta;
+  const float v_c = d_theta + 0.5f * (v_v2 - e.mu * v_v1);
+  const float v_ch = v_c - (e.yc / s.ysq) * d_y;
+  const float qv_sq = nmax(d_sq - d_y * d_y / s.ysq, 0.f);
+  const float ball = fabsf(v_ch) + e.r_h * sqrtf(qv_sq);
+  return nmin(ball, vi);
+}
+
+// kWeighted: the reductions are weighted by w (n,); otherwise all ones.
+// edpp (unweighted only): the EDPP mode
 template <typename T, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
 screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
                        const float* __restrict__ theta,
                        const float* __restrict__ w,
-                       const float* __restrict__ sc, int m, int n,
+                       const float* __restrict__ sc, int m, int n, bool edpp,
                        float* __restrict__ bounds) {
   const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -173,21 +219,28 @@ screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
   const Shared s = load_shared(sc);
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    if (lane == r && r < live)
-      bounds[row0 + r] = feature_bound(a_t[r], a_o[r], a_y[r], a_s[r], s);
+    if (lane == r && r < live) {
+      const float vi = feature_bound(a_t[r], a_o[r], a_y[r], a_s[r], s);
+      if (!kWeighted && edpp) {
+        bounds[row0 + r] = edpp_bound(a_t[r], a_o[r], a_y[r], a_s[r], vi, s,
+                                      load_edpp(sc));
+      } else {
+        bounds[row0 + r] = vi;
+      }
+    }
   }
 }
 
 template <typename T>
 void launch(const T* X, const float* y, const float* theta, const float* w,
-            const float* sc, int m, int n, float* bounds, int blocks,
+            const float* sc, int m, int n, float* bounds, int edpp, int blocks,
             cudaStream_t s) {
   if (w != nullptr) {
     screen_features_kernel<T, true><<<blocks, kThreads, 0, s>>>(
-        X, y, theta, w, sc, m, n, bounds);
+        X, y, theta, w, sc, m, n, false, bounds);
   } else {
     screen_features_kernel<T, false><<<blocks, kThreads, 0, s>>>(
-        X, y, theta, w, sc, m, n, bounds);
+        X, y, theta, w, sc, m, n, edpp != 0, bounds);
   }
 }
 
@@ -196,25 +249,27 @@ void launch(const T* X, const float* y, const float* theta, const float* w,
 extern "C" {
 
 // bounds[j] for every feature row of X. weights: (n,) sample weights, or
-// null for all ones. scalars: the 12 packed fp32 values of
-// kernels/screen.py pack_shared (slots 10-11: the gap-sphere cap).
+// null for all ones. scalars: the packed fp32 values of kernels/screen.py
+// pack_shared, 12 (slots 10-11: the gap-sphere cap), or 16 with edpp != 0
+// (slots 12-14: the EDPP scalars; weights must then be null).
 // Returns cudaGetLastError().
 int screen_bounds_features(const void* X, int x_bf16, const float* y,
                            const float* theta, const float* weights,
                            const float* scalars, int m, int n, float* bounds,
-                           int device, void* stream) {
+                           int edpp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows_per_block = (kThreads / 32) * kRowsPerWarp;
   const int blocks = (m + rows_per_block - 1) / rows_per_block;
   if (blocks == 0) return cudaSuccess;
+  if (edpp && weights != nullptr) return cudaErrorInvalidValue;
   if (x_bf16) {
     launch(static_cast<const __nv_bfloat16*>(X), y, theta, weights, scalars,
-           m, n, bounds, blocks, s);
+           m, n, bounds, edpp, blocks, s);
   } else {
     launch(static_cast<const float*>(X), y, theta, weights, scalars, m, n,
-           bounds, blocks, s);
+           bounds, edpp, blocks, s);
   }
   return cudaGetLastError();
 }

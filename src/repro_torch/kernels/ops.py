@@ -15,6 +15,7 @@ from .screen import (  # noqa: F401
     pack_sample_scalars,
     pack_shared,
     sample_surplus_op,
+    screen_bounds_edpp,
     screen_bounds_from_shared,
     screen_bounds_op,
 )

@@ -23,6 +23,14 @@ scalars caps the bound at the gap sphere's ``|d_theta| + ||f|| delta``. It
 is the same kernel and the same read of X, counted apart as
 ``screen_bounds_dynamic``.
 
+The feature screen's EDPP mode (:func:`screen_bounds_edpp`) is a third
+mode of the same kernel, chosen by a launch argument: the same four
+reductions and VI bound, then the EDPP projection ball from three more
+packed scalars (:class:`~repro_torch.core.screening.EDPPShared`) and the
+min of the two, in the same read of X. Its plain version is the ``edpp``
+rule program over the four reductions (``core/rules/programs.py``).
+Counted apart as ``screen_bounds_edpp``.
+
 For a CUDA ``X`` each entry point launches its kernel and counts the launch
 in :data:`LAUNCHES`; for a CPU ``X`` it runs the plain version beside it.
 """
@@ -32,7 +40,9 @@ from __future__ import annotations
 import torch
 
 from ..core.screening import (
+    EDPPShared,
     ScreenShared,
+    edpp_bounds_from_reductions,
     feature_reductions,
     screen_bounds_from_reductions,
     shared_scalars,
@@ -41,26 +51,35 @@ from . import build
 from .hinge import bulk_aligned, column_sweep_plan, sm_count
 
 #: launches of the kernel in this process (reset by ``ops.reset_launch_counts``)
-LAUNCHES = {"screen_bounds": 0, "screen_bounds_dynamic": 0, "sample_surplus": 0}
+LAUNCHES = {"screen_bounds": 0, "screen_bounds_dynamic": 0,
+            "screen_bounds_edpp": 0, "sample_surplus": 0}
 #: launches of each variant of the redesigned sample-surplus kernel
 VARIANTS = {"sample_surplus": {"bulk": 0, "scalar": 0}}
 
 NUM_SCALARS = 12  # packed scalars, padded as in the reference
+NUM_SCALARS_EDPP = 16  # the feature screen's EDPP mode: 12, then 3, padded
 _BIG = 1e30  # stands in for inf in the sample finalizer (no 0 * inf = NaN)
 
 
-def pack_shared(sh: ScreenShared, cap_delta=None) -> torch.Tensor:
+def pack_shared(sh: ScreenShared, cap_delta=None,
+                edpp: EDPPShared = None) -> torch.Tensor:
     """Pack the scalars the finalizer reads into a flat (12,) fp32 vector:
     ``inv_lam1, inv_lam2, yc, ysq, r_h_sq, g0, qa_sq, a_norm, a_dot_y,
     halfspace_valid``, then the gap-sphere cap ``(1, delta)`` when
     ``cap_delta`` (a 0-d tensor on the scalars' device) is given, else
-    ``(0, 0)``. Stays on the scalars' device."""
+    ``(0, 0)``. With ``edpp``, the EDPP mode's ``mu, yc, r_h_sq`` follow in
+    slots 12-14 of a (16,) vector. Stays on the scalars' device."""
     vals = [sh.inv_lam1, sh.inv_lam2, sh.yc, sh.ysq, sh.r_h_sq, sh.g0,
             sh.qa_sq, sh.a_norm, sh.a_dot_y, sh.halfspace_valid]
     if cap_delta is not None:
         vals += [torch.ones_like(sh.a_norm), cap_delta]
     v = torch.stack([torch.as_tensor(x).to(torch.float32) for x in vals])
-    return torch.nn.functional.pad(v, (0, NUM_SCALARS - v.shape[0]))
+    v = torch.nn.functional.pad(v, (0, NUM_SCALARS - v.shape[0]))
+    if edpp is None:
+        return v
+    e = torch.stack([x.to(torch.float32) for x in (edpp.mu, edpp.yc, edpp.r_h_sq)])
+    return torch.nn.functional.pad(torch.cat([v, e.to(v.device)]),
+                                   (0, NUM_SCALARS_EDPP - NUM_SCALARS - 3))
 
 
 def screen_bounds_plain(X, y, theta1, sh: ScreenShared, weights=None,
@@ -76,6 +95,25 @@ def screen_bounds_plain(X, y, theta1, sh: ScreenShared, weights=None,
     return torch.minimum(bounds, sphere)  # NaN-propagating, as jnp.minimum
 
 
+def _launch_features(X, y, theta1, scalars, weights, edpp, name):
+    """One launch of the feature-screen kernel; ``(m,)`` fp32 bounds."""
+    build.check_matrix(X)
+    m, n = X.shape
+    build.check_vector(y, n, X, "y")
+    build.check_vector(theta1, n, X, "theta1")
+    if weights is not None:
+        build.check_vector(weights, n, X, "weights")
+    bounds = torch.empty((m,), dtype=torch.float32, device=X.device)
+    dev, stream = build.stream_and_device(X)
+    err = build.library().screen_bounds_features(
+        X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
+        theta1.data_ptr(), None if weights is None else weights.data_ptr(),
+        scalars.data_ptr(), m, n, bounds.data_ptr(), int(edpp), dev, stream)
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return bounds
+
+
 def screen_bounds_from_shared(X, y, theta1, sh: ScreenShared, weights=None,
                               cap_delta=None) -> torch.Tensor:
     """Per-feature VI bounds ``(m,)`` fp32 from one sweep of X, given the
@@ -87,24 +125,33 @@ def screen_bounds_from_shared(X, y, theta1, sh: ScreenShared, weights=None,
     ``|d_theta| + ||f|| * cap_delta``."""
     if not build.on_card(X):
         return screen_bounds_plain(X, y, theta1, sh, weights, cap_delta)
-    build.check_matrix(X)
-    m, n = X.shape
-    build.check_vector(y, n, X, "y")
-    build.check_vector(theta1, n, X, "theta1")
-    if weights is not None:
-        build.check_vector(weights, n, X, "weights")
-    scalars = pack_shared(sh, cap_delta).to(X.device)
-    bounds = torch.empty((m,), dtype=torch.float32, device=X.device)
-    dev, stream = build.stream_and_device(X)
     name = ("screen_bounds" if weights is None and cap_delta is None
             else "screen_bounds_dynamic")
-    err = build.library().screen_bounds_features(
-        X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
-        theta1.data_ptr(), None if weights is None else weights.data_ptr(),
-        scalars.data_ptr(), m, n, bounds.data_ptr(), dev, stream)
-    build.check(err, name)
-    LAUNCHES[name] += 1
-    return bounds
+    return _launch_features(X, y, theta1, pack_shared(sh, cap_delta).to(X.device),
+                            weights, False, name)
+
+
+def screen_bounds_edpp_plain(X, y, theta1, sh: ScreenShared,
+                             edpp: EDPPShared) -> torch.Tensor:
+    """Plain PyTorch version of :func:`screen_bounds_edpp`: the ``edpp``
+    rule program (``stack_bounds(("edpp",), ...)``) over the four
+    reductions, fp32."""
+    red = feature_reductions(X.float(), y.float(), theta1.float())
+    return edpp_bounds_from_reductions(red, sh, edpp)
+
+
+def screen_bounds_edpp(X, y, theta1, sh: ScreenShared,
+                       edpp: EDPPShared) -> torch.Tensor:
+    """Per-feature EDPP bounds ``(m,)`` fp32 from one sweep of X: the EDPP
+    projection ball on the hyperplane, min-composed with the VI bound of
+    the same anchor. ``sh`` are the anchor's VI scalars
+    (``core/screening.shared_scalars``) and ``edpp`` its EDPP scalars
+    (``core/screening.edpp_scalars``), both from the same anchor, in its
+    dtype and on its device."""
+    if not build.on_card(X):
+        return screen_bounds_edpp_plain(X, y, theta1, sh, edpp)
+    return _launch_features(X, y, theta1, pack_shared(sh, edpp=edpp).to(X.device),
+                            None, True, "screen_bounds_edpp")
 
 
 def screen_bounds_op(X, y, lam1, lam2, theta1, delta=0.0) -> torch.Tensor:

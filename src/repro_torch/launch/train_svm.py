@@ -15,6 +15,9 @@ per-segment kept counts to its line. No mesh, checkpoint or serve mode.
     PYTHONPATH=src python -m repro_torch.launch.train_svm --dynamic \
         --screen-every 25 --rules composite --reduce mask --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --rules dvi --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --rules edpp --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --rules sifs \
+        --lam-min-ratio 0.02 --device cpu
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-lambdas", type=int, default=8)
     ap.add_argument("--lam-min-ratio", type=float, default=0.1)
     ap.add_argument("--rules",
-                    choices=("feature_vi", "dvi", "sample_vi", "composite", "none"),
+                    choices=("feature_vi", "dvi", "edpp", "auto", "sample_vi",
+                             "composite", "sifs", "none"),
                     default="feature_vi")
     ap.add_argument("--reduce", choices=("gather", "mask"), default="gather")
     ap.add_argument("--dynamic", action="store_true",

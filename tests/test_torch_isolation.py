@@ -65,9 +65,9 @@ def test_unknown_rule_and_engine_fail_early():
     from repro_torch.core.path import svm_path
     from repro_torch.core.rules import make_rules
 
-    # "sifs" is a reference rule this port does not have yet
+    # an unregistered name fails with the supported set in the message
     with pytest.raises(ValueError, match="feature_vi"):
-        make_rules("sifs")
+        make_rules("no_such_rule")
     with pytest.raises(ValueError, match="host"):
         svm_path([[1.0]], [1.0], engine="scan", device="cpu")
 

@@ -1,8 +1,9 @@
 """Each kernel's plain version against the reference's Pallas kernel, and
 (on a GPU only) each CUDA kernel against its plain version: the margin and
-gradient sweeps, the feature screen (and its dynamic variant, whose plain
-version is held against the reference in test_torch_dynamic.py) and the
-sample-surplus sweep.
+gradient sweeps, the feature screen (its dynamic variant, whose plain
+version is held against the reference in test_torch_dynamic.py, and its
+EDPP mode, whose plain version is held against the reference in
+test_torch_rules.py) and the sample-surplus sweep.
 
 The reference kernels run as ``tests/test_kernels.py`` runs them on the
 CPU: ``interpret=True``. Inputs are identical bits in both packages (bf16
@@ -22,7 +23,11 @@ import torch
 
 from repro_torch.convert import state_from_numpy
 from repro_torch.core.dual import lambda_max, theta_at_lambda_max
-from repro_torch.core.screening import shared_scalars, shared_scalars_from_stats
+from repro_torch.core.screening import (
+    edpp_scalars,
+    shared_scalars,
+    shared_scalars_from_stats,
+)
 from repro_torch.data import make_sparse_classification
 from repro_torch.kernels import hinge, screen
 
@@ -464,3 +469,51 @@ def test_cuda_dynamic_screen_matches_plain(shape, dtype):
     sh = _dynamic_shared(y, 3.0, bad, float("inf"), s)
     inf = torch.tensor(float("inf"), device="cuda")
     assert bool(torch.isnan(screen.screen_bounds_from_shared(X, y, bad, sh, s, inf)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cuda_edpp_screen_matches_plain(shape, dtype):
+    """Card only: the feature screen's EDPP mode against its plain version
+    (the ``edpp`` rule program over the four reductions) on an exact anchor
+    at lam_max with unbalanced classes, an inexact one (delta > 0) and
+    alternating (balanced) classes at lam_max
+    (v1 = 0 up to rounding, where the fallback gives the VI bound up to
+    rounding);
+    each launch counted as
+    ``screen_bounds_edpp``; the bound is at most the VI mode's on the same
+    anchor, bit for bit; a NaN theta gives NaN bounds. Tolerance rtol 1e-5
+    (fp32 sums in different orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    m, n = shape
+    X, _, y, _ = _inputs(m, n, dtype, m, seed=31)
+    X, y = X.cuda(), y.cuda()
+    unbalanced = y.clone()
+    unbalanced[: n // 5] = 1.0
+    balanced = torch.where(torch.arange(n, device="cuda") % 2 == 0, 1.0, -1.0)
+    rng = np.random.default_rng(32)
+    anchors = ((unbalanced, "exact"), (y, "inexact"), (balanced, "balanced"))
+    for yy, kind in anchors:
+        lmax = float(lambda_max(X.float(), yy))
+        theta = theta_at_lambda_max(yy, lmax)
+        lam1, delta = lmax, 0.0
+        if kind == "inexact":
+            lam1, delta = 0.7 * lmax, 0.02
+            theta = torch.from_numpy((rng.random(n) / lam1).astype(np.float32)).cuda()
+        sh = shared_scalars(yy, lam1, 0.5 * lam1, theta, delta=delta)
+        e = edpp_scalars(yy, lam1, 0.5 * lam1, theta, delta=delta)
+        before = screen.LAUNCHES["screen_bounds_edpp"]
+        got = screen.screen_bounds_edpp(X, yy, theta, sh, e)
+        assert screen.LAUNCHES["screen_bounds_edpp"] == before + 1
+        _close(got.cpu(), screen.screen_bounds_edpp_plain(X, yy, theta, sh, e).cpu())
+        vi = screen.screen_bounds_from_shared(X, yy, theta, sh)
+        assert bool((got <= vi).all())
+        if float(e.mu) == 0.0:  # the fallback's DPP ball: VI up to rounding
+            _close(got.cpu(), vi.cpu())
+    bad = theta.clone()
+    bad[n // 2] = float("nan")
+    sh = shared_scalars(y, 3.0, 2.0, bad, delta=0.01)
+    e = edpp_scalars(y, 3.0, 2.0, bad, delta=0.01)
+    assert bool(torch.isnan(screen.screen_bounds_edpp(X, y, bad, sh, e)).all())

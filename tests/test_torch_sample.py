@@ -298,3 +298,39 @@ def test_state_from_numpy_takes_the_sample_rule_state():
         state_from_numpy({"X": X, "w1": np.ones(3, np.float32)}, "cpu")
     with pytest.raises(ValueError, match="rank"):
         state_from_numpy({"u_prev": X}, "cpu")
+
+
+def test_verify_tests_margins_in_float64():
+    """Verification flags a screened sample whose float64 margin is below 1
+    even where the fp32 margin reads 1, as the reference's float64 test does.
+
+    Feature rows (1024, 1, 1) against w = (1, 1 - 2^-24, fl32(-4e-8)) and
+    b = -1024: in fp32 every order of the sum gives u = 1025 and u + b = 1
+    exactly, while in float64 the margin is 1 - 2^-24 - 4e-8 = 1 - 9.96e-8.
+    Column 3 is the same case for the label -1 (u = 1023 in fp32, float64
+    margin 1 - 9.96e-8). Columns 1 and 4 sit at 1 + 1e-4, column 2 at
+    1 + 1.8e-7, in float64: none is flagged. (The float64 test lets the one
+    just above 1 pass, as the reference does; flagging it would be safe,
+    only looser.) Column 5 misses the margin by 1e-3."""
+    w = np.array([1.0, 1.0 - 2.0 ** -24, -4e-8], np.float32)
+    X = np.zeros((3, 6), np.float32)
+    X[:, 0] = [1024.0, 1.0, 1.0]
+    X[:, 1] = [1024.0, 1.0001, 0.0]
+    X[:, 2] = [1024.0, np.float32(1 + 2 ** -23) / w[1], 0.0]
+    X[:, 3] = [1024.0, -1.0, -1.0]
+    X[:, 4] = [1024.0, -1.0001, 0.0]
+    X[:, 5] = [1024.0, 0.999, 0.0]
+    y = np.array([1, 1, 1, -1, -1, 1], np.float32)
+    b = np.float32(-1024.0)
+    margins = y * (X.astype(np.float64).T @ w.astype(np.float64) + float(b))
+    assert np.all(np.abs(margins[[0, 3]] - (1 - 9.96e-8)) < 1e-10)
+    assert 1 + 1e-7 < margins[2] < 1 + 1e-6
+    assert margins[1] > 1 + 9e-5 and margins[4] > 1 + 9e-5
+    Xt, wt, yt = torch.from_numpy(X), torch.from_numpy(w), torch.from_numpy(y)
+    u32 = torch.mv(Xt.t(), wt) + b
+    assert float(u32[0]) == 1.0 and float(u32[3]) == -1.0  # fp32: not below 1
+    got = SampleVIRule().verify(Xt, yt, wt, torch.tensor(b), torch.arange(6))
+    assert got.tolist() == [0, 3, 5]
+    # only the screened samples are tested; b may be a number
+    got = SampleVIRule().verify(Xt, yt, wt, float(b), torch.tensor([1, 2, 3]))
+    assert got.tolist() == [3]
