@@ -32,7 +32,19 @@ n = 10,000 samples, fp32):
   ``rules="sifs"`` (EDPP features, verified samples, gather) on the
   composite grid, checked for the zero-slack certificate, with one float64
   verification round timed; ``edpp`` and ``sifs`` again on the bench
-  instance, card against CPU at fixed iterations.
+  instance, card against CPU at fixed iterations;
+* the on-device path engines (``engine="scan"``: every FISTA decision on
+  the card, each chunk of iterations a replayed CUDA graph): the feature
+  path with ``reduce="compact"`` (``scan_path``: safety against the
+  unscreened path, objectives against float64 and the host engine's, host
+  fetches and graph replays, walls in turns with the host engine), the
+  bench instance in mask and compact mode with ``edpp`` and ``dvi``, card
+  against CPU (``scan_small_vs_plain``), the batched engine on 4 grids of
+  the full-width X and on 2 full-width problems (``batched_path``: each
+  element against the single-path engine at fixed iterations), and the
+  scan engine with dynamic screening (``scan_dynamic``); then the device
+  memory that the engines' warm cache holds, and what clearing it frees
+  (``engine_memory``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -63,6 +75,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -73,6 +86,8 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 EPS32 = float(np.finfo(np.float32).eps)
 FULL = dict(m=50_000, n=10_000, density=1.0, seed=0)
 N_LAMBDAS, LAM_MIN_RATIO, SAFETY_STEPS = 8, 0.1, 4
+BATCH_FIXED_ITERS = 60  # batched against single-path: FISTA iterations a step
+BATCH_RATIOS = (0.1, 0.15, 0.2, 0.3)  # the 4 grids of the batched phase
 COMPOSITE_RATIO = 0.02  # a deep grid: the sample rule screens from step 4 on
 SCREEN_EVERY = 50       # dynamic paths: a refresh every 50 FISTA iterations
 RAGGED = [(64, 64), (128, 256), (300, 200), (513, 130)]
@@ -976,6 +991,266 @@ def phase_path_walls(svm_path, X, y) -> None:
     emit(out)
 
 
+def scan_summary(res, wall, launches, skipped) -> dict:
+    """What a scan-engine path printed: caps, kept, iterations, walls,
+    per-iteration solve walls, host fetches, graph replays, launches."""
+    it = res.solver_iters
+    solve_s = res.extras["solve_seconds"]
+    return {"lambdas": res.lambdas.tolist(), "kept": res.kept.tolist(),
+            "caps": res.extras["caps"].tolist(), "active": res.active.tolist(),
+            "iters": it.tolist(), "objectives": res.objectives.tolist(),
+            "path_wall_s": wall, "solve_s": solve_s.tolist(),
+            "solve_s_per_iter": [float(solve_s[k] / it[k]) if it[k] else None
+                                 for k in range(len(it))],
+            "path_s_per_iter": wall / max(int(it.sum()), 1),
+            "host_fetches": res.extras["host_fetches"],
+            "host_fetches_total": int(sum(res.extras["host_fetches"].values())),
+            "graphs": res.extras["graphs"], "launches": launches, "skipped": skipped}
+
+
+def require_fetch_bound(res, chunk_iters, where) -> None:
+    """At most one fetch a step plus one a chunk of every solve (and one to
+    set up, one for the result, one a dynamic segment): never one an
+    iteration."""
+    f = res.extras["host_fetches"]
+    bound = (len(res.lambdas) + 2 + f["segment"]
+             + sum(int(k) // chunk_iters + 1 for k in res.solver_iters))
+    require(f["host_loop"] == 0 and sum(f.values()) <= bound,
+            f"{where}: host fetches {f} above the bound {bound}")
+
+
+def phase_scan_path(svm_path, ops, chunk_iters, X, y, res_host, full) -> tuple:
+    """The feature path on the scan engine, ``reduce="compact"``, at full
+    width. A first run captures the chunk graphs; then host and scan paths
+    in turns (host, scan, scan, host), the first scan run the counted one;
+    then both engines in turns at 50 iterations a step (the same work),
+    their full-width steps' solve seconds per iteration reported.
+
+    Checked on it: the margin, gradient and feature-screen kernels launched
+    (bulk variants only), the predicated sweeps switched off at least once,
+    no capture (every graph cached), graph replays, no guard trip,
+    objectives within rel 1e-4 of float64 and rel 1e-5 of the host
+    engine's (``res_host``; the fp32 stop rule's stall scale), no feature
+    the unscreened path (``full``) makes nonzero screened, and the host
+    fetches within one a step plus one a chunk."""
+    kw = dict(n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO, device="cuda")
+
+    def run(engine, counted=False, **extra):
+        if counted:
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = (svm_path(X, y, engine="scan", reduce="compact", **kw, **extra)
+             if engine == "scan" else svm_path(X, y, **kw, **extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if counted:
+            return r, wall, ops.launch_counts(), ops.skipped_counts()
+        return r, wall
+
+    first, first_wall = run("scan")
+    walls = [run("host")[1]]
+    res, wall, launches, skipped = run("scan", counted=True)
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds")),
+            f"a kernel of the scan path was never launched: {launches}")
+    require(skipped["margin_obj"] > 0 and skipped["hinge_grad"] > 0,
+            f"scan path: no predicated sweep was switched off: {skipped}")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"), "scan path")
+    walls += [wall, run("scan")[1], run("host")[1]]
+    # the same work on both engines: 50 iterations a step, in turns; the
+    # full-width steps' solve seconds per iteration
+    m = X.shape[0]
+    fixed_turns = []
+    for engine in ("host", "scan", "scan", "host"):
+        r, w = run(engine, tol=-1.0, max_iters=50)
+        solve_s = r.extras["solve_times" if engine == "host" else "solve_seconds"]
+        fixed_turns.append({"engine": engine, "path_wall_s": w, "full_width_s_per_iter": [
+            float(solve_s[k] / r.solver_iters[k]) for k in range(len(r.lambdas))
+            if r.kept[k] == m and r.solver_iters[k]]})
+    g = res.extras["graphs"]
+    require(g["captures"] == 0 and g["replays"] > 0, f"scan path graphs {g}")
+    require(not np.any(res.extras["health"]), f"health {res.extras['health']}")
+    require(bool(np.all(np.isfinite(res.objectives))), "non-finite objective")
+    phase_objective_check(res, X, y, "scan_objective_f64")
+    require(np.array_equal(res.lambdas, res_host.lambdas), "scan: grid differs")
+    rel_host = float(np.max(np.abs(res.objectives - res_host.objectives)
+                            / np.abs(res_host.objectives)))
+    require_fetch_bound(res, chunk_iters, "scan path")
+    safety = []
+    for k in range(1, len(full.lambdas)):
+        support, missed = missed_features(full, k, res.extras["keep_masks"][k])
+        safety.append({"step": k, "support": support, "kept": int(res.kept[k]),
+                       "missed": missed})
+        require(missed == 0, f"scan step {k}: {missed} active features were screened out")
+    emit({"phase": "scan_path", "shape": [int(X.shape[0]), int(X.shape[1])],
+          "reduce": "compact", "chunk_iters": chunk_iters,
+          **scan_summary(res, wall, launches, skipped),
+          "first_run": {"path_wall_s": first_wall, "graphs": first.extras["graphs"]},
+          "max_rel_obj_vs_host": rel_host, "host_iters": res_host.solver_iters.tolist(),
+          "walls_in_turns": {"order": "host, scan, scan, host", "s": walls},
+          "fixed_50_iters_in_turns": fixed_turns,
+          "safety": safety, "variants": variants})
+    require(rel_host <= 1e-5, f"scan vs host engine objectives: rel {rel_host:.3e}")
+    return res, dict(launches, **{f"skipped_{k}": v for k, v in skipped.items()})
+
+
+def phase_engine_memory(clear_engine_cache, engine_cache_info, after) -> None:
+    """The device memory that the engines' warm cache holds after the
+    ``after`` phase (captured graphs with their private pools, compact
+    buffers), allocated and reserved, before and after
+    ``clear_engine_cache`` (then ``torch.cuda.empty_cache``). Checked: the
+    clear frees at least the buffers' bytes and leaves no graph cached."""
+    gib = 2.0 ** 30
+    torch.cuda.synchronize()
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    dropped = clear_engine_cache()
+    torch.cuda.empty_cache()
+    after_clear = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    emit({"phase": "engine_memory", "after": after, "dropped": dropped,
+          "allocated_gib": [before[0] / gib, after_clear[0] / gib],
+          "reserved_gib": [before[1] / gib, after_clear[1] / gib]})
+    require(before[0] - after_clear[0] >= dropped["buffer_bytes"]
+            and not engine_cache_info(),
+            f"engine cache clear after {after}: allocated {before[0]} -> "
+            f"{after_clear[0]}, buffers {dropped['buffer_bytes']} bytes")
+
+
+def phase_scan_small_vs_plain(svm_path_scan, lipschitz_estimate, make) -> None:
+    """The bench instance (2000 x 400, seed 11, 10 lambdas, ratio 0.05) on
+    the scan engine, card against CPU, same L, at 300 FISTA iterations a
+    step (``tol=-1``): mask and compact, ``edpp`` and ``dvi``. Checked:
+    objectives rel 1e-6 (as :func:`phase_small_vs_plain`). Kept counts and
+    capacities printed."""
+    ds = make(m=2000, n=400, seed=11)
+    L = float(lipschitz_estimate(torch.from_numpy(ds.X)))
+    out = {"phase": "scan_bench_card_vs_cpu", "shape": [2000, 400], "tol": 1e-6,
+           "iters": 300}
+    for reduce in ("mask", "compact"):
+        for rules in ("edpp", "dvi"):
+            kw = dict(rules=rules, reduce=reduce, L=L, tol=-1.0, max_iters=300,
+                      n_lambdas=10, lam_min_ratio=0.05)
+            gpu = svm_path_scan(ds.X, ds.y, device="cuda", **kw)
+            cpu = svm_path_scan(ds.X, ds.y, device="cpu", **kw)
+            rel = float((np.abs(gpu.objectives - cpu.objectives)
+                         / np.abs(cpu.objectives)).max())
+            out[f"{reduce}_{rules}"] = {
+                "max_rel_obj": rel, "kept_card": gpu.kept.tolist(),
+                "kept_cpu": cpu.kept.tolist(), "caps_card": gpu.extras["caps"].tolist(),
+                "caps_cpu": cpu.extras["caps"].tolist(),
+                "wall_card_s": gpu.extras["total_seconds"],
+                "wall_cpu_s": cpu.extras["total_seconds"]}
+    emit(out)
+    for key, v in out.items():
+        if isinstance(v, dict):
+            require(v["max_rel_obj"] <= 1e-6,
+                    f"scan {key}: card vs CPU rel {v['max_rel_obj']:.3e}")
+
+
+def phase_batched_path(svm_path_batched, svm_path_scan, compact_caps_batched,
+                       lambda_max, ops, chunk_iters, second, X, y, lam_max) -> dict:
+    """The batched engine, compact, at BATCH_FIXED_ITERS FISTA iterations a
+    step: 4 grids (ratios BATCH_RATIOS, 8 lambdas) on the full-width X, then
+    2 problems (seeds 0 and 1, 50,000 x 10,000 each: X 4 GB; ``second``,
+    a future, makes the seed-1 data on the host). Checked on
+    each: the kernels launched (bulk variants), every element within rel
+    1e-6 of the single-path engine on its grid, the shared capacity the
+    batch-max kept count selects, and the host fetches within one a step
+    plus one a chunk. Returns the grids run's launch counts."""
+    m, n = X.shape
+    fixed = dict(tol=-1.0, max_iters=BATCH_FIXED_ITERS, reduce="compact", device="cuda")
+    out = {"phase": "batched_path", "shape": [m, n], "iters": BATCH_FIXED_ITERS, "tol": 1e-6}
+    failures = []
+
+    def run(label, Xs, ys, grids, single_args):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        batched = svm_path_batched(Xs, ys, lambdas=grids, **fixed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, skipped = ops.launch_counts(), ops.skipped_counts()
+        variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"), label)
+        require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds")),
+                f"{label}: a kernel was never launched: {launches}")
+        singles = [svm_path_scan(*a, lambdas=g, **fixed) for a, g in zip(single_args, grids)]
+        kept = np.stack([b.kept for b in batched])
+        caps = [compact_caps_batched(m, kept[:, k]) for k in range(kept.shape[1])]
+        rels = []
+        for b, sgl in zip(batched, singles):
+            rels.append(float(np.max(np.abs(b.objectives - sgl.objectives)
+                                     / np.abs(sgl.objectives))))
+            if not np.array_equal(b.extras["caps"], caps):
+                failures.append(f"{label}: caps {b.extras['caps'].tolist()} not {caps}")
+            if np.any(b.extras["health"]):
+                failures.append(f"{label}: health {b.extras['health'].tolist()}")
+        if max(rels) > 1e-6:
+            failures.append(f"{label}: element vs single path rel {max(rels):.3e}")
+        f = batched[0].extras["host_fetches"]
+        bound = (kept.shape[1] + 2 + sum(int(k) // chunk_iters + 1
+                                         for b in batched for k in b.solver_iters))
+        if f["host_loop"] or sum(f.values()) > bound:
+            failures.append(f"{label}: host fetches {f} above {bound}")
+        out[label] = {"batch": len(batched), "kept": kept.tolist(), "caps": caps,
+                      "iters": [b.solver_iters.tolist() for b in batched],
+                      "max_rel_obj_vs_single": rels, "path_wall_s": wall,
+                      "single_walls_s": [sgl.extras["total_seconds"] for sgl in singles],
+                      "host_fetches": f, "graphs": batched[0].extras["graphs"],
+                      "launches": launches, "skipped": skipped, "variants": variants}
+        return dict(launches, **{f"skipped_{k}": v for k, v in skipped.items()})
+
+    grids = np.stack([np.geomspace(lam_max, lam_max * r, N_LAMBDAS) for r in BATCH_RATIOS])
+    grid_launches = run("grids", X, y, grids, [(X, y)] * len(grids))
+    ds1 = second.result()
+    Xb = torch.stack([X, torch.from_numpy(ds1.X).cuda()])
+    yb = torch.stack([y, torch.from_numpy(ds1.y).cuda()])
+    del ds1
+    lmax1 = float(lambda_max(Xb[1], yb[1]))
+    pgrids = np.stack([np.geomspace(lm, lm * LAM_MIN_RATIO, N_LAMBDAS)
+                       for lm in (lam_max, lmax1)])
+    run("problems", Xb, yb, pgrids, [(Xb[0], yb[0]), (Xb[1], yb[1])])
+    del Xb, yb
+    torch.cuda.empty_cache()
+    emit(out)
+    require(not failures, "; ".join(failures))
+    return grid_launches
+
+
+def phase_scan_dynamic(svm_path, ops, chunk_iters, X, y, res_scan, full) -> dict:
+    """The scan path of :func:`phase_scan_path` with dynamic screening
+    every SCREEN_EVERY iterations (the refresh on the card between graph
+    replays, one fetch a segment). Checked: the kernels launched (the
+    dynamic variant once a segment), no guard trip or refused refresh,
+    objectives within rel 1e-4 of float64 and rel 1e-5 of the sequential
+    scan path, safety against the unscreened path, the fetch bound."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = svm_path(X, y, engine="scan", reduce="compact", dynamic=True,
+                   screen_every=SCREEN_EVERY, n_lambdas=N_LAMBDAS,
+                   lam_min_ratio=LAM_MIN_RATIO, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, skipped = ops.launch_counts(), ops.skipped_counts()
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds",
+                                          "screen_bounds_dynamic")),
+            f"a kernel of the dynamic scan path was never launched: {launches}")
+    segments = res.extras["host_fetches"]["segment"]
+    require(launches["screen_bounds_dynamic"] == segments,
+            f"dynamic scan: {launches['screen_bounds_dynamic']} refresh launches for "
+            f"{segments} segments")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"), "dynamic scan")
+    require(not np.any(res.extras["health"]), f"health {res.extras['health']}")
+    rel = float(np.max(np.abs(res.objectives - res_scan.objectives)
+                       / np.abs(res_scan.objectives)))
+    emit({"phase": "scan_dynamic", "shape": [int(X.shape[0]), int(X.shape[1])],
+          "screen_every": SCREEN_EVERY, **scan_summary(res, wall, launches, skipped),
+          "max_rel_obj_vs_sequential_scan": rel, "variants": variants})
+    phase_objective_check(res, X, y, "scan_dynamic_objective_f64")
+    require(rel <= 1e-5, f"dynamic vs sequential scan path: rel {rel:.3e}")
+    require_fetch_bound(res, chunk_iters, "dynamic scan path")
+    for k in range(1, len(full.lambdas)):
+        support, missed = missed_features(full, k, res.extras["keep_masks"][k])
+        require(missed == 0, f"dynamic scan step {k}: {missed} active features screened")
+    return dict(launches, **{f"skipped_{k}": v for k, v in skipped.items()})
+
+
 def _bucket(n: int) -> int:
     b = 8
     while b < n:
@@ -1192,6 +1467,13 @@ def main() -> int:
     from repro_torch.core.dual import lambda_max, theta_at_lambda_max
     from repro_torch.core import solver
     from repro_torch.core.path import PathDriver, svm_path
+    from repro_torch.core.path_scan import (
+        clear_engine_cache,
+        compact_caps_batched,
+        engine_cache_info,
+        svm_path_batched,
+        svm_path_scan,
+    )
     from repro_torch.core.solver import lipschitz_estimate
     from repro_torch.core.rules import AutoRule, SampleVIRule
     from repro_torch.core.screening import (
@@ -1204,6 +1486,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the full-width data (seeds 0 and 1) is made on the host in the
+    # background while the card builds and checks the kernels
+    pool = ThreadPoolExecutor(max_workers=2)
+    data = [pool.submit(make_sparse_classification, **{**FULL, "seed": s}) for s in (0, 1)]
+    pool.shutdown(wait=False)
     info = phase_device()
     phase_build(build)
     gen = torch.Generator().manual_seed(1234)
@@ -1212,7 +1499,7 @@ def main() -> int:
     phase_kernels_ragged(K, gen)
 
     t0 = time.perf_counter()
-    ds = make_sparse_classification(**FULL)
+    ds = data[0].result()
     X = torch.from_numpy(ds.X).cuda()
     y = torch.from_numpy(ds.y).cuda()
     del ds
@@ -1237,10 +1524,24 @@ def main() -> int:
         "sifs": phase_sifs_path(svm_path, ops, X, y, SampleVIRule())[1],
     }
     phase_rules_small_vs_plain(PathDriver, lipschitz_estimate, make_sparse_classification)
+    res_scan, engine_launches = phase_scan_path(svm_path, ops, solver.CHUNK_ITERS, X, y,
+                                                res, full)
+    engine_launches = {"scan": engine_launches}
+    phase_scan_small_vs_plain(svm_path_scan, lipschitz_estimate, make_sparse_classification)
+    engine_launches["batched"] = phase_batched_path(
+        svm_path_batched, svm_path_scan, compact_caps_batched, lambda_max, ops,
+        solver.CHUNK_ITERS, data[1], X, y, float(res.extras["lam_max"]))
+    engine_launches["scan_dynamic"] = phase_scan_dynamic(
+        svm_path, ops, solver.CHUNK_ITERS, X, y, res_scan, full)
+    phase_engine_memory(clear_engine_cache, engine_cache_info, "scan_dynamic")
     phase_path_walls(svm_path, X, y)
     rows = phase_timing(K, res, launches, res_c, launches_c,
                         {"feature": launches_df, "composite": launches_dc},
                         rule_launches, X, y, K.max_err, solver)
+    for row in rows:  # the engines' paths: launches, and launches that did no work
+        for label, counts in engine_launches.items():
+            row[f"launches_{label}_path"] = int(counts[row["name"]])
+            row[f"skipped_{label}_path"] = int(counts.get(f"skipped_{row['name']}", 0))
 
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

@@ -1,8 +1,9 @@
 """Paper core: safe screening for the L1-regularized L2-loss SVM (PyTorch).
 
 Modules: ``dual`` (lambda_max, certificates), ``screening`` (the VI bound),
-``solver`` (FISTA, static and dynamic), ``rules`` (the screening-rule
-registry) and ``path`` (``svm_path`` / ``PathDriver``). The names below are
+``solver`` (FISTA, static and dynamic, host- or device-decided),
+``rules`` (the screening-rule registry), ``path`` (``svm_path`` /
+``PathDriver``) and ``path_scan`` (the on-device engines). The names below are
 imported on first access, not here, so that the kernel modules can import
 ``core.screening`` without pulling in the solver.
 """
@@ -13,6 +14,11 @@ import importlib
 _EXPORTS = {
     "svm_path": "path", "PathDriver": "path", "PathResult": "path",
     "default_lambda_grid": "path",
+    "svm_path_scan": "path_scan", "svm_path_batched": "path_scan",
+    "ScanPathOutputs": "path_scan", "compact_caps": "path_scan",
+    "compact_caps_batched": "path_scan", "engine_cache_info": "path_scan",
+    "clear_engine_cache": "path_scan",
+    "fista_run": "solver", "fista_run_dynamic": "solver",
     "fista_solve": "solver", "fista_solve_dynamic": "solver",
     "FistaResult": "solver", "DynamicFistaResult": "solver",
     "gap_theta_delta": "solver", "lipschitz_estimate": "solver",

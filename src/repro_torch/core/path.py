@@ -176,7 +176,8 @@ class PathDriver:
                  dynamic: bool = False, screen_every: int = 50,
                  L=None, device="cuda"):
         if reduce not in ("gather", "mask"):
-            raise ValueError(f"reduce must be 'gather' or 'mask', got {reduce!r}")
+            raise ValueError(f"reduce must be 'gather' or 'mask' ('compact' is "
+                             f"a scan engine's), got {reduce!r}")
         self.rules = make_rules(rules)
         bad = [r.name for r in self.rules
                if r.axis not in (AXIS_FEATURES, AXIS_SAMPLES)]
@@ -497,21 +498,50 @@ def svm_path(
     engine: str = "host",
     dynamic: bool = False,
     screen_every: int = 50,
+    exact_lipschitz: bool = False,
     device="cuda",
-) -> PathResult:
+):
     """Solve the L1-L2-SVM path with safe screening.
 
     ``screening=True`` uses the paper's feature rule (with ``tau``);
     ``rules=`` picks others (``"dvi"``, ``"edpp"``, ``"auto"``,
     ``"sample_vi"``, ``"composite"``, ``"sifs"``, a list, or instances),
     ``screening=False`` (or ``rules=[]``) disables screening.
-    ``reduce`` is ``"gather"`` (the default) or ``"mask"``. ``dynamic=True``
-    also re-screens inside each solve every ``screen_every`` iterations (see
-    :class:`PathDriver`). Only the host engine is ported. Runs on
+    ``dynamic=True`` also re-screens inside each solve every
+    ``screen_every`` iterations (see :class:`PathDriver`). Runs on
     ``device``, by default the GPU.
+
+    ``engine`` picks the execution strategy:
+
+    * ``"host"``: :class:`PathDriver`, per-step host orchestration, any rule
+      mix, sample-rule verification; ``reduce`` ``"gather"`` (default) or
+      ``"mask"``;
+    * ``"scan"``: ``path_scan.svm_path_scan``, every solver decision on the
+      device (CUDA graphs on the card), a-priori-safe feature rules only;
+      ``reduce`` ``"mask"`` (default) or ``"compact"``;
+    * ``"batched"``: ``path_scan.svm_path_batched``, B paths (``X (B, m,
+      n)`` problems, or ``X (m, n)`` with ``lambdas (B, T)`` grids); returns
+      a list of :class:`PathResult`.
+
+    ``exact_lipschitz`` (scan engines) re-estimates L on each step's
+    reduced matrix; the host engine estimates it once per path.
     """
+    if engine in ("scan", "batched"):
+        from .path_scan import svm_path_batched, svm_path_scan  # path_scan imports us
+
+        run = svm_path_scan if engine == "scan" else svm_path_batched
+        return run(X, y, lambdas=lambdas, n_lambdas=n_lambdas,
+                   lam_min_ratio=lam_min_ratio, screening=screening, tau=tau,
+                   tol=tol, max_iters=max_iters, dynamic=dynamic,
+                   screen_every=screen_every, exact_lipschitz=exact_lipschitz,
+                   reduce="mask" if reduce is None else reduce, rules=rules,
+                   device=device)
     if engine != "host":
-        raise ValueError(f"this port runs engine='host' only, got {engine!r}")
+        raise ValueError(
+            f"engine must be 'host', 'scan', or 'batched', got {engine!r}")
+    if exact_lipschitz:
+        raise ValueError("exact_lipschitz is a scan-engine option: the host "
+                         "engine estimates L once per path")
     if rules is None:
         rules = [FeatureVIRule(tau=tau)] if screening else []
     driver = PathDriver(rules=rules, reduce="gather" if reduce is None else reduce,

@@ -22,22 +22,40 @@ segments from the duality gap at the current iterate: the at-lambda VI
 region collapses onto ``theta*`` as the gap closes, so features screened
 there are provably inactive at this lambda (reference ``_dynamic_run``).
 
-The reference's ``lax.while_loop`` / ``lax.cond`` become host control flow
-over device tensors. Each iteration fetches one small tensor (the candidate
-objective and a finiteness flag) to decide the monotone restart, the health
-guard and the stop rule; the restart pays its two sweeps only when it fires
-(and one more fetch). Scalars the reference carries in fp32 (``t``, the
-objective history, the step backoff) are kept as numpy float32 on the host,
-so the decisions are taken in the same precision.
+Two loops run the same iteration. :func:`fista_solve` (the host engine's)
+is host control flow over device tensors: each iteration fetches one small
+tensor (the candidate objective and a finiteness flag) to decide the
+monotone restart, the health guard and the stop rule; the restart pays its
+two sweeps only when it fires (and one more fetch). Scalars the reference
+carries in fp32 (``t``, the objective history, the step backoff) are kept
+as numpy float32 on the host, so the decisions are taken in the same
+precision.
+
+:func:`fista_run` (the scan engines', reference ``fista_run``) decides on
+the device: the scalars are 0-d fp32/int32 tensors and the restart, the
+guard and the three-tie stop rule are ``torch.where`` selects, the same
+fp32 operations as the host loop's, so both count the same iterations. It
+runs in chunks of :data:`CHUNK_ITERS` iterations; an iteration after the
+stop leaves the state bit for bit unchanged. The restart's two sweeps are
+launches predicated on "a restart fired" and every sweep on "not stopped"
+(``kernels/hinge.py``): they read X only when they count. On a CUDA X one
+chunk is a captured ``torch.cuda.CUDAGraph``, replayed, and the host
+fetches the ``go`` flag once a chunk; the graphs are cached by their static
+inputs (:func:`graph_cache_info`). On a CPU X the chunk runs eagerly.
+:func:`fista_run_dynamic` runs it in segments with the dynamic refresh on
+the device between them, one fetch a segment. :data:`FETCHES` counts the
+host fetches of both loops, :data:`GRAPHS` the captures and replays.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..kernels import ops
 from ..kernels.ops import hinge_grad_op, margin_obj_op, screen_bounds_from_shared
 from .screening import SAFE_TAU, shared_scalars_from_stats
 
@@ -51,8 +69,16 @@ __all__ = [
     "soft_threshold",
     "fista_solve",
     "fista_solve_dynamic",
+    "fista_run",
+    "fista_run_dynamic",
     "gap_theta_delta",
     "refresh_bounds",
+    "host_fetch",
+    "graph_cache_info",
+    "clear_graph_cache",
+    "CHUNK_ITERS",
+    "FETCHES",
+    "GRAPHS",
 ]
 
 #: Cap on health-guard rollbacks per solve. Each trip halves the step size;
@@ -65,6 +91,31 @@ HEALTH_SCREEN_REFUSED = 1 << 16
 
 _F32 = np.float32
 _EPS32 = np.finfo(np.float32).eps
+# the guard's rounding slack 256 eps in fp32 (exactly 2**-15)
+_GUARD_SLACK = float(_F32(256.0) * _EPS32)
+
+#: iterations of one :func:`fista_run` chunk: one graph replay and one host
+#: fetch on the card. An iteration after the stop is a no-op that still
+#: costs its launches, so a larger chunk wastes more of them at the end of a
+#: solve and a smaller one fetches more often.
+CHUNK_ITERS = 8
+
+#: host fetches (device-to-host reads that decide control flow) in this
+#: process, by kind: ``"host_loop"`` the host engine's solver (one an
+#: iteration, two with a restart), ``"chunk"`` :func:`fista_run`'s ``go``
+#: flag, ``"segment"`` a dynamic refresh of :func:`fista_run_dynamic`,
+#: ``"step"`` a scan-engine step's kept counts (its compact buffer is picked
+#: on the host), ``"setup"`` and ``"result"`` a scan path's first and last.
+FETCHES = {"host_loop": 0, "chunk": 0, "segment": 0, "step": 0, "setup": 0,
+           "result": 0}
+#: CUDA graphs of :func:`fista_run` chunks: captures and replays
+GRAPHS = {"captures": 0, "replays": 0}
+
+
+def host_fetch(t: torch.Tensor, kind: str):
+    """``t.tolist()``, counted as one host fetch of ``kind``."""
+    FETCHES[kind] += 1
+    return t.tolist()
 
 
 class FistaState(NamedTuple):
@@ -94,6 +145,10 @@ class FistaState(NamedTuple):
 
 
 class FistaResult(NamedTuple):
+    """A solve's result. :func:`fista_solve` gives ``obj``, ``n_iters``,
+    ``converged`` and ``health`` as host numbers, :func:`fista_run` as 0-d
+    tensors on X's device (read them once, after the path)."""
+
     w: torch.Tensor
     b: torch.Tensor   # 0-d, on X's device
     obj: float
@@ -108,7 +163,8 @@ def soft_threshold(x: torch.Tensor, tau) -> torch.Tensor:
 
 
 def lipschitz_estimate(X: torch.Tensor, n_iters: int = 100,
-                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Power iteration for ``sigma_max([X; 1^T])^2`` (augmented bias row).
 
     100 iterations, not the reference's 30: on the 2000 x 400 bench instance
@@ -117,7 +173,8 @@ def lipschitz_estimate(X: torch.Tensor, n_iters: int = 100,
     each, once per path. The start vector is standard normal from
     ``generator`` (default: a CPU generator seeded 0, so CPU and CUDA runs
     start alike). Returns a 0-d tensor on X's device; it never exceeds the
-    true value beyond rounding.
+    true value beyond rounding. ``row_mask`` (0/1 over rows) estimates for
+    ``X * row_mask[:, None]`` without making that copy of X.
     """
     n = X.shape[1]
     if generator is None:
@@ -127,14 +184,17 @@ def lipschitz_estimate(X: torch.Tensor, n_iters: int = 100,
     for _ in range(n_iters):
         v = v / torch.clamp_min(torch.linalg.vector_norm(v), 1e-30)
         u_w = torch.mv(X, v)
+        if row_mask is not None:
+            u_w = u_w * row_mask
         v = torch.mv(X.t(), u_w) + torch.sum(v)
     return torch.linalg.vector_norm(v)  # ||A^T A v|| with ||v|| = 1
 
 
-def _margin_obj_sweep(X, y, lam, w, b, sm, valid_m):
+def _margin_obj_sweep(X, y, lam, w, b, sm, valid_m, flag=None):
     """One fused pass over X: ``(u = X^T w, objective(w, b))``. With a sample
-    mask the O(n) masked loss is recomputed from the returned slacks."""
-    u, xi, loss = margin_obj_op(X, w, y, b, valid_m)
+    mask the O(n) masked loss is recomputed from the returned slacks.
+    ``flag``: the sweep's predicate (``kernels/hinge.py``)."""
+    u, xi, loss = margin_obj_op(X, w, y, b, valid_m, flag)
     if sm is not None:
         xi = xi * sm
         loss = 0.5 * torch.sum(xi * xi)
@@ -144,7 +204,7 @@ def _margin_obj_sweep(X, y, lam, w, b, sm, valid_m):
 def _fetch(obj: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """The one host sync of an iteration: ``(objective, all finite)``."""
     finite = torch.isfinite(w).all() & torch.isfinite(b)
-    obj_h, fin_h = torch.stack([obj, finite.to(obj.dtype)]).tolist()
+    obj_h, fin_h = host_fetch(torch.stack([obj, finite.to(obj.dtype)]), "host_loop")
     obj_h = _F32(obj_h)
     return obj_h, bool(fin_h) and bool(np.isfinite(obj_h))
 
@@ -157,7 +217,8 @@ def _init_state(X, y, lam, w0, b0, sm, valid_m) -> FistaState:
     w0 = torch.where(torch.isfinite(w0), w0, torch.zeros_like(w0))
     b0 = torch.where(torch.isfinite(b0), b0, torch.zeros_like(b0))
     u0, obj0 = _margin_obj_sweep(X, y, float(lam), w0, b0, sm, valid_m)
-    obj0_h, bad0_h = torch.stack([obj0, bad0.to(obj0.dtype)]).tolist()
+    obj0_h, bad0_h = host_fetch(torch.stack([obj0, bad0.to(obj0.dtype)]),
+                                "host_loop")
     inf = _F32(np.inf)
     return FistaState(w=w0, b=b0, w_prev=w0, b_prev=b0, u=u0, u_prev=u0,
                       t=_F32(1.0), k=0, obj=_F32(obj0_h), rel_change=inf,
@@ -287,6 +348,15 @@ def fista_solve(
                        converged=bool(s.rel3() <= tol), u=s.u, health=s.health)
 
 
+def _scalar(v, dtype, device) -> torch.Tensor:
+    """``v`` as a 0-d tensor of ``dtype`` on ``device``: a tensor converted
+    there, a number rounded to fp32 on the host and filled in (a fill, not a
+    host-to-device copy, which would synchronise the stream)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=dtype, device=device).reshape(())
+    return torch.full((), float(_F32(float(v))), dtype=dtype, device=device)
+
+
 def gap_theta_delta(X, y, w, b, lam, sample_mask: Optional[torch.Tensor] = None,
                     n_feas_iters: int = 4, u: Optional[torch.Tensor] = None):
     """Gap-certified ``(theta, delta, gap)`` at the current iterate, all on
@@ -299,10 +369,11 @@ def gap_theta_delta(X, y, w, b, lam, sample_mask: Optional[torch.Tensor] = None,
     (optional) is ``X^T w``, carried by the solver, which saves a sweep;
     the ``X (y alpha)`` products are plain GEMVs. The gap is floored at
     ``4 eps |p_obj|`` (cancellation must not shrink delta), and a
-    non-finite gap, delta or theta sets ``delta = gap = inf``.
+    non-finite gap, delta or theta sets ``delta = gap = inf``. ``lam`` is a
+    number or a 0-d tensor on X's device (the scan engines': no host read).
     """
     sm = sample_mask
-    lam_t = torch.full((), float(_F32(float(lam))), dtype=X.dtype, device=X.device)
+    lam_t = _scalar(lam, X.dtype, X.device)
     if u is None:
         u = torch.mv(X.t(), w)
     xi = torch.clamp_min(1.0 - y * (u + b), 0.0)
@@ -345,8 +416,7 @@ def refresh_bounds(X, y, lam, theta, delta,
     feature screen's dynamic variant on a CUDA X, its plain version on a
     CPU X."""
     s = sample_mask
-    lam_t = torch.full((), float(_F32(float(lam))), dtype=theta.dtype,
-                       device=theta.device)
+    lam_t = _scalar(lam, theta.dtype, theta.device)
     if s is None:
         one_y, n_tot = torch.sum(y), torch.full_like(lam_t, float(y.shape[0]))
     else:
@@ -529,3 +599,375 @@ def fista_solve_dynamic(
         sample_mask=(smask > 0.5) if dynamic_samples else None,
         kept_samples_per_segment=kept_s if dynamic_samples else None,
         health=s.health)
+
+
+# -- fista_run: the FISTA loop decided on the device ---------------------------
+
+
+class RunState(NamedTuple):
+    """:func:`fista_run`'s iterate: :class:`FistaState` with every scalar a
+    0-d tensor on X's device (fp32; ``k`` and ``health`` int32), and ``go``,
+    the bool the stop rule leaves: the solve runs on."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+    w_prev: torch.Tensor
+    b_prev: torch.Tensor
+    u: torch.Tensor
+    u_prev: torch.Tensor
+    t: torch.Tensor
+    k: torch.Tensor
+    obj: torch.Tensor
+    rel_change: torch.Tensor
+    rel_prev: torch.Tensor
+    rel_prev2: torch.Tensor
+    health: torch.Tensor
+    backoff: torch.Tensor
+    go: torch.Tensor
+
+
+class RunConsts(NamedTuple):
+    """The scalars a chunk reads, 0-d tensors on X's device: ``lam``,
+    ``inv_L``, ``tol`` (fp32) and ``k_stop`` (int32, the iteration count at
+    which the solve, or the dynamic segment, stops)."""
+
+    lam: torch.Tensor
+    inv_L: torch.Tensor
+    tol: torch.Tensor
+    k_stop: torch.Tensor
+
+
+def _consts(lam, inv_L, tol, k_stop, device) -> RunConsts:
+    f32 = torch.float32
+    return RunConsts(_scalar(lam, f32, device), _scalar(inv_L, f32, device),
+                     _scalar(tol, f32, device),
+                     torch.full((), int(k_stop), dtype=torch.int32, device=device))
+
+
+def _rel3_t(s: RunState) -> torch.Tensor:
+    return torch.maximum(torch.maximum(s.rel_change, s.rel_prev), s.rel_prev2)
+
+
+def _go(s: RunState, c: RunConsts) -> torch.Tensor:
+    """The stop rule of the host loop: below ``k_stop``, no three
+    consecutive sub-tol iterations yet, fewer than MAX_GUARD_TRIPS guard
+    trips (the low bits: a refused refresh does not stop a solve)."""
+    trips = torch.bitwise_and(s.health, HEALTH_SCREEN_REFUSED - 1)
+    return (s.k < c.k_stop) & (_rel3_t(s) > c.tol) & (trips < MAX_GUARD_TRIPS)
+
+
+def _run_init(X, y, c: RunConsts, w0, b0, sm, valid_m) -> RunState:
+    """The first state, as the host loop's :func:`_init_state` makes it
+    (warm start sanitized, one trip for a poisoned one, one fused sweep), on
+    the device."""
+    dev = X.device
+    b0 = _scalar(b0, torch.float32, dev)
+    fin_w = torch.isfinite(w0)
+    bad0 = ~(fin_w.all() & torch.isfinite(b0))
+    w0 = torch.where(fin_w, w0, torch.zeros_like(w0))
+    b0 = torch.where(torch.isfinite(b0), b0, torch.zeros_like(b0))
+    u0, obj0 = _margin_obj_sweep(X, y, c.lam, w0, b0, sm, valid_m)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    inf = torch.full((), np.inf, dtype=torch.float32, device=dev)
+    s = RunState(w=w0, b=b0, w_prev=w0, b_prev=b0, u=u0, u_prev=u0, t=one,
+                 k=torch.zeros((), dtype=torch.int32, device=dev), obj=obj0,
+                 rel_change=inf, rel_prev=inf, rel_prev2=inf,
+                 health=bad0.to(torch.int32), backoff=one, go=bad0)
+    return s._replace(go=_go(s, c))
+
+
+def _run_prox(X, y, c, sm, fmask, valid_m, w_a, b_a, u_a, inv_Le, thr, flag):
+    """One proximal-gradient step from ``(w_a, b_a)`` with margins ``u_a``
+    (the host loop's ``prox_from``); both sweeps predicated on ``flag``."""
+    xi = torch.clamp_min(1.0 - y * (u_a + b_a), 0.0)
+    if sm is not None:
+        xi = xi * sm
+    gw = hinge_grad_op(X, y, xi, valid_m, flag)
+    gb = -torch.sum(y * xi)
+    w_new = soft_threshold(w_a - inv_Le * gw, thr)
+    if fmask is not None:
+        w_new = w_new * fmask
+    b_new = b_a - inv_Le * gb
+    u_new, obj_new = _margin_obj_sweep(X, y, c.lam, w_new, b_new, sm, valid_m, flag)
+    return w_new, b_new, u_new, obj_new
+
+
+def _run_body(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState) -> RunState:
+    """One iteration of the host loop's body with its decisions as selects.
+    With ``go`` false every field comes back unchanged and both sweeps are
+    switched off."""
+    go = s.go
+    inv_Le = c.inv_L * s.backoff
+    thr = c.lam * inv_Le
+    t_next = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * s.t * s.t))
+    beta = (s.t - 1.0) / t_next
+    zw = s.w + beta * (s.w - s.w_prev)
+    zb = s.b + beta * (s.b - s.b_prev)
+    uz = s.u + beta * (s.u - s.u_prev)
+    args = (X, y, c, sm, fmask, valid_m)
+    w_c, b_c, u_c, obj_c = _run_prox(*args, zw, zb, uz, inv_Le, thr, go.to(torch.int32))
+    # monotone restart: a plain step from (w, b), its sweeps switched off
+    # unless it fires
+    restarted = go & (obj_c > s.obj)
+    w_r, b_r, u_r, obj_r = _run_prox(*args, s.w, s.b, s.u, inv_Le, thr,
+                                     restarted.to(torch.int32))
+    # a restart iteration is not convergence evidence
+    rel = torch.where(restarted, np.inf, torch.abs(s.obj - obj_c)
+                      / torch.clamp_min(torch.abs(s.obj), 1e-30))
+    w_c = torch.where(restarted, w_r, w_c)
+    b_c = torch.where(restarted, b_r, b_c)
+    u_c = torch.where(restarted, u_r, u_c)
+    obj_c = torch.where(restarted, obj_r, obj_c)
+    t_next = torch.where(restarted, 1.0, t_next)
+    # guard: a non-finite candidate, or a restart step that raised the
+    # objective beyond rounding, rolls back, halves the step, counts a trip
+    finite = torch.isfinite(w_c).all() & torch.isfinite(b_c) & torch.isfinite(obj_c)
+    blowup = restarted & (obj_c > s.obj + _GUARD_SLACK
+                          * torch.clamp_min(torch.abs(s.obj), 1.0))
+    trip = go & (~finite | blowup)
+    ok = go & ~trip
+    new = RunState(
+        w=torch.where(ok, w_c, s.w), b=torch.where(ok, b_c, s.b),
+        w_prev=torch.where(go, s.w, s.w_prev), b_prev=torch.where(go, s.b, s.b_prev),
+        u=torch.where(ok, u_c, s.u), u_prev=torch.where(go, s.u, s.u_prev),
+        t=torch.where(ok, t_next, torch.where(trip, 1.0, s.t)),
+        k=s.k + go.to(torch.int32),
+        obj=torch.where(ok, obj_c, s.obj),
+        rel_change=torch.where(ok, rel, torch.where(trip, np.inf, s.rel_change)),
+        rel_prev=torch.where(go, s.rel_change, s.rel_prev),
+        rel_prev2=torch.where(go, s.rel_prev, s.rel_prev2),
+        health=s.health + trip.to(torch.int32),
+        backoff=torch.where(trip, s.backoff * 0.5, s.backoff), go=go)
+    return new._replace(go=go & _go(new, c))
+
+
+def _run_chunk(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState) -> RunState:
+    for _ in range(CHUNK_ITERS):
+        s = _run_body(X, y, sm, fmask, valid_m, c, s)
+    return s
+
+
+class _Chunks:
+    """Runs :func:`fista_run`'s chunks for one problem ``(X, y, sm, fmask,
+    valid_m)``: eagerly for a CPU X; for a CUDA X as one captured graph over
+    static buffers (the state, the scalars, y and the masks are copied in,
+    X is read where it lies), cached in :data:`_GRAPH_CACHE`. A chunk's
+    first run in a cache entry is eager, on the static buffers: it launches
+    every kernel once (the library build, each kernel's first-launch set-up)
+    before the capture."""
+
+    def __init__(self, X, y, sm, fmask, valid_m):
+        self.X, self.valid_m = X, valid_m
+        self.graph, self.counts = None, None
+        self.y, self.sm, self.fmask = y, sm, fmask
+        self.state = self.consts = None
+
+    def load(self, s: RunState, c: Optional[RunConsts] = None) -> None:
+        self.state = s
+        if c is not None:
+            self.consts = c
+
+    def set_fmask(self, fmask) -> None:
+        self.fmask = fmask
+
+    def _chunk(self) -> None:
+        self.state = _run_chunk(self.X, self.y, self.sm, self.fmask,
+                                self.valid_m, self.consts, self.state)
+
+    def run(self) -> RunState:
+        """Chunks until the stop rule says stop (one fetch a chunk)."""
+        while True:
+            self._chunk()
+            if not host_fetch(self.state.go, "chunk"):
+                return self.state
+
+
+class _GraphChunks(_Chunks):
+    """:class:`_Chunks` on the card: one chunk is a captured CUDA graph. X
+    is held only until the capture (the graph reads it by address)."""
+
+    def __init__(self, X, y, sm, fmask, valid_m):
+        super().__init__(X, y, sm, fmask, valid_m)
+        self.y = y.clone()
+        self.sm = None if sm is None else sm.clone()
+        self.fmask = None if fmask is None else fmask.clone()
+
+    def inputs(self, X, y, sm, fmask) -> None:
+        if self.graph is None:
+            self.X = X
+        self.y.copy_(y)
+        if sm is not None:
+            self.sm.copy_(sm)
+        if fmask is not None:
+            self.fmask.copy_(fmask)
+
+    def load(self, s: RunState, c: Optional[RunConsts] = None) -> None:
+        if self.state is None:
+            self.state = RunState(*(t.clone() for t in s))
+            self.consts = RunConsts(*(t.clone() for t in c))
+            return
+        for dst, src in zip(self.state, s):
+            if dst is not src:
+                dst.copy_(src)
+        if c is not None:
+            for dst, src in zip(self.consts, c):
+                dst.copy_(src)
+
+    def set_fmask(self, fmask) -> None:
+        self.fmask.copy_(fmask)
+
+    def _step(self) -> None:
+        out = _run_chunk(self.X, self.y, self.sm, self.fmask, self.valid_m,
+                         self.consts, self.state)
+        for dst, src in zip(self.state, out):
+            dst.copy_(src)
+
+    def _chunk(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            GRAPHS["replays"] += 1
+            ops.add_counts(self.counts)
+            return
+        self._step()  # the warm-up, and real work
+        before = (ops.launch_counts(), ops.variant_counts())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        # the capture ran nothing: its launches count at each replay
+        self.counts = ops.counts_since(before)
+        ops.add_counts(self.counts, -1)
+        self.graph, self.X = graph, None
+        GRAPHS["captures"] += 1
+
+
+#: captured chunks by their static inputs (X's address, shape, dtype and
+#: strides, valid_m, which masks), most recent last; :data:`GRAPH_CACHE_SIZE`
+#: at most
+_GRAPH_CACHE: "OrderedDict[tuple, _GraphChunks]" = OrderedDict()
+GRAPH_CACHE_SIZE = 32
+
+
+def _chunks_for(X, y, sm, fmask, valid_m) -> _Chunks:
+    if X.device.type != "cuda":
+        return _Chunks(X, y, sm, fmask, valid_m)
+    key = (str(X.device), X.data_ptr(), tuple(X.shape), X.dtype, tuple(X.stride()),
+           valid_m, sm is not None, fmask is not None)
+    entry = _GRAPH_CACHE.get(key)
+    if entry is None:
+        entry = _GRAPH_CACHE[key] = _GraphChunks(X, y, sm, fmask, valid_m)
+        if len(_GRAPH_CACHE) > GRAPH_CACHE_SIZE:
+            _GRAPH_CACHE.popitem(last=False)
+    else:
+        _GRAPH_CACHE.move_to_end(key)
+        entry.inputs(X, y, sm, fmask)
+    return entry
+
+
+def graph_cache_addresses() -> set[int]:
+    """The device addresses of the matrices the cached graphs read."""
+    return {k[1] for k in _GRAPH_CACHE}
+
+
+def clear_graph_cache() -> None:
+    """Drops every cached chunk graph and its private memory pool."""
+    _GRAPH_CACHE.clear()
+
+
+def graph_cache_info() -> list[dict]:
+    """The cached chunk graphs, oldest first: shape, dtype, ``valid_m``,
+    masks, and whether each is captured yet (the port of the reference's
+    ``engine_cache_info``: a repeated same-shape solve must not add one)."""
+    return [{"shape": k[2], "dtype": str(k[3]), "valid_m": k[5],
+             "sample_mask": k[6], "feature_mask": k[7],
+             "captured": e.graph is not None} for k, e in _GRAPH_CACHE.items()]
+
+
+def _run_result(s: RunState, c: RunConsts) -> FistaResult:
+    """The result of a finished run, copied out of the (reused) buffers."""
+    return FistaResult(w=s.w.clone(), b=s.b.clone(), obj=s.obj.clone(),
+                       n_iters=s.k.clone(), converged=_rel3_t(s) <= c.tol,
+                       u=s.u.clone(), health=s.health.clone())
+
+
+def fista_run(X, y, lam, w0, b0, inv_L, sample_mask: Optional[torch.Tensor] = None,
+              feature_mask: Optional[torch.Tensor] = None, max_iters: int = 2000,
+              tol: float = 1e-9, valid_m: Optional[int] = None) -> FistaResult:
+    """The FISTA loop with every decision on the device (reference
+    ``solver.fista_run``); see the module docstring.
+
+    Solves the problem of :func:`fista_solve` from ``(w0, b0)`` with step
+    ``inv_L`` (the path's ``1 / (1.01 L)``, a number or a 0-d tensor).
+    ``lam`` is a number or a 0-d tensor. ``feature_mask`` (0/1 over rows)
+    freezes screened coordinates at zero (``w0`` must respect it);
+    ``sample_mask`` drops columns from the loss; ``valid_m`` marks the live
+    leading rows of a zero-padded buffer. The guard is always on. Returns a
+    :class:`FistaResult` whose scalars are 0-d tensors on X's device: no
+    host read but one ``go`` fetch a chunk of :data:`CHUNK_ITERS`
+    iterations. ``n_iters`` and the objective equal :func:`fista_solve`'s
+    on the same inputs."""
+    c = _consts(lam, inv_L, tol, max_iters, X.device)
+    s = _run_init(X, y, c, w0, b0, sample_mask, valid_m)
+    chunks = _chunks_for(X, y, sample_mask, feature_mask, valid_m)
+    chunks.load(s, c)
+    return _run_result(chunks.run(), c)
+
+
+def fista_run_dynamic(X, y, lam, w0, b0, inv_L,
+                      sample_mask: Optional[torch.Tensor],
+                      feature_mask: torch.Tensor, max_iters: int, tol: float,
+                      screen_every: int = 50, tau: float = SAFE_TAU,
+                      n_feas_iters: int = 4,
+                      valid_m: Optional[int] = None) -> FistaResult:
+    """:func:`fista_run` in segments of ``screen_every`` iterations with the
+    dynamic refresh between them, all on the device (reference
+    ``_dynamic_run``, the scan engines' ``dynamic=True``).
+
+    Each refresh certifies ``(theta, delta, gap)`` from the carried margins
+    (:func:`gap_theta_delta`), bounds every feature over the at-lambda
+    region capped by the gap sphere (:func:`refresh_bounds`, the feature
+    screen's dynamic variant), multiplies ``~(bounds < tau) | ~isfinite(
+    delta)`` into the live mask, and when that moved the iterate restarts
+    the state at the masked point: the margin sweep of that restart is a
+    launch predicated on "moved", and the restart itself a select. A refused
+    refresh keeps every feature and sets :data:`HEALTH_SCREEN_REFUSED`.
+    The certificate and the screen read all rows of X (padded rows are zero
+    and stay out of the mask). Host cost: the chunks' fetches and one fetch
+    a segment (``FETCHES["segment"]`` counts the refreshes). Returns a
+    :class:`FistaResult` as :func:`fista_run` does."""
+    dev = X.device
+    screen_every = max(int(screen_every), 1)
+    fmask = feature_mask.to(dtype=X.dtype).clone()
+    c = _consts(lam, inv_L, tol, max_iters, dev)
+    s = _run_init(X, y, c, w0 * fmask, b0, sample_mask, valid_m)
+    chunks = _chunks_for(X, y, sample_mask, fmask, valid_m)
+    chunks.load(s, c)
+    go = max_iters > 0
+    while go:
+        # -- segment: up to screen_every iterations on the live mask
+        seg_stop = torch.clamp_max(chunks.state.k + screen_every, max_iters)
+        chunks.load(chunks.state, c._replace(k_stop=seg_stop))
+        s = chunks.run()
+        # -- refresh, on the device
+        theta, delta, _ = gap_theta_delta(X, y, s.w, s.b, c.lam, sample_mask,
+                                          n_feas_iters, u=s.u)
+        bounds = refresh_bounds(X, y, c.lam, theta, delta, sample_mask)
+        cert_ok = torch.isfinite(delta)
+        keep = (~(bounds < tau)) | ~cert_ok
+        new_mask = fmask * keep.to(fmask.dtype)
+        w_m = s.w * new_mask
+        moved = torch.sum((s.w - w_m) * (s.w - w_m)) > 0.0
+        u_m, obj_m = _margin_obj_sweep(X, y, c.lam, w_m, s.b, sample_mask,
+                                       valid_m, moved.to(torch.int32))
+        inf = torch.full_like(s.obj, np.inf)
+        masked = s._replace(w=w_m, w_prev=w_m, b_prev=s.b, u=u_m, u_prev=u_m,
+                            t=torch.ones_like(s.t), obj=obj_m, rel_change=inf,
+                            rel_prev=inf, rel_prev2=inf)
+        s = RunState(*(torch.where(moved, a, b) for a, b in zip(masked, s)))
+        s = s._replace(health=torch.bitwise_or(
+            s.health, torch.where(cert_ok, 0, HEALTH_SCREEN_REFUSED).to(torch.int32)))
+        s = s._replace(go=_go(s, c))
+        fmask = new_mask
+        chunks.set_fmask(fmask)
+        chunks.load(s, c)
+        go = bool(host_fetch(s.go, "segment"))
+    return _run_result(chunks.state, c)

@@ -37,8 +37,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "margin_obj": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                   _P, _P, _P, _I, _P],
-    "hinge_grad": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+                   _P, _P, _P, _P, _P, _I, _P],
+    "hinge_grad": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                   _I, _P],
     "screen_bounds_features": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
     "screen_bounds_samples": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P, _I, _P],

@@ -43,6 +43,16 @@
 //    padding is skipped; valid_m = 0 reads nothing and gives u = 0), and
 //    ragged edges are masked in the kernels, so no padding or loss
 //    correction is needed.
+//
+// Predicated launches: both entry points take an optional device pointer to
+// an int flag. Every block of every kernel of the launch reads it first and
+// returns at once when it is 0, so the launch reads no X and writes no
+// output (the caller discards them); the first block of the first kernel
+// then adds one to *skipped. The on-device FISTA loop (core/solver.py
+// `fista_run`) predicates the monotone restart's two sweeps on "a restart
+// fired" and every sweep on "the solve has not stopped", as the
+// reference's lax.cond keeps the restart's sweeps conditional. A null flag
+// is the unpredicated launch of the host engine.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,6 +73,17 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 // max(0, t) that propagates NaN, as jnp.maximum / torch.clamp_min do.
 __device__ __forceinline__ float relu_nan(float t) {
   return (t > 0.f || t != t) ? t : 0.f;
+}
+
+// True when a predicated launch is switched off (*flag == 0): the block
+// returns before any work. Counted once a launch, by block 0 of its first
+// kernel (count = true).
+__device__ __forceinline__ bool skip_launch(const int* flag, int* skipped,
+                                            bool count) {
+  if (flag == nullptr || *flag != 0) return false;
+  if (count && skipped != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(skipped, 1);
+  return true;
 }
 
 // Deterministic tree sum of one value per thread of a kFinThreads block.
@@ -102,7 +123,9 @@ struct MarginAcc {
 template <typename T, int kUnits>
 __global__ void __launch_bounds__(sweep::kThreads, 1)
 margin_partial_bulk(const T* __restrict__ X, const float* __restrict__ w,
-                    const sweep::ColumnPlan p, float* __restrict__ part) {
+                    const sweep::ColumnPlan p, float* __restrict__ part,
+                    const int* flag, int* skipped) {
+  if (skip_launch(flag, skipped, true)) return;
   MarginAcc<kUnits * sweep::Vec<T>::kN> acc{w, part, p.n};
   sweep::column_sweep_bulk<T, kUnits>(X, p, acc);
 }
@@ -110,7 +133,9 @@ margin_partial_bulk(const T* __restrict__ X, const float* __restrict__ w,
 template <typename T>
 __global__ void __launch_bounds__(sweep::kConsumers)
 margin_partial_scalar(const T* __restrict__ X, const float* __restrict__ w,
-                      const sweep::ColumnPlan p, float* __restrict__ part) {
+                      const sweep::ColumnPlan p, float* __restrict__ part,
+                      const int* flag, int* skipped) {
+  if (skip_launch(flag, skipped, true)) return;
   MarginAcc<sweep::Vec<T>::kN> acc{w, part, p.n};
   sweep::column_sweep_scalar(X, p, acc);
 }
@@ -118,10 +143,12 @@ margin_partial_scalar(const T* __restrict__ X, const float* __restrict__ w,
 template <typename T>
 cudaError_t launch_margin_partial(const void* X, const float* w,
                                   const sweep::ColumnPlan& p, int bulk,
-                                  int grid, float* part, cudaStream_t s) {
+                                  int grid, float* part, const int* flag,
+                                  int* skipped, cudaStream_t s) {
   const T* x = static_cast<const T*>(X);
   if (!bulk) {
-    margin_partial_scalar<T><<<grid, sweep::kConsumers, 0, s>>>(x, w, p, part);
+    margin_partial_scalar<T><<<grid, sweep::kConsumers, 0, s>>>(x, w, p, part,
+                                                                flag, skipped);
     return cudaGetLastError();
   }
   const int units = sweep::column_units(p, sizeof(T));
@@ -129,7 +156,8 @@ cudaError_t launch_margin_partial(const void* X, const float* w,
   return sweep::launch_column_bulk(units == 1   ? margin_partial_bulk<T, 1>
                                    : units == 2 ? margin_partial_bulk<T, 2>
                                                 : margin_partial_bulk<T, 4>,
-                                   p, sizeof(T), grid, s, x, w, p, part);
+                                   p, sizeof(T), grid, s, x, w, p, part,
+                                   flag, skipped);
 }
 
 // u = the slabs' partials summed in slab order, xi = max(0, 1 - y (u + b)),
@@ -138,7 +166,9 @@ __global__ void __launch_bounds__(kFinThreads)
 margin_finalize_kernel(const float* __restrict__ part, int slabs, int n,
                        const float* __restrict__ y,
                        const float* __restrict__ b, float* __restrict__ u,
-                       float* __restrict__ xi, float* __restrict__ loss_part) {
+                       float* __restrict__ xi, float* __restrict__ loss_part,
+                       const int* flag) {
+  if (skip_launch(flag, nullptr, false)) return;
   __shared__ float red[kFinThreads];
   const int j = blockIdx.x * kFinThreads + threadIdx.x;
   float sq = 0.f;
@@ -157,7 +187,8 @@ margin_finalize_kernel(const float* __restrict__ part, int slabs, int n,
 // loss = 1/2 sum of the block partials, in a fixed order (one block)
 __global__ void __launch_bounds__(kFinThreads)
 loss_sum_kernel(const float* __restrict__ loss_part, int count,
-                float* __restrict__ loss) {
+                float* __restrict__ loss, const int* flag) {
+  if (skip_launch(flag, nullptr, false)) return;
   __shared__ float red[kFinThreads];
   float acc = 0.f;
   for (int k = threadIdx.x; k < count; k += kFinThreads) acc += loss_part[k];
@@ -206,7 +237,8 @@ __global__ void __launch_bounds__(sweep::kThreads, 1)
 hinge_grad_bulk(const T* __restrict__ X, const float* __restrict__ y,
                 const float* __restrict__ xi, int m, int n, int valid_m,
                 int chunk_cols, int piece_cols, int stages,
-                float* __restrict__ g) {
+                float* __restrict__ g, const int* flag, int* skipped) {
+  if (skip_launch(flag, skipped, true)) return;
   using namespace sweep;
   extern __shared__ __align__(128) unsigned char smem[];
   const GradSmem lay(chunk_cols, piece_cols, stages, sizeof(T));
@@ -292,7 +324,9 @@ template <typename T>
 __global__ void __launch_bounds__(sweep::kConsumers)
 hinge_grad_scalar(const T* __restrict__ X, const float* __restrict__ y,
                   const float* __restrict__ xi, int m, int n, int valid_m,
-                  int chunk_cols, float* __restrict__ g) {
+                  int chunk_cols, float* __restrict__ g, const int* flag,
+                  int* skipped) {
+  if (skip_launch(flag, skipped, true)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   float* vs = reinterpret_cast<float*>(smem);
   zero_tail(g, m, valid_m);
@@ -324,7 +358,8 @@ hinge_grad_scalar(const T* __restrict__ X, const float* __restrict__ y,
 template <typename T>
 cudaError_t launch_grad(const void* X, const float* y, const float* xi, int m,
                         int n, int valid_m, int bulk, int grid, int chunk_cols,
-                        int piece_cols, int stages, float* g, cudaStream_t s) {
+                        int piece_cols, int stages, float* g, const int* flag,
+                        int* skipped, cudaStream_t s) {
   const T* x = static_cast<const T*>(X);
   if (!bulk) {
     const int smem = chunk_cols * 4;
@@ -332,7 +367,7 @@ cudaError_t launch_grad(const void* X, const float* y, const float* xi, int m,
         hinge_grad_scalar<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     hinge_grad_scalar<T><<<grid, sweep::kConsumers, smem, s>>>(
-        x, y, xi, m, n, valid_m, chunk_cols, g);
+        x, y, xi, m, n, valid_m, chunk_cols, g, flag, skipped);
     return cudaGetLastError();
   }
   const int smem = GradSmem(chunk_cols, piece_cols, stages, sizeof(T)).total;
@@ -340,7 +375,8 @@ cudaError_t launch_grad(const void* X, const float* y, const float* xi, int m,
       hinge_grad_bulk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   hinge_grad_bulk<T><<<grid, sweep::kThreads, smem, s>>>(
-      x, y, xi, m, n, valid_m, chunk_cols, piece_cols, stages, g);
+      x, y, xi, m, n, valid_m, chunk_cols, piece_cols, stages, g, flag,
+      skipped);
   return cudaGetLastError();
 }
 
@@ -355,41 +391,49 @@ const char* repro_cuda_error_string(int err) {
 // (u, xi, loss) from one read of X's first valid_m rows. The walk is the
 // plan of kernels/hinge.py `column_sweep_plan` over the valid_m live rows
 // (bulk, grid, seg_cols, slabs, stage_rows, stages). Scratch: part is
-// (slabs, n), loss_part is (ceil(n / 256),). Returns cudaGetLastError().
+// (slabs, n), loss_part is (ceil(n / 256),). flag (nullable): the launch's
+// predicate, a device int; skipped (nullable): a device int counting the
+// launches it switched off. Returns cudaGetLastError().
 int margin_obj(const void* X, int x_bf16, const float* w, const float* y,
                const float* b, int n, int valid_m, int bulk, int grid,
                int seg_cols, int slabs, int stage_rows, int stages,
                float* part, float* u, float* xi, float* loss_part,
-               float* loss, int device, void* stream) {
+               float* loss, const int* flag, int* skipped, int device,
+               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const sweep::ColumnPlan p{valid_m, n, seg_cols, slabs, stage_rows, stages};
-  err = x_bf16 ? launch_margin_partial<__nv_bfloat16>(X, w, p, bulk, grid, part, s)
-               : launch_margin_partial<float>(X, w, p, bulk, grid, part, s);
+  err = x_bf16 ? launch_margin_partial<__nv_bfloat16>(X, w, p, bulk, grid, part,
+                                                      flag, skipped, s)
+               : launch_margin_partial<float>(X, w, p, bulk, grid, part, flag,
+                                              skipped, s);
   if (err != cudaSuccess) return err;
   const int fin_blocks = (n + kFinThreads - 1) / kFinThreads;
   margin_finalize_kernel<<<fin_blocks, kFinThreads, 0, s>>>(
-      part, slabs, n, y, b, u, xi, loss_part);
+      part, slabs, n, y, b, u, xi, loss_part, flag);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  loss_sum_kernel<<<1, kFinThreads, 0, s>>>(loss_part, fin_blocks, loss);
+  loss_sum_kernel<<<1, kFinThreads, 0, s>>>(loss_part, fin_blocks, loss, flag);
   return cudaGetLastError();
 }
 
 // g = -X (y * xi) over rows < valid_m, zeros below. The walk is the plan of
 // kernels/hinge.py `grad_plan` (bulk, grid, chunk_cols, piece_cols,
-// stages <= sweep::kMaxStages). Returns cudaGetLastError().
+// stages <= sweep::kMaxStages). flag, skipped: as for margin_obj. Returns
+// cudaGetLastError().
 int hinge_grad(const void* X, int x_bf16, const float* y, const float* xi,
                int m, int n, int valid_m, int bulk, int grid, int chunk_cols,
-               int piece_cols, int stages, float* g, int device, void* stream) {
+               int piece_cols, int stages, float* g, const int* flag,
+               int* skipped, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch_grad<__nv_bfloat16>(X, y, xi, m, n, valid_m, bulk,
                                              grid, chunk_cols, piece_cols,
-                                             stages, g, s)
+                                             stages, g, flag, skipped, s)
                 : launch_grad<float>(X, y, xi, m, n, valid_m, bulk, grid,
-                                     chunk_cols, piece_cols, stages, g, s);
+                                     chunk_cols, piece_cols, stages, g, flag,
+                                     skipped, s);
 }
 
 }  // extern "C"

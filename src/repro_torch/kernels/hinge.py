@@ -20,6 +20,17 @@ scratch with ``torch.empty``, launches ``csrc/hinge.cu`` on the current
 stream and counts the launch in :data:`LAUNCHES`. For a CPU ``X`` it runs
 the plain version beside it. The kernels replace the reference's Pallas
 ``_margin_kernel`` / ``_grad_kernel`` (``repro/kernels/hinge.py``).
+
+Both take an optional ``flag``, a 0-d int32 tensor on X's device: a launch
+whose flag is 0 does no work (every block returns at once: no byte of X
+read, no output written) and counts itself on the device; the caller
+discards its outputs. The on-device FISTA loop (``core/solver.py``
+``fista_run``) predicates the monotone restart's two sweeps on "a restart
+fired", as the reference's ``lax.cond`` does, so a captured CUDA graph pays
+a launch, not a read of X, on the iterations without one. The plain
+versions compute their result whatever the flag, and count the calls whose
+flag is 0 on the host; :func:`skipped_counts` gives both counts. Without a
+flag a launch is exactly the unpredicated one.
 """
 
 from __future__ import annotations
@@ -34,6 +45,11 @@ from . import build
 
 #: launches of each kernel in this process (reset by ``ops.reset_launch_counts``)
 LAUNCHES = {"margin_obj": 0, "hinge_grad": 0}
+#: plain-version calls whose flag was 0 (CPU tensors); the card's predicated
+#: launches that did no work are counted on the device (:func:`skipped_counts`)
+SKIPPED = {"margin_obj": 0, "hinge_grad": 0}
+_SKIP_SLOT = {"margin_obj": 0, "hinge_grad": 1}
+_skip_dev: dict = {}  # device -> (2,) int32 counter the kernels add to
 #: launches of each variant of the persistent-sweep kernels
 VARIANTS = {"margin_obj": {"bulk": 0, "scalar": 0},
             "hinge_grad": {"bulk": 0, "scalar": 0}}
@@ -47,6 +63,54 @@ def _live_rows(X: torch.Tensor, valid_m: Optional[int]) -> int:
     if not 0 <= vm <= m:
         raise ValueError(f"valid_m must be in [0, {m}], got {valid_m}")
     return vm
+
+
+def _skip_counter(device: torch.device) -> torch.Tensor:
+    """The device's skip counter (made on first use, which must not be
+    inside a CUDA graph capture: the counter outlives every graph)."""
+    key = torch.device(device.type, device.index if device.index is not None
+                       else torch.cuda.current_device())
+    c = _skip_dev.get(key)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the hinge kernels' skip counter must exist "
+                               "before a graph capture: launch once eagerly")
+        c = _skip_dev[key] = torch.zeros((2,), dtype=torch.int32, device=key)
+    return c
+
+
+def _flag_args(name: str, X: torch.Tensor, flag) -> tuple:
+    """``(flag pointer, skip counter pointer)`` of a launch (``None`` twice
+    without a flag)."""
+    if flag is None:
+        return None, None
+    if flag.device != X.device or flag.dtype != torch.int32 or flag.numel() != 1:
+        raise ValueError("flag must be a one-element int32 tensor on X's "
+                         f"device, got {flag.dtype} {tuple(flag.shape)} on {flag.device}")
+    return flag.data_ptr(), _skip_counter(X.device)[_SKIP_SLOT[name]:].data_ptr()
+
+
+def _count_plain_skip(name: str, flag) -> None:
+    if flag is not None and int(flag) == 0:  # a CPU tensor: no device sync
+        SKIPPED[name] += 1
+
+
+def skipped_counts() -> dict[str, int]:
+    """Predicated calls that did no work, by kernel: the card's launches
+    (read from each device's counter, which synchronises it) plus the plain
+    versions' calls."""
+    out = dict(SKIPPED)
+    for c in _skip_dev.values():
+        for name, slot in _SKIP_SLOT.items():
+            out[name] += int(c[slot])
+    return out
+
+
+def reset_skipped() -> None:
+    for name in SKIPPED:
+        SKIPPED[name] = 0
+    for c in _skip_dev.values():
+        c.zero_()
 
 
 def margin_obj_plain(X, w, y, b, valid_m: Optional[int] = None):
@@ -251,14 +315,20 @@ def column_sweep_plan(m: int, n: int, itemsize: int, aligned: bool,
                            COLUMN_STAGES)
 
 
-def margin_obj_op(X, w, y, b, valid_m: Optional[int] = None):
+def margin_obj_op(X, w, y, b, valid_m: Optional[int] = None, flag=None,
+                  out=None):
     """``(u, xi, loss)`` from one sweep of X's first ``valid_m`` rows.
 
     ``X`` (m, n) fp32/bf16; ``w`` (m,) and ``y`` (n,) fp32; ``b`` a 0-d fp32
     tensor on X's device or a number. Returns ``u``, ``xi`` (n,) fp32 and a
-    0-d fp32 ``loss``, all on X's device.
+    0-d fp32 ``loss``, all on X's device. ``flag``: the launch's predicate
+    (see the module docstring); ``out``: ``(u, xi, loss)`` to write into
+    instead of new tensors. No caller in the package passes ``out``: it
+    is there for the card test that a switched-off launch leaves its
+    outputs as they were (``tests/test_torch_kernels.py``).
     """
     if not build.on_card(X):
+        _count_plain_skip("margin_obj", flag)
         return margin_obj_plain(X, w, y, b, valid_m)
     build.check_matrix(X)
     m, n = X.shape
@@ -272,17 +342,24 @@ def margin_obj_op(X, w, y, b, valid_m: Optional[int] = None):
                              sm_count(X.device))
     f32 = dict(dtype=torch.float32, device=X.device)
     part = torch.empty(plan.scratch_shape(1), **f32)
-    u = torch.empty((n,), **f32)
-    xi = torch.empty((n,), **f32)
+    if out is None:
+        u, xi, loss = (torch.empty((n,), **f32), torch.empty((n,), **f32),
+                       torch.empty((), **f32))
+    else:
+        u, xi, loss = out
+        for v, size, name in ((u, n, "u"), (xi, n, "xi")):
+            build.check_vector(v, size, X, name)
+        if loss.device != X.device or loss.dtype != torch.float32 or loss.dim():
+            raise ValueError("loss must be a 0-d float32 tensor on X's device")
     loss_part = torch.empty((_cdiv(n, _FIN_THREADS),), **f32)
-    loss = torch.empty((), **f32)
+    flag_p, skip_p = _flag_args("margin_obj", X, flag)
     dev, stream = build.stream_and_device(X)
     err = build.library().margin_obj(
         X.data_ptr(), int(X.dtype == torch.bfloat16), w.data_ptr(),
         y.data_ptr(), b.data_ptr(), n, vm, int(plan.bulk), plan.grid,
         plan.seg_cols, plan.slabs, plan.stage_rows, plan.stages,
         part.data_ptr(), u.data_ptr(), xi.data_ptr(), loss_part.data_ptr(),
-        loss.data_ptr(), dev, stream)
+        loss.data_ptr(), flag_p, skip_p, dev, stream)
     build.check(err, "margin_obj")
     LAUNCHES["margin_obj"] += 1
     VARIANTS["margin_obj"]["bulk" if plan.bulk else "scalar"] += 1
@@ -297,12 +374,15 @@ def hinge_grad_plain(X, y, xi, valid_m: Optional[int] = None):
     return g
 
 
-def hinge_grad_op(X, y, xi, valid_m: Optional[int] = None):
+def hinge_grad_op(X, y, xi, valid_m: Optional[int] = None, flag=None,
+                  out=None):
     """``g = -X (y * xi)`` over X's first ``valid_m`` rows, zeros past them.
 
     ``X`` (m, n) fp32/bf16; ``y``, ``xi`` (n,) fp32. Returns (m,) fp32.
+    ``flag`` and ``out`` (an (m,) fp32 ``g``) as for :func:`margin_obj_op`.
     """
     if not build.on_card(X):
+        _count_plain_skip("hinge_grad", flag)
         return hinge_grad_plain(X, y, xi, valid_m)
     build.check_matrix(X)
     m, n = X.shape
@@ -310,12 +390,17 @@ def hinge_grad_op(X, y, xi, valid_m: Optional[int] = None):
     build.check_vector(y, n, X, "y")
     build.check_vector(xi, n, X, "xi")
     plan = grad_plan(vm, n, X.element_size(), bulk_aligned(X), sm_count(X.device))
-    g = torch.empty((m,), dtype=torch.float32, device=X.device)
+    if out is None:
+        g = torch.empty((m,), dtype=torch.float32, device=X.device)
+    else:
+        g = out
+        build.check_vector(g, m, X, "g")
+    flag_p, skip_p = _flag_args("hinge_grad", X, flag)
     dev, stream = build.stream_and_device(X)
     err = build.library().hinge_grad(
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
         xi.data_ptr(), m, n, vm, int(plan.bulk), plan.grid, plan.chunk_cols,
-        plan.piece_cols, plan.stages, g.data_ptr(), dev, stream)
+        plan.piece_cols, plan.stages, g.data_ptr(), flag_p, skip_p, dev, stream)
     build.check(err, "hinge_grad")
     LAUNCHES["hinge_grad"] += 1
     VARIANTS["hinge_grad"]["bulk" if plan.bulk else "scalar"] += 1

@@ -41,7 +41,37 @@ def variant_counts() -> dict[str, dict[str, int]]:
     return out
 
 
+def counts_since(before: tuple) -> tuple:
+    """``(launches, variants)`` added since ``before``, a
+    ``(launch_counts(), variant_counts())`` pair."""
+    launches, variants = launch_counts(), variant_counts()
+    return ({k: v - before[0][k] for k, v in launches.items()},
+            {k: {v: c - before[1][k][v] for v, c in per.items()}
+             for k, per in variants.items()})
+
+
+def add_counts(delta: tuple, times: int = 1) -> None:
+    """Add ``times`` x a :func:`counts_since` delta to the counters: a CUDA
+    graph counts its launches at capture, where nothing runs, so the graph
+    runner takes them back after the capture and adds them at each
+    replay."""
+    for counter in _COUNTERS:
+        for name in counter:
+            counter[name] += times * delta[0].get(name, 0)
+    for counter in _VARIANTS:
+        for name, per in counter.items():
+            for v in per:
+                per[v] += times * delta[1].get(name, {}).get(v, 0)
+
+
+def skipped_counts() -> dict[str, int]:
+    """Predicated launches of the hinge kernels that did no work (their flag
+    was 0), by kernel name; reads the device counters."""
+    return _hinge.skipped_counts()
+
+
 def reset_launch_counts() -> None:
+    _hinge.reset_skipped()
     for counter in _COUNTERS:
         for name in counter:
             counter[name] = 0

@@ -6,7 +6,12 @@ problem, runs the screened regularization path (``core/path.py``
 lambda step: kept features and samples, verification re-solves, active
 features, objective, FISTA iterations and wall time. ``--dynamic`` re-screens
 inside every solve each ``--screen-every`` iterations and adds each step's
-per-segment kept counts to its line. No mesh, checkpoint or serve mode.
+per-segment kept counts to its line. ``--engine scan`` runs the path with
+every solver decision on the device (``core/path_scan.py``; feature rules,
+``--reduce mask|compact``, ``--exact-lipschitz``), ``--engine batched``
+two problems at once (seeds ``--seed`` and ``--seed + 1``); their last line
+counts the host fetches and the CUDA graph replays. No mesh, checkpoint or serve
+mode.
 
     PYTHONPATH=src python -m repro_torch.launch.train_svm --device cuda
     PYTHONPATH=src python -m repro_torch.launch.train_svm --m 2000 --n 400 --device cpu
@@ -18,6 +23,10 @@ per-segment kept counts to its line. No mesh, checkpoint or serve mode.
     PYTHONPATH=src python -m repro_torch.launch.train_svm --rules edpp --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --rules sifs \
         --lam-min-ratio 0.02 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --engine scan \
+        --reduce compact --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --engine batched \
+        --reduce compact --device cpu
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..core.path import svm_path
@@ -44,7 +54,12 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("feature_vi", "dvi", "edpp", "auto", "sample_vi",
                              "composite", "sifs", "none"),
                     default="feature_vi")
-    ap.add_argument("--reduce", choices=("gather", "mask"), default="gather")
+    ap.add_argument("--engine", choices=("host", "scan", "batched"), default="host")
+    ap.add_argument("--reduce", choices=("gather", "mask", "compact"), default=None,
+                    help="host: gather (default) or mask; scan and batched: "
+                         "mask (default) or compact")
+    ap.add_argument("--exact-lipschitz", action="store_true",
+                    help="scan engines: re-estimate L on each step's reduced matrix")
     ap.add_argument("--dynamic", action="store_true",
                     help="re-screen inside every FISTA solve each "
                          "--screen-every iterations (gap-certified)")
@@ -53,33 +68,56 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    ds = make_sparse_classification(m=args.m, n=args.n, density=args.density,
-                                    seed=args.seed)
-    t0 = time.perf_counter()
-    res = svm_path(ds.X, ds.y, n_lambdas=args.n_lambdas,
-                   lam_min_ratio=args.lam_min_ratio,
-                   rules=[] if args.rules == "none" else args.rules,
-                   reduce=args.reduce, dynamic=args.dynamic,
-                   screen_every=args.screen_every, device=device)
-    total = time.perf_counter() - t0
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"device={name} m={args.m} n={args.n} rules={args.rules} "
-          f"reduce={args.reduce} dynamic={args.dynamic} "
-          f"lam_max={res.extras['lam_max']:.6g}")
+def _print_path(res) -> None:
     dyn = res.extras.get("dynamic", {})
     for k in range(len(res.lambdas)):
         segs = ""
         if k in dyn:
             segs = f" kept_per_segment={dyn[k]['kept_per_segment']}"
+        if "caps" in res.extras:
+            segs += f" cap={res.extras['caps'][k]}"
         print(f"step {k:2d} lam={res.lambdas[k]:.6g} kept={res.kept[k]} "
               f"kept_samples={res.kept_samples[k]} "
               f"verify_rounds={res.verify_rounds[k]} "
               f"active={res.active[k]} obj={res.objectives[k]:.8g} "
               f"iters={res.solver_iters[k]} wall={res.wall_times[k]:.4f}s{segs}")
-    print(f"path wall {total:.3f}s")
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    host = args.engine == "host"
+    reduce = args.reduce or ("gather" if host else "mask")
+    if reduce == ("compact" if host else "gather"):
+        ap.error(f"--reduce {reduce} does not run on --engine {args.engine}: the "
+                 "host engine takes gather or mask, the scan engines mask or compact")
+    device = resolve_device(args.device)
+    kw = dict(n_lambdas=args.n_lambdas, lam_min_ratio=args.lam_min_ratio,
+              rules=[] if args.rules == "none" else args.rules, reduce=reduce,
+              dynamic=args.dynamic, screen_every=args.screen_every,
+              engine=args.engine, exact_lipschitz=args.exact_lipschitz,
+              device=device)
+    seeds = range(args.seed, args.seed + (2 if args.engine == "batched" else 1))
+    sets = [make_sparse_classification(m=args.m, n=args.n, density=args.density, seed=s)
+            for s in seeds]
+    t0 = time.perf_counter()
+    if args.engine == "batched":
+        results = svm_path(np.stack([d.X for d in sets]), np.stack([d.y for d in sets]), **kw)
+    else:
+        results = [svm_path(sets[0].X, sets[0].y, **kw)]
+    total = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    for seed, res in zip(seeds, results):
+        print(f"device={name} m={args.m} n={args.n} seed={seed} engine={args.engine} "
+              f"rules={args.rules} reduce={reduce} dynamic={args.dynamic} "
+              f"lam_max={res.extras['lam_max']:.6g}")
+        _print_path(res)
+    fetches = results[0].extras.get("host_fetches")
+    tail = ""
+    if fetches is not None:
+        tail = (f" host_fetches={sum(fetches.values())} {fetches} "
+                f"graph_replays={results[0].extras['graphs']['replays']}")
+    print(f"path wall {total:.3f}s{tail}")
     return 0
 
 

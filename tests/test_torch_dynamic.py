@@ -83,6 +83,17 @@ PATH_KW = dict(tol=1e-10, max_iters=20000)
 REDUCE = ["gather", "mask"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    suite runs several workers at once, whose thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def inst():
     ds = make_sparse_classification(m=400, n=160, k_active=12, seed=77)

@@ -26,6 +26,7 @@ bad = sorted(k for k in sys.modules
 if bad:
     sys.exit(f"loaded {bad}")
 print(len(mods))
+print("repro_torch.core.path_scan" in mods)
 """
 
 
@@ -34,8 +35,10 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    # every submodule was imported, core/rules/dvi.py among them
-    assert int(out.stdout.split()[-1]) >= 22
+    # every submodule was imported, core/rules/dvi.py and core/path_scan.py
+    # among them
+    count, has_scan = out.stdout.split()[-2:]
+    assert int(count) >= 27 and has_scan == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):
@@ -52,6 +55,12 @@ def test_cuda_request_raises_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         svm_path(ds.X, ds.y, dynamic=True)
     with pytest.raises(RuntimeError, match="cuda"):
+        svm_path(ds.X, ds.y, engine="scan")
+    with pytest.raises(RuntimeError, match="cuda"):
+        svm_path(ds.X, ds.y, engine="scan", reduce="compact", dynamic=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        svm_path(ds.X, ds.y, engine="batched", lambdas=[[2.0, 1.0]])
+    with pytest.raises(RuntimeError, match="cuda"):
         PathDriver()
     with pytest.raises(RuntimeError, match="cuda"):
         PathDriver(dynamic=True)
@@ -59,6 +68,10 @@ def test_cuda_request_raises_without_gpu(monkeypatch):
         main(["--m", "20", "--n", "10"])
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--m", "20", "--n", "10", "--dynamic", "--rules", "dvi"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--m", "20", "--n", "10", "--engine", "scan"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--m", "20", "--n", "10", "--engine", "batched"])
 
 
 def test_unknown_rule_and_engine_fail_early():
@@ -69,7 +82,7 @@ def test_unknown_rule_and_engine_fail_early():
     with pytest.raises(ValueError, match="feature_vi"):
         make_rules("no_such_rule")
     with pytest.raises(ValueError, match="host"):
-        svm_path([[1.0]], [1.0], engine="scan", device="cpu")
+        svm_path([[1.0]], [1.0], engine="no_such_engine", device="cpu")
 
 
 def test_state_from_numpy_checks_dtypes_and_shapes():

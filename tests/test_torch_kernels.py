@@ -517,3 +517,66 @@ def test_cuda_edpp_screen_matches_plain(shape, dtype):
     sh = shared_scalars(y, 3.0, 2.0, bad, delta=0.01)
     e = edpp_scalars(y, 3.0, 2.0, bad, delta=0.01)
     assert bool(torch.isnan(screen.screen_bounds_edpp(X, y, bad, sh, e)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
+def test_cuda_predicated_launch(dtype, offset):
+    """Card only: a launch whose flag is 0 leaves its outputs as they were
+    (every block returned before reading X) and counts one skip; with flag
+    1 it equals the unpredicated launch bit for bit, and counts none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    m, n = 4096, 10000
+    X, w, y, xi = _inputs(m, n, dtype, m, seed=41)
+    X, w, y, xi = _on_card(X, offset), w.cuda(), y.cuda(), xi.cuda()
+    b = torch.tensor(0.3, device="cuda")
+    for valid_m in (m, 37):
+        want_u = hinge.margin_obj_op(X, w, y, b, valid_m)
+        want_g = hinge.hinge_grad_op(X, y, xi, valid_m)
+        for f in (1, 0):
+            flag = torch.tensor(f, dtype=torch.int32, device="cuda")
+            out = (torch.full((n,), 7.0, device="cuda"), torch.full((n,), 7.0, device="cuda"),
+                   torch.full((), 7.0, device="cuda"))
+            g = torch.full((m,), 7.0, device="cuda")
+            before = hinge.skipped_counts()
+            hinge.margin_obj_op(X, w, y, b, valid_m, flag, out=out)
+            hinge.hinge_grad_op(X, y, xi, valid_m, flag, out=g)
+            skipped = hinge.skipped_counts()
+            assert skipped["margin_obj"] - before["margin_obj"] == 1 - f
+            assert skipped["hinge_grad"] - before["hinge_grad"] == 1 - f
+            if f:
+                assert all(torch.equal(p, q) for p, q in zip(out, want_u))
+                assert torch.equal(g, want_g)
+            else:
+                assert all(bool((t == 7.0).all()) for t in (*out, g))
+
+
+@pytest.mark.gpu
+def test_cuda_fista_graph_replay_matches_eager():
+    """Card only: ``fista_run`` (its chunks replayed as a CUDA graph, the
+    first eager) counts the iterations of the host loop and gives its
+    weights bit for bit; a second call replays the cached graph from the
+    start and gives the same bits; the restart's sweeps were switched off on
+    the iterations without a restart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    from repro_torch.core import solver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = make_sparse_classification(m=2000, n=400, seed=11)
+    X, y = torch.from_numpy(ds.X).cuda(), torch.from_numpy(ds.y).cuda()
+    L = float(solver.lipschitz_estimate(X))
+    inv_L = float(np.float32(1.0) / max(np.float32(L) * np.float32(1.01), np.float32(1e-12)))
+    lam = 0.1 * float(lambda_max(X, y))
+    host = solver.fista_solve(X, y, lam, L=L, max_iters=3000)
+    hinge.reset_skipped()
+    graphs = dict(solver.GRAPHS)
+    runs = [solver.fista_run(X, y, lam, torch.zeros(2000, device="cuda"), torch.mean(y),
+                             inv_L, max_iters=3000, tol=1e-9) for _ in range(2)]
+    assert solver.GRAPHS["replays"] > graphs["replays"]
+    for r in runs:
+        assert int(r.n_iters) == host.n_iters
+        assert torch.equal(r.w, host.w) and float(r.obj) == host.obj
+    assert hinge.skipped_counts()["hinge_grad"] > 0

@@ -310,6 +310,17 @@ def test_pack_shared_edpp_slots():
 
 # -- paths: edpp and auto against the reference's host path ------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    suite runs several workers at once, whose thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def feature_paths():
     """``_problem(m=600, n=200, seed=0, planted=10)``, 10 lambdas at ratio

@@ -57,6 +57,17 @@ DEEP = dict(n_lambdas=8, lam_min_ratio=0.02)
 REDUCE = ["gather", "mask"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    suite runs several workers at once, whose thread pools would
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def bench():
     ds = make_sparse_classification(m=2000, n=400, seed=11)
