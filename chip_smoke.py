@@ -44,7 +44,20 @@ n = 10,000 samples, fp32):
   element against the single-path engine at fixed iterations), and the
   scan engine with dynamic screening (``scan_dynamic``); then the device
   memory that the engines' warm cache holds, and what clearing it frees
-  (``engine_memory``).
+  (``engine_memory``);
+* out-of-core storage (``repro_torch.sparse.FeatureChunked``): the
+  full-width X as 25 host chunks of 2,048 rows streamed through a pinned
+  double buffer (``chunked_path``: step 1's bounds bit for bit those of the
+  in-core kernel launch, safety against the unscreened path, objectives
+  against float64 and within rel 1e-5 of the in-core path, walls in turns
+  with it); a text-like instance at the shape of LIBSVM's news20.binary
+  (1,355,191 features x 19,996 samples, 9,097,916 nonzeros, 108 GB as a
+  dense fp32 matrix, more than the card holds), generated as CSR, saved
+  to a memmap store and reopened (``chunked_sparse_path``: chunk skipping,
+  the full-stream twin bit for bit, a float64 KKT check of every screened
+  feature, peak device memory under its stated limit); and the 2,000 x
+  400 bench instance, dense and at density 0.04, card against CPU
+  (``chunked_small_vs_plain``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -55,7 +68,9 @@ reach both variants of all three kernels (``VARIANT_CASES``), the margin
 with no live row (``valid_m = 0``), the feature screen's dynamic
 variant (sample weights, the gap-sphere cap, a NaN theta) and its EDPP mode
 (exact, inexact and degenerate anchors, a NaN theta, never above the VI
-mode on the same anchor; timed in turns with the VI mode). Every phase
+mode on the same anchor; timed in turns with the VI mode), and the feature
+screen's optional ``d_theta`` output (against the plain ``d_theta``, with
+bounds equal bit for bit to a launch without it). Every phase
 prints one JSON line; any failed check raises and the script exits
 non-zero. The last lines are the ``{"kernels": [...]}`` record (times on
 this card, bounds, launch counts) and ``{"ok": true, "device": {...}}``.
@@ -74,6 +89,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -102,6 +118,16 @@ SURPLUS_CASES = [(False, math.inf, math.inf), (True, math.inf, math.inf),
                  (False, 0.37, 0.05), (True, 0.37, 0.05)]
 # feature-screen dynamic variant cases: (sample weights, gap-sphere cap)
 DYNAMIC_CASES = [(False, True), (True, False), (True, True)]
+CHUNK_M = 2048  # out-of-core phases: feature rows per chunk
+# LIBSVM's news20.binary: features, samples, nonzeros
+NEWS20 = dict(m=1_355_191, n=19_996, nnz=9_097_916)
+NEWS20_RATIO = 0.3  # the news20-shaped path's lam_min_ratio (8 lambdas)
+# the news20-shaped phase estimates L over the store re-sliced at 65,536 rows
+# a chunk (21 chunks): at CHUNK_M (662 chunks) one stream of X costs ~0.5 ms
+# a chunk, most of it host overhead, and the 100-iteration estimate ~35 s
+# (NVIDIA H100 80GB HBM3 at 700 W)
+LIP_CHUNK_M = 65_536
+VECTORS = 32  # the O(m + n) fp32 vectors the peak-memory limit allows
 
 
 T_START = time.perf_counter()
@@ -201,6 +227,31 @@ class Kernels:
         want = self.screen.screen_bounds_plain(X, y, theta, sh)
         torch.cuda.synchronize()
         return self._check("screen_bounds", got, want, X.shape[1], where)
+
+    def d_theta(self, X, y, gen, where):
+        """The feature screen's optional d_theta output, in the VI mode and
+        the dynamic variant: against the plain d_theta at the bound check's
+        tolerance (k = n terms), with the bounds bit for bit those of the
+        launch without the output."""
+        n = X.shape[1]
+        sc = self.screen
+        s = (torch.rand(n, generator=gen) < 0.7).float().cuda()
+        theta = (torch.rand(n, generator=gen) / 5.0).cuda()
+        out = {}
+        for tag, th, sh, w, cap in (
+                ("vi", theta, self.shared_scalars(y, 5.0, 3.0, theta, delta=0.01),
+                 None, None),
+                ("dynamic", theta * s, self.dynamic_shared(y, 5.0, theta * s, 0.05, s),
+                 s, torch.tensor(0.05, device="cuda"))):
+            bounds, d_theta = sc.screen_bounds_from_shared(X, y, th, sh, w, cap,
+                                                           want_d_theta=True)
+            plain = sc.screen_bounds_from_shared(X, y, th, sh, w, cap)
+            _, want = sc.screen_bounds_plain(X, y, th, sh, w, cap, want_d_theta=True)
+            torch.cuda.synchronize()
+            require(torch.equal(bounds, plain),
+                    f"screen d_theta {where} {tag}: bounds moved with the output")
+            out[tag] = self._check("screen_bounds", d_theta, want, n, f"{where} d_theta {tag}")
+        return out
 
     def dynamic_shared(self, y, lam, theta, delta, weights):
         """The at-lambda region's scalars from the weighted statistics, as
@@ -382,6 +433,7 @@ def phase_kernels_ragged(K, gen) -> None:
             res["screen"] = K.bounds(X, y, theta, sh, f"{m}x{n} {dtype}")
             res["screen_dynamic"] = K.dynamic(X, y, gen, f"{m}x{n} {dtype}")
             res["screen_edpp"] = K.edpp(X, y, gen, f"{m}x{n} {dtype}")
+            res["screen_d_theta"] = K.d_theta(X, y, gen, f"{m}x{n} {dtype}")
             res["sample_surplus"] = K.surplus(X, w, y, gen, f"{m}x{n} {dtype}")
             emit({"phase": "kernels_ragged", "shape": [m, n], "row_offset": off,
                   "dtype": str(dtype), "bulk_aligned": K.hinge.bulk_aligned(X),
@@ -408,6 +460,7 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         res["screen"] = K.bounds(Xd, y, theta, sh, f"full {dtype}")
         res["screen_dynamic"] = K.dynamic(Xd, y, gen, f"full {dtype}")
         res["screen_edpp"] = K.edpp(Xd, y, gen, f"full {dtype}")
+        res["screen_d_theta"] = K.d_theta(Xd, y, gen, f"full {dtype}")
         res["sample_surplus"] = K.surplus(Xd, w, y, gen, f"full {dtype}")
         require(res["margin_vm%d" % m]["variant"] == "bulk"
                 and res["grad_vm%d" % m]["variant"] == "bulk"
@@ -1258,6 +1311,349 @@ def _bucket(n: int) -> int:
     return b
 
 
+def phase_chunked_path(PathDriver, svm_path, ops, sparse, screen_mod, shared_scalars,
+                       screen_bounds, theta_fn, X_host, X, y, res, full, L) -> dict:
+    """The feature path over the full-width X as host chunks of CHUNK_M rows
+    (``FeatureChunked.from_dense``: 25 chunks of 82 MB, streamed through the
+    pinned double buffer), with the in-core path's L.
+
+    Checked: the feature-screen kernel launched (once per live chunk), the
+    margin and gradient kernels' bulk variant on the gathered blocks; step
+    1's bounds equal, bit for bit, the in-core kernel launch at the same
+    anchor and lambdas (the kernel sums a row the same way whatever m it
+    is given); no feature active in the unscreened path (``full``) was
+    screened; objectives against float64 and within rel 1e-5 of the
+    in-core path ``res``. Printed: kept counts beside ``res``'s, the stream
+    stats, the parts' walls, the walls in turns with the in-core path
+    (in-core, chunked, in-core; the chunked turn is the checked run), and
+    the screen kernel's ms on one chunk (with its d_theta output, CUDA
+    events) beside the chunk's bound."""
+    fc = sparse.FeatureChunked.from_dense(X_host, chunk_m=CHUNK_M)
+
+    def incore():
+        t0 = time.perf_counter()
+        svm_path(X, y, n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO, device="cuda")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = [incore()]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_ch = PathDriver("feature_vi", L=L, device="cuda").run(
+        fc, y, n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds")),
+            f"chunked path: a kernel of the path was never launched: {launches}")
+    variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"), "chunked path")
+    walls.append(incore())
+    live = res_ch.extras["live_chunks"]
+    require(launches["screen_bounds"] == int(live[1:].sum()),
+            f"chunked path: {launches['screen_bounds']} screen launches, "
+            f"{int(live[1:].sum())} live chunks")
+    lam0, lam1 = float(res_ch.lambdas[0]), float(res_ch.lambdas[1])
+    theta0 = theta_fn(y, lam0)
+    core = screen_bounds(X, y, lam0, lam1, theta0, delta=torch.zeros((), device="cuda"))
+    require(np.array_equal(res_ch.extras["bounds"][1], core.cpu().numpy()),
+            "chunked path: step 1's bounds differ from the in-core kernel's")
+    grid_equal = bool(np.array_equal(res_ch.lambdas, res.lambdas))
+    out = []
+    for k in range(1, SAFETY_STEPS):
+        support, missed = missed_features(full, k, res_ch.extras["keep_masks"][k])
+        out.append({"step": k, "support": support, "missed": missed})
+        require(missed == 0, f"chunked step {k}: {missed} active features screened out")
+    phase_objective_check(res_ch, X, y, phase="chunked_objective_f64")
+    chunk = X[:CHUNK_M]
+    sh = shared_scalars(y, lam0, lam1, theta0)
+    packed = screen_mod.pack_shared(sh).cuda()
+    screen_ms = timed_ms(lambda: screen_mod.screen_bounds_from_shared(
+        chunk, y, theta0, sh, want_d_theta=True, scalars=packed), 50)
+    rel = np.abs(res_ch.objectives - res.objectives) / np.abs(res.objectives)
+    require(float(rel.max()) <= 1e-5,
+            f"chunked path vs in-core path: rel {float(rel.max()):.3e}")
+    emit({"phase": "chunked_path", "chunks": fc.n_chunks, "chunk_m": CHUNK_M,
+          "lam_max_chunked": res_ch.extras["lam_max"],
+          "lam_max_in_core": res.extras["lam_max"], "grid_equal": grid_equal,
+          "step1_bounds_bitwise": True, "safety": out,
+          "kept": res_ch.kept.tolist(), "kept_in_core": res.kept.tolist(),
+          "live_chunks": live.tolist(), "iters": res_ch.solver_iters.tolist(),
+          "max_rel_obj_vs_in_core": float(rel.max()),
+          "stream_stats": res_ch.extras["stream_stats"],
+          "part_walls_s": {k: v.tolist() for k, v in res_ch.extras["part_times"].items()},
+          "walls_s": {"order": "in-core, chunked, in-core", "s": walls},
+          "screen_ms_per_chunk": screen_ms,
+          "screen_bound_ms_per_chunk": CHUNK_M * X.shape[1] * 4 / HBM_BYTES_PER_S * 1e3,
+          "launches": launches, "variants": variants})
+    return launches
+
+
+def make_news20_like(m, n, nnz, seed=0, planted=16, head=2000, noise=0.25):
+    """A text-like CSR matrix over feature rows, at the shape of LIBSVM's
+    news20.binary, from ``seed``, never dense: per-feature nonzero counts
+    follow a Zipf law ``min(n, 1 + floor(C / rank))`` (C fitted so the
+    counts sum to ``nnz``), features in a seeded random order, each row's
+    samples distinct and sorted; values standard normal, each row scaled
+    by its standard deviation over all n entries (zeros included), as
+    ``make_sparse_classification``'s sparse branch scales; labels the
+    median split of ``X^T w_true + noise``, ``w_true`` planted (2 x standard
+    normal) on ``planted`` of the ``head`` most frequent features. Returns
+    ``((data fp32, indices int32, indptr int64), y fp32)``."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, m + 1, dtype=np.float64)
+
+    def counts_at(c):
+        return np.minimum(n, 1 + np.floor(c / ranks))
+
+    lo, hi = 0.0, float(n) * m
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if counts_at(mid).sum() < nnz else (lo, mid)
+    counts = counts_at(lo).astype(np.int64)
+    counts[np.nonzero(counts < n)[0][:nnz - int(counts.sum())]] += 1
+    counts = counts[rng.permutation(m)]
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    rows = np.repeat(np.arange(m), counts)
+    cols = rng.integers(0, n, size=nnz)
+    heavy = np.nonzero(counts > n // 4)[0]
+    for r in heavy:
+        cols[indptr[r]:indptr[r + 1]] = rng.choice(n, counts[r], replace=False)
+    light = np.ones(nnz, bool)
+    for r in heavy:
+        light[indptr[r]:indptr[r + 1]] = False
+    while True:  # redraw repeated (row, column) pairs until there are none
+        key = rows * n + cols
+        order = np.argsort(key, kind="stable")
+        dup = np.zeros(nnz, bool)
+        dup[order[1:]] = key[order[1:]] == key[order[:-1]]
+        dup &= light
+        if not dup.any():
+            break
+        cols[dup] = rng.integers(0, n, size=int(dup.sum()))
+    cols = cols[np.lexsort((cols, rows))]
+    vals = rng.standard_normal(nnz)
+    s1 = np.add.reduceat(vals, indptr[:-1])
+    s2 = np.add.reduceat(vals * vals, indptr[:-1])
+    std = np.sqrt(np.maximum(s2 / n - (s1 / n) ** 2, 0.0))
+    vals /= (std + 1e-12)[rows]
+    top = np.argsort(-counts, kind="stable")[:head]
+    chosen = rng.choice(top, planted, replace=False)
+    w_true = rng.standard_normal(planted) * 2.0
+    scores = noise * rng.standard_normal(n)
+    for r, wj in zip(chosen, w_true):
+        lo_, hi_ = indptr[r], indptr[r + 1]
+        scores[cols[lo_:hi_]] += wj * vals[lo_:hi_]
+    y = np.where(scores >= np.median(scores), 1.0, -1.0)
+    return (vals.astype(np.float32), cols.astype(np.int32), indptr), y.astype(np.float32)
+
+
+def csr_f64_products(data64, cols, indptr, w, b, y):
+    """Host float64 ``(objective parts)``: ``xi`` over all samples from the
+    support of ``w``, and every feature's ``f_j^T (y xi)``."""
+    u = np.zeros(y.shape[0])
+    supp = np.nonzero(w)[0]
+    for r in supp:
+        lo, hi = indptr[r], indptr[r + 1]
+        u[cols[lo:hi]] += data64[lo:hi] * w[r]
+    xi = np.maximum(0.0, 1.0 - y * (u + b))
+    corr = np.add.reduceat(data64 * (y * xi)[cols], indptr[:-1])
+    corr[np.diff(indptr) == 0] = 0.0
+    return xi, corr
+
+
+def phase_chunked_sparse_path(PathDriver, ops, sparse, screen_mod, shared_scalars,
+                              theta_fn) -> dict:
+    """The feature path over a news20-shaped text-like instance
+    (:func:`make_news20_like`, seed 0) too large for the card as a dense
+    matrix: generated as CSR, saved with ``save_store`` to a temporary
+    directory and reopened with ``from_store`` (memmap views, crc32 checked
+    as each chunk is first used), CHUNK_M rows a chunk (662 chunks, every
+    one a CSR chunk on the device), 8 lambdas down to NEWS20_RATIO, with L
+    from ``lipschitz_estimate_stream`` over the same store at LIP_CHUNK_M
+    rows a chunk (timed apart, then given to both runs).
+
+    Checked: no put larger than CHUNK_M rows; the phase's peak device memory
+    under 1.5 x (2 chunks in flight + the densify buffer + the largest
+    gathered block + VECTORS (m + n) fp32 vectors); objectives against a
+    float64 recomputation from the CSR on the host (rel 1e-4); at each
+    accepted solution every screened feature has ``|f_j^T (y xi)| <=
+    lam (1 + 1e-3)`` in float64 (the KKT condition of a zero weight);
+    chunks skipped; the ``chunk_skip=False`` twin gives the same keeps,
+    bounds, weights and objectives bit for bit; the feature-screen kernel
+    launched once per live chunk, the margin and gradient kernels' bulk
+    variant. Printed: kept counts, live chunks per step, bytes put, the
+    parts' walls, the screen's mean ms per chunk (a densified chunk,
+    CUDA events) beside its bound and the ms of writing it densely."""
+    m, n = NEWS20["m"], NEWS20["n"]
+    t0 = time.perf_counter()
+    (data, cols, indptr), y_np = make_news20_like(**NEWS20, seed=0)
+    gen_s = time.perf_counter() - t0
+    fc_mem = sparse.FeatureChunked.from_csr((data, cols, indptr, (m, n)), chunk_m=CHUNK_M)
+    dense_gb = m * n * 4 / 1e9
+    with tempfile.TemporaryDirectory(prefix="news20_store_") as store:
+        t0 = time.perf_counter()
+        fc_mem.save_store(store, y=y_np)
+        save_s = time.perf_counter() - t0
+        del fc_mem
+        fc = sparse.FeatureChunked.from_store(store)
+        n_chunks = fc.n_chunks
+        max_put = max(fc._put_bytes(i) for i in range(n_chunks))
+        y = torch.from_numpy(fc.labels).cuda()
+        t0 = time.perf_counter()
+        coarse = sparse.FeatureChunked.from_store(store, chunk_m=LIP_CHUNK_M)
+        L = float(sparse.lipschitz_estimate_stream(coarse, "cuda"))
+        lipschitz_s = time.perf_counter() - t0
+        lip_stats = dict(coarse.stats)
+        del coarse
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = PathDriver("feature_vi", L=L, device="cuda").run(
+            fc, y, n_lambdas=N_LAMBDAS, lam_min_ratio=NEWS20_RATIO)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        variants = require_bulk(ops, launches, ("margin_obj", "hinge_grad"),
+                                "chunked sparse path")
+        peaks = [torch.cuda.max_memory_allocated() - base]
+        del fc  # its memoized reductions and dense buffer
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        twin = PathDriver("feature_vi", L=L, chunk_skip=False, device="cuda").run(
+            sparse.FeatureChunked.from_store(store), y, n_lambdas=N_LAMBDAS,
+            lam_min_ratio=NEWS20_RATIO)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        peak = max(peaks)
+        # one chunk for the per-chunk timings
+        chunk = next(iter(sparse.FeatureChunked.from_store(store).stream("cuda", [0])))[1]
+    st, tw = res.extras["stream_stats"], twin.extras["stream_stats"]
+    live = res.extras["live_chunks"]
+    # peak device memory against its stated limit
+    kept_max = int(res.kept[1:].max())
+    gathered = (m if kept_max == m else min(_bucket(max(kept_max, 1)), m)) * n * 4
+    limit = 1.5 * (2 * max_put + CHUNK_M * n * 4 + gathered + VECTORS * (m + n) * 4)
+    # float64 objectives and the KKT condition of the screened features
+    data64 = data.astype(np.float64)
+    rel, kkt = [], []
+    for k in range(len(res.lambdas)):
+        lam = float(res.lambdas[k])
+        xi, corr = csr_f64_products(data64, cols, indptr, res.weights[k],
+                                    float(res.biases[k]), y_np.astype(np.float64))
+        obj = 0.5 * float(xi @ xi) + lam * float(np.abs(res.weights[k]).sum())
+        rel.append(abs(obj - res.objectives[k]) / abs(obj))
+        if k:
+            scr = ~res.extras["keep_masks"][k]
+            kkt.append(float(np.abs(corr[scr]).max() / lam) if scr.any() else 0.0)
+    twin_equal = {key: bool(np.array_equal(res.extras[key], twin.extras[key],
+                                           equal_nan=True))
+                  for key in ("keep_masks", "bounds")}
+    twin_equal["weights"] = bool(np.array_equal(res.weights, twin.weights))
+    twin_equal["objectives"] = bool(np.array_equal(res.objectives, twin.objectives))
+    # the screen's time on one chunk (densified), and the densify's
+    theta = theta_fn(y, float(res.lambdas[0]))
+    sh = shared_scalars(y, float(res.lambdas[0]), float(res.lambdas[1]), theta)
+    packed = screen_mod.pack_shared(sh).cuda()
+    dense = chunk.dense()
+    screen_ms = timed_ms(lambda: screen_mod.screen_bounds_from_shared(
+        dense, y, theta, sh, want_d_theta=True, scalars=packed), 50)
+    densify_ms = timed_ms(chunk.dense, 50)
+    chunk_bytes = chunk.rows * n * 4
+    emit({"phase": "chunked_sparse_path", "shape": [m, n], "nnz": int(indptr[-1]),
+          "dense_fp32_gb": dense_gb, "chunks": n_chunks, "chunk_m": CHUNK_M,
+          "generate_s": gen_s, "save_store_s": save_s, "L": L,
+          "lipschitz_s": lipschitz_s, "lipschitz_chunk_m": LIP_CHUNK_M,
+          "lipschitz_puts": lip_stats["puts"],
+          "lam_max": res.extras["lam_max"], "lambdas": res.lambdas.tolist(),
+          "kept": res.kept.tolist(), "active": res.active.tolist(),
+          "live_chunks": live.tolist(), "iters": res.solver_iters.tolist(),
+          "objectives": res.objectives.tolist(), "max_rel_f64": max(rel),
+          "kkt_worst_screened_over_lam": kkt, "stream_stats": st,
+          "twin_stream_stats": tw, "twin_bitwise_equal": twin_equal,
+          "path_s": path_s, "twin_s": twin_s,
+          "part_walls_s": {k: v.tolist() for k, v in res.extras["part_times"].items()},
+          "peak_bytes": int(peak), "peak_bytes_run_twin": [int(p) for p in peaks],
+          "peak_limit_bytes": int(limit),
+          "peak_parts": {"max_put": max_put, "densify": CHUNK_M * n * 4,
+                         "gathered": gathered, "vectors": VECTORS * (m + n) * 4},
+          "screen_launches": launches["screen_bounds"],
+          "screen_ms_per_chunk": screen_ms,
+          "screen_bound_ms_per_chunk": chunk_bytes / HBM_BYTES_PER_S * 1e3,
+          "densify_ms_per_chunk": densify_ms, "chunk_rows": chunk.rows,
+          "chunk_nnz": int(chunk.val.shape[0]), "launches": launches,
+          "variants": variants})
+    require(st["max_put_rows"] <= CHUNK_M, f"a put of {st['max_put_rows']} rows")
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad", "screen_bounds")),
+            f"chunked sparse path: a kernel of the path was never launched: {launches}")
+    require(launches["screen_bounds"] == int(live[1:].sum()),
+            f"chunked sparse path: {launches['screen_bounds']} screen launches, "
+            f"{int(live[1:].sum())} live chunks")
+    require(st["chunks_skipped"] > 0, "chunked sparse path: no chunk skipped")
+    require(st["csr_puts"] == st["puts"], f"chunked sparse path: dense puts {st}")
+    require(all(twin_equal.values()),
+            f"chunked sparse path: the full-stream twin differs: {twin_equal}")
+    require(peak < limit, f"chunked sparse path: peak {peak} >= limit {limit}")
+    require(max(kkt) <= 1 + 1e-3, f"a screened feature has |f^T (y xi)| = "
+                                  f"{max(kkt):.6f} lam")
+    require(max(rel) <= 1e-4, f"chunked sparse objective vs float64: rel {max(rel):.3e}")
+    return launches
+
+
+CHUNKED_SMALL_CASES = [
+    # (label, rules, grid, FISTA iterations a step, options)
+    ("feature_vi", "feature_vi", dict(n_lambdas=10, lam_min_ratio=0.05), 300, {}),
+    ("edpp", "edpp", dict(n_lambdas=10, lam_min_ratio=0.05), 300, {}),
+    ("dvi", "dvi", dict(n_lambdas=10, lam_min_ratio=0.05), 300, {}),
+    ("composite", "composite", dict(n_lambdas=N_LAMBDAS, lam_min_ratio=COMPOSITE_RATIO),
+     2000, {}),
+    ("dynamic", "feature_vi", dict(n_lambdas=5, lam_min_ratio=0.05), 60,
+     dict(dynamic=True, screen_every=20)),
+]
+
+
+def phase_chunked_small_vs_plain(PathDriver, FeatureChunked, lipschitz_estimate,
+                                 make) -> None:
+    """The bench instance (2000 x 400, seed 11), dense and at density 0.04
+    (CSR chunks, written densely on the device), as chunks of 97 rows, on
+    the card and on the CPU with the same L, at fixed iterations (``tol=-1``;
+    the composite grid at 2000 iterations, as
+    :func:`phase_composite_small_vs_plain` says why; the dynamic path's
+    streamed solver, which streams X twice an iteration, at 60 on 5
+    lambdas with a refresh every 20). Checked: per-step objectives agree to
+    rel 1e-6."""
+    out = {"phase": "chunked_small_vs_plain", "shape": [2000, 400], "chunk_m": 97,
+           "tol": 1e-6}
+    for storage, density in (("dense", 1.0), ("csr", 0.04)):
+        ds = make(m=2000, n=400, seed=11, density=density)
+        L = float(lipschitz_estimate(torch.from_numpy(ds.X)))
+
+        def fc():
+            return (FeatureChunked.from_dense(ds.X, chunk_m=97) if ds.csr is None
+                    else FeatureChunked.from_csr(ds.csr, chunk_m=97))
+
+        for label, rules, grid, iters, opts in CHUNKED_SMALL_CASES:
+            kw = dict(L=L, tol=-1.0, max_iters=iters, **opts)
+            t0 = time.perf_counter()
+            gpu = PathDriver(rules, device="cuda", **kw).run(fc(), ds.y, **grid)
+            t1 = time.perf_counter()
+            cpu = PathDriver(rules, device="cpu", **kw).run(fc(), ds.y, **grid)
+            rel = float((np.abs(gpu.objectives - cpu.objectives)
+                         / np.abs(cpu.objectives)).max())
+            out[f"{storage}_{label}"] = {
+                "iters": iters, "max_rel_obj": rel, "card_s": t1 - t0,
+                "cpu_s": time.perf_counter() - t1,
+                "kept_card": gpu.kept.tolist(), "kept_cpu": cpu.kept.tolist(),
+                "kept_samples_card": gpu.kept_samples.tolist(),
+                "csr_puts_card": gpu.extras["stream_stats"]["csr_puts"]}
+            require(rel <= 1e-6, f"chunked {storage} {label}: card vs CPU at {iters} "
+                                 f"iterations per step: rel {rel:.3e}")
+    emit(out)
+
+
 def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
     """One kernel's entry of the ``kernels`` line: its times, its bound (the
     larger of bytes over the HBM rate and flops over the fp32 rate) and its
@@ -1478,11 +1874,13 @@ def main() -> int:
     from repro_torch.core.rules import AutoRule, SampleVIRule
     from repro_torch.core.screening import (
         edpp_scalars,
+        screen_bounds,
         shared_scalars,
         shared_scalars_from_stats,
     )
     from repro_torch.data import make_sparse_classification
     from repro_torch.kernels import build, hinge, ops, screen
+    import repro_torch.sparse as sparse
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1500,6 +1898,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ds = data[0].result()
+    X_host = ds.X  # the out-of-core phase streams it from the host
     X = torch.from_numpy(ds.X).cuda()
     y = torch.from_numpy(ds.y).cuda()
     del ds
@@ -1535,6 +1934,14 @@ def main() -> int:
         svm_path, ops, solver.CHUNK_ITERS, X, y, res_scan, full)
     phase_engine_memory(clear_engine_cache, engine_cache_info, "scan_dynamic")
     phase_path_walls(svm_path, X, y)
+    engine_launches["chunked"] = phase_chunked_path(
+        PathDriver, svm_path, ops, sparse, screen, shared_scalars, screen_bounds,
+        theta_at_lambda_max, X_host, X, y, res, full, float(lipschitz_estimate(X)))
+    del X_host
+    engine_launches["chunked_sparse"] = phase_chunked_sparse_path(
+        PathDriver, ops, sparse, screen, shared_scalars, theta_at_lambda_max)
+    phase_chunked_small_vs_plain(PathDriver, sparse.FeatureChunked, lipschitz_estimate,
+                                 make_sparse_classification)
     rows = phase_timing(K, res, launches, res_c, launches_c,
                         {"feature": launches_df, "composite": launches_dc},
                         rule_launches, X, y, K.max_err, solver)
@@ -1543,6 +1950,7 @@ def main() -> int:
             row[f"launches_{label}_path"] = int(counts[row["name"]])
             row[f"skipped_{label}_path"] = int(counts.get(f"skipped_{row['name']}", 0))
 
+    emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                              "count": info["count"]}}), flush=True)

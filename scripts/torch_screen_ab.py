@@ -6,9 +6,14 @@ current one, in one process on one GPU, in turns (old, new, new, old).
 ``--old`` is a directory holding the earlier ``screen.cu`` (for example
 ``git show <commit>:src/repro_torch/kernels/csrc/screen.cu``). It is built
 with the same ``nvcc`` flags into a library of its own under that
-directory, and called through its own C signature (no EDPP argument), with the
-scalars packed on every call as the current wrapper packs them. The
-current kernel goes through its wrappers.
+directory, and called through its own C signature, with the scalars packed
+on every call as the current wrapper packs them: ``--old-kind split`` (the
+default) is the signature of commit 038c22d's kernel (no EDPP argument),
+``--old-kind edpp`` that of commits 3d64315 and cbc492e (an EDPP argument,
+no ``d_theta`` output). The current kernel goes
+through its wrappers. With ``--old-kind edpp`` the EDPP mode is compared
+too, and the current VI mode with its ``d_theta`` output on: each case
+reports whether the two versions' bounds are equal bit for bit.
 
 Timed in turns at X fp32 50,000 x 10,000 (2.0 GB), random from a seeded
 CUDA generator: the VI mode, then the dynamic variant with sample weights
@@ -39,11 +44,12 @@ from repro_torch.kernels import build, screen  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the earlier screen_bounds_features: (X, x_bf16, y, theta, weights,
-# scalars, m, n, bounds, device, stream)
-OLD_SIGNATURE = [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P]
+# scalars, m, n, bounds, [edpp,] device, stream)
+OLD_SIGNATURES = {"split": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+                  "edpp": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P]}
 
 
-def old_library(old_dir: Path) -> ctypes.CDLL:
+def old_library(old_dir: Path, kind: str) -> ctypes.CDLL:
     src = old_dir / "screen.cu"
     lib_path = old_dir / "libold_screen.so"
     obj = old_dir / "screen.o"
@@ -54,7 +60,7 @@ def old_library(old_dir: Path) -> ctypes.CDLL:
         if out.returncode != 0:
             raise RuntimeError(f"nvcc failed: {out.stdout}{out.stderr}")
     lib = ctypes.CDLL(str(lib_path))
-    lib.screen_bounds_features.argtypes = OLD_SIGNATURE
+    lib.screen_bounds_features.argtypes = OLD_SIGNATURES[kind]
     lib.screen_bounds_features.restype = ctypes.c_int
     return lib
 
@@ -75,6 +81,7 @@ def timed_ms(fn, reps: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, required=True)
+    ap.add_argument("--old-kind", choices=sorted(OLD_SIGNATURES), default="split")
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -82,7 +89,7 @@ def main() -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    old = old_library(args.old)
+    old = old_library(args.old, args.old_kind)
     m, n = 50_000, 10_000
     gen = torch.Generator(device="cuda").manual_seed(7)
     X = torch.randn(m, n, generator=gen, device="cuda")
@@ -99,14 +106,15 @@ def main() -> int:
     cap = torch.tensor(1e-3, device="cuda")
     dev, stream = build.stream_and_device(X)
 
-    def old_call(th, weights, shared, cap_delta=None):
+    def old_call(th, weights, shared, cap_delta=None, edpp=None):
         # packs the scalars on every call, as the current wrapper does
-        scalars = screen.pack_shared(shared, cap_delta)
+        scalars = screen.pack_shared(shared, cap_delta, edpp=edpp)
         out = torch.empty(m, device="cuda")
+        mode = () if args.old_kind == "split" else (int(edpp is not None),)
         err = old.screen_bounds_features(
             X.data_ptr(), 0, y.data_ptr(), th.data_ptr(),
             None if weights is None else weights.data_ptr(), scalars.data_ptr(),
-            m, n, out.data_ptr(), dev, stream)
+            m, n, out.data_ptr(), *mode, dev, stream)
         build.check(err, "old screen_bounds_features")
         return out
 
@@ -118,12 +126,21 @@ def main() -> int:
             lambda: old_call(th_d, s, sh_d, cap),
             lambda: screen.screen_bounds_from_shared(X, y, th_d, sh_d, s, cap)),
     }
+    if args.old_kind == "edpp":
+        cases["edpp"] = (lambda: old_call(theta, None, sh, edpp=e),
+                         lambda: screen.screen_bounds_edpp(X, y, theta, sh, e))
+        cases["vi_new_with_d_theta"] = (
+            lambda: old_call(theta, None, sh),
+            lambda: screen.screen_bounds_from_shared(X, y, theta, sh,
+                                                     want_d_theta=True)[0])
     res = {"script": "scripts/torch_screen_ab.py", "nvidia_smi": smi.stdout.strip(),
-           "shape": [m, n], "reps": args.reps, "order": "old, new, new, old"}
+           "shape": [m, n], "reps": args.reps, "order": "old, new, new, old",
+           "old_kind": args.old_kind}
     for name, (f_old, f_new) in cases.items():
-        diff = float((f_old() - f_new()).abs().max())
+        a, b = f_old(), f_new()
         res[name] = {"ms": [timed_ms(f, args.reps) for f in (f_old, f_new, f_new, f_old)],
-                     "max_abs_diff_old_new": diff}
+                     "max_abs_diff_old_new": float((a - b).abs().max()),
+                     "bitwise_equal": bool(torch.equal(a, b))}
     vi = lambda: screen.screen_bounds_from_shared(X, y, theta, sh)  # noqa: E731
     ed = lambda: screen.screen_bounds_edpp(X, y, theta, sh, e)  # noqa: E731
     res["edpp_vs_vi_new"] = {"order": "vi, edpp, edpp, vi",

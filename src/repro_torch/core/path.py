@@ -42,6 +42,13 @@ The Lipschitz constant is estimated once per path on the full X (or given
 as ``PathDriver(L=)``) and reused by every reduced solve, verification
 re-solves included: removing rows or columns never increases
 ``sigma_max``.
+
+Out-of-core storage: ``X`` may be a :class:`~repro_torch.sparse.FeatureChunked`
+(``PathDriver._run_chunked``). The screen streams the chunks through the
+feature-screen kernel, skipping the chunks whose cached regions certify
+every feature dead (``chunk_skip``); the kept rows are gathered on the host
+and uploaded once a step; the certificate streams the correlation sweeps.
+The device holds O(chunk + kept) of X.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..sparse.chunked import FeatureChunked
 from .dual import (
     bias_at_lambda_max,
     lambda_max,
@@ -70,7 +78,7 @@ from .rules import (
     make_rules,
     solve_with_verification,
 )
-from .screening import SAFE_TAU
+from .screening import SAFE_TAU, anchor_stats
 from .solver import (
     HEALTH_SCREEN_REFUSED,
     DynamicFistaResult,
@@ -167,14 +175,18 @@ class PathDriver:
     every solve each ``screen_every`` iterations (see the module
     docstring). ``L`` is a known upper bound on the Lipschitz constant of
     ``[X; 1^T]``; without it the path estimates one. ``device`` defaults to
-    ``"cuda"`` and raises when no GPU is present.
+    ``"cuda"`` and raises when no GPU is present. ``chunk_skip`` (chunked
+    storage only) certifies whole feature-row chunks dead from their cached
+    regions before their transfer and skips it; ``False`` runs the
+    full-stream twin: the same decisions and results, every chunk
+    transferred.
     """
 
     def __init__(self, rules="feature_vi", *, reduce: str = "gather",
                  tol: float = 1e-9, max_iters: int = 4000,
                  shrink_factor: float = 1.5, max_verify_rounds: int = 3,
                  dynamic: bool = False, screen_every: int = 50,
-                 L=None, device="cuda"):
+                 L=None, chunk_skip: bool = True, device="cuda"):
         if reduce not in ("gather", "mask"):
             raise ValueError(f"reduce must be 'gather' or 'mask' ('compact' is "
                              f"a scan engine's), got {reduce!r}")
@@ -191,6 +203,7 @@ class PathDriver:
         self.dynamic = bool(dynamic)
         self.screen_every = int(screen_every)
         self.L = L
+        self.chunk_skip = bool(chunk_skip)
         self.device = resolve_device(device)
 
     def _solve(self, X, y, lam, w0, b0, L, valid_m=None, sample_mask=None,
@@ -210,8 +223,12 @@ class PathDriver:
 
     def run(self, X, y, lambdas: Optional[Sequence[float]] = None,
             n_lambdas: int = 10, lam_min_ratio: float = 0.1) -> PathResult:
-        """``X`` (m, n) and ``y`` (n,), numpy or tensors; moved to the
-        driver's device once."""
+        """``X`` (m, n) and ``y`` (n,), numpy or tensors; moved to
+        ``self.device`` once. ``X`` may be a
+        :class:`~repro_torch.sparse.FeatureChunked` instead: the out-of-core
+        lane (:meth:`_run_chunked`)."""
+        if isinstance(X, FeatureChunked):
+            return self._run_chunked(X, y, lambdas, n_lambdas, lam_min_ratio)
         dev = self.device
         X = torch.as_tensor(X).to(dev).contiguous()
         y = torch.as_tensor(y).to(device=dev, dtype=X.dtype)
@@ -482,6 +499,305 @@ class PathDriver:
         w_full[fi] = res.w[:kept]
         return res, w_full, live(res, f_idx if kept < m else None)
 
+    # -- out-of-core lane --------------------------------------------------
+
+    def _run_chunked(self, fc: FeatureChunked, y, lambdas=None,
+                     n_lambdas: int = 10,
+                     lam_min_ratio: float = 0.1) -> PathResult:
+        """The screened path over :class:`~repro_torch.sparse.FeatureChunked`
+        storage (reference ``PathDriver._run_chunked``).
+
+        The recurrence of :meth:`run` around the device-memory contract:
+        each step's feature screen is ``sparse.screen_step_stream`` (the
+        pure-VI stack launches the feature-screen kernel once per live
+        chunk; ``edpp``, ``dvi`` and ``auto``'s program evaluate from the
+        streamed anchors; ``dvi`` carries history and streams every chunk);
+        the kept rows are gathered on the host into a zero-padded
+        power-of-two bucket on the device and solved with ``fista_solve``
+        (the margin and gradient kernels, ``valid_m`` = kept); the accepted
+        point is certified by ``sparse.gap_theta_delta_stream`` over the
+        live chunks, whose final sweep refreshes the chunks' cache entries.
+
+        Sample rules (``SampleVIRule`` and the stacks holding it) screen
+        from the accepted solve's carried margins ``u`` and the memoized
+        ``col_sq`` (no stream); the screened samples are verified at each
+        solution in float64 over the support of ``w``, from the gathered
+        rows (``rules/sample_vi.margins_f64``), and violators re-admitted.
+        The sample axis is mask-reduced in the gathered solve.
+
+        ``dynamic=True`` solves with the streamed segmented
+        ``sparse.fista_solve_chunked`` instead of a gather.
+
+        Raises ``ValueError`` for ``reduce="mask"``, feature rules without a
+        rule program and sample rules that are not ``SampleVIRule`` s.
+        ``extras``: ``lam_max``, ``storage``, ``n_chunks``, ``chunk_skip``,
+        ``live_chunks`` (T,), ``stream_stats``, ``health``, ``keep_masks``
+        (T, m), ``bounds`` (T, m) fp32 (each step's feature bounds, NaN
+        where no feature rule ran), ``sample_masks``, ``part_times`` (per-step seconds of the
+        screen, the gather and upload, the solve and the certificate) and
+        with ``dynamic`` the per-step solver ``dynamic`` reports."""
+        from ..sparse import (
+            ChunkScreenCache,
+            fista_solve_chunked,
+            gap_theta_delta_stream,
+            lambda_max_stream,
+            lipschitz_estimate_stream,
+            screen_step_stream,
+        )
+        from .rules.programs import PROGRAMS
+        from .rules.sample_vi import margin_surplus_core
+
+        if self.reduce != "gather":
+            raise ValueError(
+                "chunked storage implies gather-mode reduction (mask mode "
+                f"would build the full (m, n) device matrix), got "
+                f"reduce={self.reduce!r}")
+        feature_rules = [r for r in self.rules if r.axis == AXIS_FEATURES]
+        sample_rules = [r for r in self.rules if r.axis == AXIS_SAMPLES]
+        bad = [r.name for r in feature_rules
+               if getattr(r, "program", None) not in PROGRAMS]
+        if bad:
+            raise ValueError(
+                f"chunked storage streams program-backed feature rule bounds "
+                f"only ({tuple(sorted(PROGRAMS))}); feature rule(s) {bad} "
+                "have no rule program: use in-core storage")
+        bad_s = [r.name for r in sample_rules if not isinstance(r, SampleVIRule)]
+        if bad_s:
+            raise ValueError(
+                "chunked storage verifies sample rules from the solver's "
+                "carried margins; only SampleVIRule(-derived) rules "
+                f"qualify, got {bad_s}")
+        progs = tuple(dict.fromkeys(r.program for r in feature_rules))
+        needs_hist = any(PROGRAMS[p].n_anchors > 1 for p in progs)
+        anchor_old = None  # the step-before-last anchor of a history stack
+        cache = ChunkScreenCache(fc)
+
+        dev = self.device
+        y = torch.as_tensor(y).to(device=dev, dtype=fc.torch_dtype)
+        y_np = y.cpu().numpy().astype(np.float64)
+        m, n = fc.shape
+        tau = min((r.tau for r in feature_rules if hasattr(r, "tau")),
+                  default=SAFE_TAU)
+        dyn_kw = (dict(screen_every=self.screen_every,
+                       screen_tau=dynamic_tau(self.rules))
+                  if self.dynamic else {})
+        L_path = (torch.as_tensor(self.L, dtype=y.dtype, device=dev)
+                  if self.L is not None else lipschitz_estimate_stream(fc, dev))
+        lam_max_val = float(lambda_max_stream(fc, y))
+        if lambdas is None:
+            lambdas = default_lambda_grid(lam_max_val, n_lambdas, lam_min_ratio)
+        lambdas = _validate_grid(lambdas)
+        T = len(lambdas)
+
+        weights = np.zeros((T, m), dtype=np.float64)
+        biases = np.zeros((T,), dtype=np.float64)
+        objectives = np.zeros((T,), dtype=np.float64)
+        kept = np.zeros((T,), dtype=np.int64)
+        kept_s = np.zeros((T,), dtype=np.int64)
+        vrounds = np.zeros((T,), dtype=np.int64)
+        active = np.zeros((T,), dtype=np.int64)
+        iters = np.zeros((T,), dtype=np.int64)
+        wall = np.zeros((T,), dtype=np.float64)
+        parts = {p: np.zeros((T,), dtype=np.float64)
+                 for p in ("screen_s", "gather_s", "solve_s", "certify_s")}
+        health = np.zeros((T,), dtype=np.int64)
+        live_log = np.full((T,), fc.n_chunks, dtype=np.int64)
+        keep_masks = np.ones((T, m), dtype=bool)
+        bounds_log = np.full((T, m), np.nan, dtype=np.float32)
+        sample_masks: dict[int, np.ndarray] = {}
+        dyn_log: dict[int, dict] = {}
+
+        if sample_rules:
+            x_sq = fc.col_sq(dev)  # memoized on the container
+            for rule in sample_rules:
+                rule._u_prev = None
+        dw_pred = db_pred = float("inf")
+        # the accepted solution's carried margins X^T w (bias excluded)
+        u_carry = torch.zeros((n,), dtype=y.dtype, device=dev)
+        w_dev = torch.zeros((m,), dtype=y.dtype, device=dev)
+        lam_prev = float(lambdas[0])
+        if lambdas[0] >= lam_max_val * (1.0 - 1e-9):
+            b_host = float(bias_at_lambda_max(y))
+            theta_prev = theta_at_lambda_max(y, float(lambdas[0]))
+            delta_prev = torch.zeros((), dtype=y.dtype, device=dev)
+            biases[0] = b_host
+            xi0 = np.maximum(0.0, 1.0 - y_np * b_host)
+            objectives[0] = 0.5 * float(np.sum(xi0 * xi0))
+        else:
+            # a grid starting below lam_max: a streamed unscreened solve,
+            # then the gap certificate (the closed form does not hold)
+            t0 = time.perf_counter()
+            rep0: dict = {}
+            res0 = fista_solve_chunked(
+                fc, y, float(lambdas[0]), max_iters=self.max_iters,
+                tol=self.tol, L=L_path, report=rep0, **dyn_kw)
+            w_dev, b_host, u_carry = res0.w, float(res0.b), res0.u
+            weights[0], biases[0] = w_dev.double().cpu().numpy(), b_host
+            objectives[0] = res0.obj
+            kept[0] = m
+            active[0] = int(np.sum(np.abs(weights[0]) > 1e-10))
+            iters[0] = res0.n_iters
+            health[0] |= res0.health
+            if self.dynamic:
+                dyn_log[0] = rep0
+            theta_prev, delta_prev, d_th0 = gap_theta_delta_stream(
+                fc, y, w_dev, res0.b, float(lambdas[0]), u=res0.u,
+                want_corr=True)
+            if feature_rules:
+                cache.refresh(anchor_stats(y, float(lambdas[0]), theta_prev,
+                                           delta_prev, d_th0))
+            wall[0] = parts["solve_s"][0] = time.perf_counter() - t0
+        anchor_ok = _anchor_ok(theta_prev, delta_prev)
+
+        for k in range(1, T):
+            lam = float(lambdas[k])
+            t0 = time.perf_counter()
+            s_mask = np.ones((n,), dtype=bool)
+            f_mask = np.ones((m,), dtype=bool)
+            live = np.ones((fc.n_chunks,), dtype=bool)
+            if feature_rules and not anchor_ok:
+                # fail-safe: no finite certificate to screen from; keep
+                # every feature and stream every chunk this step
+                health[k] |= HEALTH_SCREEN_REFUSED
+            elif feature_rules:
+                keep_t, bounds_t, anchor, live = screen_step_stream(
+                    fc, y, lam_prev, lam, theta_prev, delta=delta_prev,
+                    rules=progs, tau=tau, cache=cache, anchor_old=anchor_old,
+                    skip=self.chunk_skip)
+                if needs_hist:
+                    anchor_old = anchor  # this step's fresh anchor is next's old
+                f_mask = keep_t.cpu().numpy()
+                bounds_log[k] = bounds_t.cpu().numpy()
+                live_log[k] = int(live.sum())
+            if sample_rules:
+                # the margins of the accepted solution, no stream
+                u1 = u_carry + b_host
+                for rule in sample_rules:
+                    surplus = margin_surplus_core(
+                        u1, y, x_sq, dw_pred, db_pred, u_prev=rule._u_prev,
+                        shrink_factor=rule.shrink_factor,
+                        margin_floor=rule.margin_floor)
+                    rule._u_prev = u1
+                    # a non-finite surplus keeps its sample
+                    s_mask &= (~(surplus >= 0.0)).cpu().numpy()
+            t1 = time.perf_counter()
+            parts["screen_s"][k] = t1 - t0
+
+            f_idx = np.nonzero(f_mask)[0]
+            kept[k] = len(f_idx)
+            keep_masks[k] = f_mask
+            fi = torch.from_numpy(f_idx).to(dev)
+            if not self.dynamic:
+                Xr, valid_m = self._gather_chunked(fc, f_idx, dev)
+            t2 = time.perf_counter()
+            parts["gather_s"][k] = t2 - t1
+
+            warm_w, warm_b, rounds = w_dev, b_host, 0
+            while True:
+                smask = (None if s_mask.all() else
+                         torch.from_numpy(s_mask.astype(np.float32)).to(dev))
+                if self.dynamic:
+                    rep: dict = {}
+                    res = fista_solve_chunked(
+                        fc, y, lam, w0=warm_w, b0=warm_b,
+                        max_iters=self.max_iters, tol=self.tol, L=L_path,
+                        sample_mask=smask, feature_mask=f_mask, report=rep,
+                        **dyn_kw)
+                    w_full = res.w
+                    dyn_log[k] = rep
+                else:
+                    wr = torch.zeros((Xr.shape[0],), dtype=y.dtype, device=dev)
+                    wr[:len(f_idx)] = warm_w[fi]
+                    res = fista_solve(Xr, y, lam, w0=wr, b0=warm_b,
+                                      max_iters=self.max_iters, tol=self.tol,
+                                      L=L_path, sample_mask=smask,
+                                      valid_m=valid_m)
+                    w_full = torch.zeros((m,), dtype=y.dtype, device=dev)
+                    w_full[fi] = res.w[:len(f_idx)]
+                warm_w, warm_b = w_full, float(res.b)
+                if s_mask.all() or not sample_rules:
+                    break
+                scr = torch.from_numpy(np.nonzero(~s_mask)[0]).to(dev)
+                if self.dynamic:  # the support's rows, gathered on the host
+                    supp = np.nonzero(w_full.cpu().numpy())[0]
+                    Xv = torch.from_numpy(fc.gather_rows(supp)).to(dev)
+                    wv = w_full[torch.from_numpy(supp).to(dev)]
+                else:
+                    Xv, wv = Xr, res.w
+                viol = torch.cat([r.verify(Xv, y, wv, res.b, scr)
+                                  for r in sample_rules]).cpu().numpy()
+                if len(viol) == 0:
+                    break
+                rounds += 1
+                if rounds >= self.max_verify_rounds:
+                    s_mask[:] = True  # give up screening: an exact solve
+                else:
+                    s_mask[np.unique(viol)] = True
+            b_new = float(res.b)
+            kept_s[k] = int(s_mask.sum())
+            vrounds[k] = rounds
+            if sample_rules:
+                sample_masks[k] = s_mask.copy()
+            health[k] |= res.health
+            t3 = time.perf_counter()
+            parts["solve_s"][k] = t3 - t2
+
+            # certify over the gating-live chunks (every kept feature lives
+            # in one), from the carried margins; the final sweep's d_theta
+            # re-anchors the live chunks' cache entries
+            live_arg = None if live.all() else live
+            fm = (None if f_mask.all() else
+                  torch.from_numpy(f_mask.astype(np.float32)).to(dev))
+            theta_prev, delta_prev, d_th = gap_theta_delta_stream(
+                fc, y, w_full, res.b, lam, u=res.u, live_chunks=live_arg,
+                feature_mask=fm, want_corr=True)
+            anchor_ok = _anchor_ok(theta_prev, delta_prev)
+            if feature_rules:
+                # a poisoned anchor invalidates the entries it would refresh
+                cache.refresh(anchor_stats(y, lam, theta_prev, delta_prev, d_th),
+                              live=set(int(i) for i in np.nonzero(live)[0]))
+            lam_prev = lam
+            parts["certify_s"][k] = time.perf_counter() - t3
+
+            w_np = w_full.double().cpu().numpy()
+            dw_pred = self.shrink_factor * float(np.linalg.norm(w_np - weights[k - 1]))
+            db_pred = self.shrink_factor * abs(b_new - biases[k - 1])
+            w_dev, b_host, u_carry = w_full, b_new, res.u
+            weights[k], biases[k] = w_np, b_new
+            objectives[k] = res.obj
+            active[k] = int(np.sum(np.abs(w_np) > 1e-10))
+            iters[k] = res.n_iters
+            wall[k] = time.perf_counter() - t0
+
+        extras = {"lam_max": lam_max_val, "storage": "chunked",
+                  "n_chunks": fc.n_chunks, "chunk_skip": self.chunk_skip,
+                  "live_chunks": live_log, "health": health,
+                  "keep_masks": keep_masks, "bounds": bounds_log,
+                  "sample_masks": sample_masks, "part_times": parts,
+                  "stream_stats": dict(fc.stats)}
+        if self.dynamic:
+            extras["dynamic"] = dyn_log
+        return PathResult(
+            lambdas=lambdas, weights=weights, biases=biases,
+            objectives=objectives, kept=kept, active=active,
+            solver_iters=iters, wall_times=wall, screen_times=parts["screen_s"],
+            screened=bool(self.rules), kept_samples=kept_s,
+            verify_rounds=vrounds, rules=tuple(r.name for r in self.rules),
+            extras=extras,
+        )
+
+    @staticmethod
+    def _gather_chunked(fc: FeatureChunked, f_idx: np.ndarray, dev):
+        """The kept rows as a zero-padded power-of-two bucket on the device
+        (``(Xr, valid_m)``, as the in-core gather makes it): gathered on the
+        host, uploaded in one copy into the bucket's leading rows."""
+        m, kept = fc.m, len(f_idx)
+        pad = m if kept == m else min(_bucket(max(kept, 1)), m)
+        Xr = torch.zeros((pad, fc.n), dtype=fc.torch_dtype, device=dev)
+        if kept:
+            Xr[:kept].copy_(torch.from_numpy(fc.gather_rows(f_idx)))
+        return Xr, (None if kept == m else kept)
+
 
 def svm_path(
     X,
@@ -499,6 +815,7 @@ def svm_path(
     dynamic: bool = False,
     screen_every: int = 50,
     exact_lipschitz: bool = False,
+    chunk_skip: bool = True,
     device="cuda",
 ):
     """Solve the L1-L2-SVM path with safe screening.
@@ -525,7 +842,15 @@ def svm_path(
 
     ``exact_lipschitz`` (scan engines) re-estimates L on each step's
     reduced matrix; the host engine estimates it once per path.
+
+    ``X`` may be a :class:`~repro_torch.sparse.FeatureChunked` (host engine
+    only, ``reduce="gather"``); ``chunk_skip`` then skips the transfer of
+    chunks certified dead (see :class:`PathDriver`).
     """
+    if engine in ("scan", "batched") and isinstance(X, FeatureChunked):
+        raise ValueError(
+            f"engine={engine!r} runs over an in-core X on the device; chunked "
+            "storage runs on the host engine (engine='host')")
     if engine in ("scan", "batched"):
         from .path_scan import svm_path_batched, svm_path_scan  # path_scan imports us
 
@@ -546,6 +871,7 @@ def svm_path(
         rules = [FeatureVIRule(tau=tau)] if screening else []
     driver = PathDriver(rules=rules, reduce="gather" if reduce is None else reduce,
                         tol=tol, max_iters=max_iters, dynamic=dynamic,
-                        screen_every=screen_every, device=device)
+                        screen_every=screen_every, chunk_skip=chunk_skip,
+                        device=device)
     return driver.run(X, y, lambdas=lambdas, n_lambdas=n_lambdas,
                       lam_min_ratio=lam_min_ratio)

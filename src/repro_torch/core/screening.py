@@ -43,6 +43,9 @@ __all__ = [
     "fixed_stats",
     "shared_scalars_from_anchor",
     "finalize_from_anchor",
+    "anchor_slice",
+    "fixed_slice",
+    "d_theta_sparse",
     "EDPPShared",
     "edpp_scalars",
     "edpp_scalars_from_stats",
@@ -288,6 +291,30 @@ def finalize_from_anchor(anchor: AnchorStats, lam2,
     red = FeatureReductions(d_theta=anchor.d_theta, d_one=fixed.d_one,
                             d_y=fixed.d_y, d_sq=fixed.d_sq)
     return screen_bounds_from_reductions(red, sh)
+
+
+def anchor_slice(anchor: AnchorStats, lo: int, hi: int) -> AnchorStats:
+    """Restrict an anchor's per-feature reduction to rows ``[lo, hi)``; the
+    scalars are feature-independent and pass through (the region one chunk
+    of feature rows reads)."""
+    return anchor._replace(d_theta=anchor.d_theta[lo:hi])
+
+
+def fixed_slice(fixed: FixedStats, lo: int, hi: int) -> FixedStats:
+    """Restrict the fixed statics to feature rows ``[lo, hi)``."""
+    return fixed._replace(d_one=fixed.d_one[lo:hi], d_y=fixed.d_y[lo:hi],
+                          d_sq=fixed.d_sq[lo:hi])
+
+
+def d_theta_sparse(X: torch.Tensor, y: torch.Tensor, theta1: torch.Tensor,
+                   support: int) -> torch.Tensor:
+    """``fhat_j^T theta1`` over the ``support`` largest ``|theta1_i|`` only
+    (paper Sec. 6.4): theta1 is nonzero on the support vectors alone, so
+    with ``support >= nnz(theta1)`` the product over those columns is the
+    whole one, at O(m * support). Entries past nnz are zeros and add 0."""
+    support = min(int(support), theta1.shape[0])
+    _, idx = torch.topk(torch.abs(theta1), support)
+    return X[:, idx] @ (y * theta1)[idx]
 
 
 class EDPPShared(NamedTuple):

@@ -1,19 +1,22 @@
-"""Synthetic datasets for the sparse-SVM workload (pure numpy).
+"""Synthetic and on-disk datasets for the sparse-SVM workload (pure numpy).
 
-A copy of ``make_sparse_classification``, ``SvmDataset``, ``CsrData`` and
-``csr_from_dense`` from the reference package's ``data/svm.py``: the same
-seed gives bit-identical arrays. Kept as a copy because the port imports
-nothing of the reference package.
+A copy of ``make_sparse_classification``, ``SvmDataset``, ``CsrData``,
+``csr_from_dense`` and the libsvm text reader (``iter_libsvm``,
+``load_libsvm``) from the reference package's ``data/svm.py``: the same
+seed gives bit-identical arrays, the same file the same arrays and the same
+error messages. Kept as a copy because the port imports nothing of the
+reference package.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import gzip
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 
 __all__ = ["SvmDataset", "CsrData", "make_sparse_classification",
-           "csr_from_dense"]
+           "csr_from_dense", "load_libsvm", "iter_libsvm"]
 
 class CsrData(NamedTuple):
     """CSR triple over *feature rows* (the paper's (m, n) layout)."""
@@ -108,3 +111,91 @@ def make_sparse_classification(
     csr = csr_from_dense(X) if sparse else None
     return SvmDataset(X, y.astype(dtype), w_true.astype(dtype), csr)
 
+
+def _open_maybe_gzip(path):
+    """Text handle for a libsvm file, gunzipped when its first two bytes
+    are the gzip magic ``1f 8b`` (by content, not by extension)."""
+    with open(path, "rb") as probe:
+        magic = probe.read(2)
+    if magic == b"\x1f\x8b":
+        return gzip.open(path, "rt")
+    return open(path, "rt")
+
+
+def iter_libsvm(path, zero_based: bool = False) -> Iterator[tuple]:
+    """Stream ``(label, feature_indices, values)`` per sample from a libsvm
+    text file (plain or gzip), in O(one line) of memory.
+
+    The one parser of :func:`load_libsvm` and of
+    ``sparse.FeatureChunked.from_libsvm_cached``. Comment lines and trailing
+    ``# comments`` are stripped, blank lines skipped; indices are 1-based
+    unless ``zero_based``. A malformed line raises ``ValueError`` naming the
+    file, the 1-based line number and the offending token.
+    """
+    with _open_maybe_gzip(path) as fh:
+        for lineno, raw in enumerate(fh, start=1):
+            line = raw.split("#", 1)[0].strip()
+            if not line:
+                continue
+            parts = line.split()
+            try:
+                label = float(parts[0])
+            except ValueError:
+                raise ValueError(
+                    f"{path}:{lineno}: malformed label {parts[0]!r} "
+                    f"(expected a number)") from None
+            idx, vals = [], []
+            for tok in parts[1:]:
+                k, sep, v = tok.partition(":")
+                if not sep:
+                    raise ValueError(
+                        f"{path}:{lineno}: malformed feature token {tok!r} "
+                        f"(expected <index>:<value>)")
+                try:
+                    j = int(k) - (0 if zero_based else 1)
+                    val = float(v)
+                except ValueError:
+                    raise ValueError(
+                        f"{path}:{lineno}: malformed feature token {tok!r} "
+                        f"(index must be an integer, value a number)"
+                    ) from None
+                if j < 0:
+                    raise ValueError(
+                        f"{path}:{lineno}: feature index {k} is not "
+                        f"{'0' if zero_based else '1'}-based"
+                    )
+                idx.append(j)
+                vals.append(val)
+            yield label, idx, vals
+
+
+def load_libsvm(path, n_features: Optional[int] = None, dtype=np.float32,
+                zero_based: bool = False) -> SvmDataset:
+    """Libsvm/svmlight text into the paper's (m, n) layout.
+
+    Each line is ``<label> <index>:<value> ...``. Labels map to {-1, +1} by
+    sign (0/1 labels to -1/+1). Returns an :class:`SvmDataset` whose ``X``
+    is the dense ``(n_features, n_samples)`` host matrix in ``dtype``, with
+    ``.csr`` its exact CSR triple over feature rows (for
+    ``sparse.FeatureChunked.from_csr``) and ``w_true`` zeros. For data that
+    must stay out of host RAM use ``FeatureChunked.from_libsvm_cached``.
+    """
+    feats, samples, vals, labels = [], [], [], []
+    for label, idx, vv in iter_libsvm(path, zero_based=zero_based):
+        labels.append(label)
+        i = len(labels) - 1
+        feats.extend(idx)
+        samples.extend([i] * len(idx))
+        vals.extend(vv)
+    n = len(labels)
+    if n == 0:
+        raise ValueError(f"no samples in {path}")
+    m = int(n_features) if n_features else (max(feats) + 1 if feats else 0)
+    X = np.zeros((m, n), dtype=dtype)
+    if feats:
+        f = np.asarray(feats)
+        if f.max() >= m:
+            raise ValueError(f"feature index {f.max()} >= n_features={m}")
+        X[f, np.asarray(samples)] = np.asarray(vals, dtype=dtype)
+    y = np.where(np.asarray(labels) > 0, 1.0, -1.0).astype(dtype)
+    return SvmDataset(X, y, np.zeros((m,), dtype), csr_from_dense(X))

@@ -40,7 +40,8 @@ SIGNATURES = {
                    _P, _P, _P, _P, _P, _I, _P],
     "hinge_grad": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                    _I, _P],
-    "screen_bounds_features": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+    "screen_bounds_features": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                               _P],
     "screen_bounds_samples": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P, _I, _P],
 }

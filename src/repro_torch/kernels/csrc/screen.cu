@@ -49,6 +49,15 @@
 // on the same anchor. In two instantiations the compiler may fuse a
 // multiply and an add of the VI finalizer in one and not in the other, and
 // the two VI bounds then differ in their last bit.
+//
+// d_theta output (optional, any mode): with a non-null d_theta pointer the
+// finalizing lane also stores its row's d_theta = f_j . (y theta1), the sum
+// it already holds in a register, so one read of a chunk of X gives both
+// the chunk's bounds and the d_theta slice the chunk-skip cache keeps
+// (src/repro_torch/sparse/screen_stream.py; the reference reads the chunk
+// twice there, the kernel and then `row_dot`). The store is after the
+// bound and touches none of its arithmetic: a null pointer gives the launch
+// without the output, bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,7 +178,8 @@ screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
                        const float* __restrict__ theta,
                        const float* __restrict__ w,
                        const float* __restrict__ sc, int m, int n, bool edpp,
-                       float* __restrict__ bounds) {
+                       float* __restrict__ bounds,
+                       float* __restrict__ d_theta) {
   const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int row0 = warp * kRowsPerWarp;
@@ -227,20 +237,21 @@ screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
       } else {
         bounds[row0 + r] = vi;
       }
+      if (d_theta != nullptr) d_theta[row0 + r] = a_t[r];
     }
   }
 }
 
 template <typename T>
 void launch(const T* X, const float* y, const float* theta, const float* w,
-            const float* sc, int m, int n, float* bounds, int edpp, int blocks,
-            cudaStream_t s) {
+            const float* sc, int m, int n, float* bounds, float* d_theta,
+            int edpp, int blocks, cudaStream_t s) {
   if (w != nullptr) {
     screen_features_kernel<T, true><<<blocks, kThreads, 0, s>>>(
-        X, y, theta, w, sc, m, n, false, bounds);
+        X, y, theta, w, sc, m, n, false, bounds, d_theta);
   } else {
     screen_features_kernel<T, false><<<blocks, kThreads, 0, s>>>(
-        X, y, theta, w, sc, m, n, edpp != 0, bounds);
+        X, y, theta, w, sc, m, n, edpp != 0, bounds, d_theta);
   }
 }
 
@@ -251,12 +262,14 @@ extern "C" {
 // bounds[j] for every feature row of X. weights: (n,) sample weights, or
 // null for all ones. scalars: the packed fp32 values of kernels/screen.py
 // pack_shared, 12 (slots 10-11: the gap-sphere cap), or 16 with edpp != 0
-// (slots 12-14: the EDPP scalars; weights must then be null).
+// (slots 12-14: the EDPP scalars; weights must then be null). d_theta:
+// (m,) output of each row's f_j . (y theta1), or null for none.
 // Returns cudaGetLastError().
 int screen_bounds_features(const void* X, int x_bf16, const float* y,
                            const float* theta, const float* weights,
                            const float* scalars, int m, int n, float* bounds,
-                           int edpp, int device, void* stream) {
+                           float* d_theta, int edpp, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -266,10 +279,10 @@ int screen_bounds_features(const void* X, int x_bf16, const float* y,
   if (edpp && weights != nullptr) return cudaErrorInvalidValue;
   if (x_bf16) {
     launch(static_cast<const __nv_bfloat16*>(X), y, theta, weights, scalars,
-           m, n, bounds, edpp, blocks, s);
+           m, n, bounds, d_theta, edpp, blocks, s);
   } else {
     launch(static_cast<const float*>(X), y, theta, weights, scalars, m, n,
-           bounds, edpp, blocks, s);
+           bounds, d_theta, edpp, blocks, s);
   }
   return cudaGetLastError();
 }

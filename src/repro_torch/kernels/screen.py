@@ -83,20 +83,23 @@ def pack_shared(sh: ScreenShared, cap_delta=None,
 
 
 def screen_bounds_plain(X, y, theta1, sh: ScreenShared, weights=None,
-                        cap_delta=None) -> torch.Tensor:
+                        cap_delta=None, want_d_theta: bool = False):
     """Plain PyTorch version of :func:`screen_bounds_from_shared`."""
     red = feature_reductions(X.float(), y.float(), theta1.float(),
                              None if weights is None else weights.float())
     bounds = screen_bounds_from_reductions(red, sh)
-    if cap_delta is None:
-        return bounds
-    delta = pack_shared(sh, cap_delta)[11]  # the fp32 value the kernel reads
-    sphere = torch.abs(red.d_theta) + torch.sqrt(torch.clamp_min(red.d_sq, 0.0)) * delta
-    return torch.minimum(bounds, sphere)  # NaN-propagating, as jnp.minimum
+    if cap_delta is not None:
+        delta = pack_shared(sh, cap_delta)[11]  # the fp32 value the kernel reads
+        sphere = (torch.abs(red.d_theta)
+                  + torch.sqrt(torch.clamp_min(red.d_sq, 0.0)) * delta)
+        bounds = torch.minimum(bounds, sphere)  # NaN-propagating, as jnp.minimum
+    return (bounds, red.d_theta) if want_d_theta else bounds
 
 
-def _launch_features(X, y, theta1, scalars, weights, edpp, name):
-    """One launch of the feature-screen kernel; ``(m,)`` fp32 bounds."""
+def _launch_features(X, y, theta1, scalars, weights, edpp, name,
+                     want_d_theta=False):
+    """One launch of the feature-screen kernel; ``(m,)`` fp32 bounds, and
+    with ``want_d_theta`` the ``(m,)`` fp32 ``d_theta`` the kernel summed."""
     build.check_matrix(X)
     m, n = X.shape
     build.check_vector(y, n, X, "y")
@@ -104,31 +107,45 @@ def _launch_features(X, y, theta1, scalars, weights, edpp, name):
     if weights is not None:
         build.check_vector(weights, n, X, "weights")
     bounds = torch.empty((m,), dtype=torch.float32, device=X.device)
+    d_theta = (torch.empty((m,), dtype=torch.float32, device=X.device)
+               if want_d_theta else None)
     dev, stream = build.stream_and_device(X)
     err = build.library().screen_bounds_features(
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
         theta1.data_ptr(), None if weights is None else weights.data_ptr(),
-        scalars.data_ptr(), m, n, bounds.data_ptr(), int(edpp), dev, stream)
+        scalars.data_ptr(), m, n, bounds.data_ptr(),
+        None if d_theta is None else d_theta.data_ptr(), int(edpp), dev, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
-    return bounds
+    return (bounds, d_theta) if want_d_theta else bounds
 
 
 def screen_bounds_from_shared(X, y, theta1, sh: ScreenShared, weights=None,
-                              cap_delta=None) -> torch.Tensor:
+                              cap_delta=None, want_d_theta: bool = False,
+                              scalars=None):
     """Per-feature VI bounds ``(m,)`` fp32 from one sweep of X, given the
     region's shared scalars ``sh`` (``core/screening.shared_scalars``).
 
     The dynamic variant: ``weights`` (n,) fp32 weights the theta-independent
     reductions (``sh`` must come from the same weighted statistics), and
     ``cap_delta`` (a 0-d tensor) takes the elementwise min with
-    ``|d_theta| + ||f|| * cap_delta``."""
+    ``|d_theta| + ||f|| * cap_delta``.
+
+    ``want_d_theta`` returns ``(bounds, d_theta)``: the kernel also writes
+    each row's ``f_j . (y theta1)`` from the same read of X (the plain
+    version returns ``feature_reductions(...).d_theta``). ``scalars``: the
+    packed form of ``sh`` (:func:`pack_shared`) on X's device, for a caller
+    that launches the kernel on many chunks of X with one region (packing
+    costs a few small kernels a call)."""
     if not build.on_card(X):
-        return screen_bounds_plain(X, y, theta1, sh, weights, cap_delta)
+        return screen_bounds_plain(X, y, theta1, sh, weights, cap_delta,
+                                   want_d_theta)
     name = ("screen_bounds" if weights is None and cap_delta is None
             else "screen_bounds_dynamic")
-    return _launch_features(X, y, theta1, pack_shared(sh, cap_delta).to(X.device),
-                            weights, False, name)
+    if scalars is None:
+        scalars = pack_shared(sh, cap_delta).to(X.device)
+    return _launch_features(X, y, theta1, scalars, weights, False, name,
+                            want_d_theta)
 
 
 def screen_bounds_edpp_plain(X, y, theta1, sh: ScreenShared,

@@ -13,6 +13,15 @@ two problems at once (seeds ``--seed`` and ``--seed + 1``); their last line
 counts the host fetches and the CUDA graph replays. No mesh, checkpoint or serve
 mode.
 
+Data: ``--libsvm FILE`` reads a libsvm text file instead of the synthetic
+problem. ``--storage chunked|csr|mmap`` runs the out-of-core lane
+(``sparse.FeatureChunked``, host engine, gather): ``chunked`` streams dense
+feature-row chunks of ``--chunk-m`` rows, ``csr`` CSR chunks (a synthetic
+``--density < 1`` problem or ``--libsvm``), ``mmap`` a disk store built once
+from ``--libsvm`` (in ``--store-dir``, default ``<FILE>.store``). Step lines
+then show the live chunks; ``--no-chunk-skip`` streams every chunk (the
+full-stream twin) and the last line the transfer counts.
+
     PYTHONPATH=src python -m repro_torch.launch.train_svm --device cuda
     PYTHONPATH=src python -m repro_torch.launch.train_svm --m 2000 --n 400 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --rules composite \
@@ -27,6 +36,12 @@ mode.
         --reduce compact --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --engine batched \
         --reduce compact --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --storage chunked \
+        --chunk-m 256 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --storage csr \
+        --density 0.04 --chunk-m 256 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --libsvm data.svm \
+        --storage mmap --store-dir /path/to/store --device cpu
 """
 
 from __future__ import annotations
@@ -38,8 +53,9 @@ import numpy as np
 import torch
 
 from ..core.path import svm_path
-from ..data import make_sparse_classification
+from ..data import load_libsvm, make_sparse_classification
 from ..device import resolve_device
+from ..sparse import FeatureChunked
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,18 +80,58 @@ def build_parser() -> argparse.ArgumentParser:
                     help="re-screen inside every FISTA solve each "
                          "--screen-every iterations (gap-certified)")
     ap.add_argument("--screen-every", type=int, default=50)
+    ap.add_argument("--libsvm", default=None, metavar="FILE",
+                    help="read a libsvm/svmlight text file (plain or gzip) "
+                         "instead of generating synthetic data")
+    ap.add_argument("--storage", choices=("dense", "chunked", "csr", "mmap"),
+                    default="dense",
+                    help="dense: in-core X on the device; chunked: host "
+                         "feature-row chunks streamed to the device; csr: "
+                         "CSR chunks, low-density ones swept as sparse "
+                         "products; mmap: a disk store built once from "
+                         "--libsvm (host engine, gather)")
+    ap.add_argument("--chunk-m", type=int, default=512,
+                    help="feature rows per chunk (--storage chunked|csr|mmap)")
+    ap.add_argument("--store-dir", default=None, metavar="DIR",
+                    help="the --storage mmap store (default: <libsvm file>.store)")
+    ap.add_argument("--no-chunk-skip", dest="chunk_skip", action="store_false",
+                    help="chunked storage: stream every chunk every step (the "
+                         "full-stream twin of the chunk-skip screen)")
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def _chunked_input(args, ap):
+    """``(FeatureChunked, y)`` for ``--storage chunked|csr|mmap``."""
+    if args.storage == "mmap":
+        if args.libsvm is None:
+            ap.error("--storage mmap needs --libsvm FILE (the store is built "
+                     "from it once)")
+        return FeatureChunked.from_libsvm_cached(
+            args.libsvm, store_dir=args.store_dir, chunk_m=args.chunk_m)
+    ds = (load_libsvm(args.libsvm) if args.libsvm is not None else
+          make_sparse_classification(m=args.m, n=args.n, density=args.density,
+                                     seed=args.seed))
+    if args.storage == "csr":
+        if ds.csr is None:
+            ap.error("--storage csr needs a CSR dataset: --density < 1 or --libsvm")
+        return FeatureChunked.from_csr(ds.csr, chunk_m=args.chunk_m), ds.y
+    return FeatureChunked.from_dense(ds.X, chunk_m=args.chunk_m), ds.y
 
 
 def _print_path(res) -> None:
     dyn = res.extras.get("dynamic", {})
     for k in range(len(res.lambdas)):
         segs = ""
-        if k in dyn:
+        if k in dyn and "kept_per_segment" in dyn[k]:
             segs = f" kept_per_segment={dyn[k]['kept_per_segment']}"
+        elif k in dyn:  # the streamed solver's report
+            segs = f" dynamic={dyn[k]}"
         if "caps" in res.extras:
             segs += f" cap={res.extras['caps'][k]}"
+        if "live_chunks" in res.extras:
+            segs += (f" live_chunks={res.extras['live_chunks'][k]}"
+                     f"/{res.extras['n_chunks']}")
         print(f"step {k:2d} lam={res.lambdas[k]:.6g} kept={res.kept[k]} "
               f"kept_samples={res.kept_samples[k]} "
               f"verify_rounds={res.verify_rounds[k]} "
@@ -91,6 +147,12 @@ def main(argv=None) -> int:
     if reduce == ("compact" if host else "gather"):
         ap.error(f"--reduce {reduce} does not run on --engine {args.engine}: the "
                  "host engine takes gather or mask, the scan engines mask or compact")
+    chunked = args.storage != "dense"
+    if chunked and (args.engine != "host" or reduce != "gather"):
+        ap.error("--storage chunked|csr|mmap runs on --engine host with "
+                 "--reduce gather")
+    if args.libsvm is not None and args.engine == "batched":
+        ap.error("--engine batched generates its two problems; --libsvm reads one")
     device = resolve_device(args.device)
     kw = dict(n_lambdas=args.n_lambdas, lam_min_ratio=args.lam_min_ratio,
               rules=[] if args.rules == "none" else args.rules, reduce=reduce,
@@ -98,25 +160,41 @@ def main(argv=None) -> int:
               engine=args.engine, exact_lipschitz=args.exact_lipschitz,
               device=device)
     seeds = range(args.seed, args.seed + (2 if args.engine == "batched" else 1))
-    sets = [make_sparse_classification(m=args.m, n=args.n, density=args.density, seed=s)
-            for s in seeds]
-    t0 = time.perf_counter()
-    if args.engine == "batched":
-        results = svm_path(np.stack([d.X for d in sets]), np.stack([d.y for d in sets]), **kw)
+    if chunked:
+        Xs, ys = _chunked_input(args, ap)
+        kw["chunk_skip"] = args.chunk_skip
     else:
-        results = [svm_path(sets[0].X, sets[0].y, **kw)]
+        sets = ([load_libsvm(args.libsvm)] if args.libsvm is not None else
+                [make_sparse_classification(m=args.m, n=args.n,
+                                            density=args.density, seed=s)
+                 for s in seeds])
+        Xs, ys = sets[0].X, sets[0].y
+        if args.engine == "batched":
+            Xs, ys = np.stack([d.X for d in sets]), np.stack([d.y for d in sets])
+    t0 = time.perf_counter()
+    results = svm_path(Xs, ys, **kw)
+    if args.engine != "batched":
+        results = [results]
     total = time.perf_counter() - t0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    m, n = Xs.shape[-2:]
     for seed, res in zip(seeds, results):
-        print(f"device={name} m={args.m} n={args.n} seed={seed} engine={args.engine} "
+        print(f"device={name} m={m} n={n} seed={seed} engine={args.engine} "
               f"rules={args.rules} reduce={reduce} dynamic={args.dynamic} "
-              f"lam_max={res.extras['lam_max']:.6g}")
+              f"storage={args.storage} lam_max={res.extras['lam_max']:.6g}")
         _print_path(res)
     fetches = results[0].extras.get("host_fetches")
     tail = ""
     if fetches is not None:
         tail = (f" host_fetches={sum(fetches.values())} {fetches} "
                 f"graph_replays={results[0].extras['graphs']['replays']}")
+    if chunked:
+        st = results[0].extras["stream_stats"]
+        tail += (f" chunks={results[0].extras['n_chunks']} chunk_m={args.chunk_m} "
+                 f"chunk_skip={args.chunk_skip} max_put_rows={st['max_put_rows']} "
+                 f"puts={st['puts']} csr_puts={st['csr_puts']} "
+                 f"streamed={st['chunks_streamed']} skipped={st['chunks_skipped']} "
+                 f"bytes_put={st['bytes_put']}")
     print(f"path wall {total:.3f}s{tail}")
     return 0
 

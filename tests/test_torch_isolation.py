@@ -27,6 +27,8 @@ if bad:
     sys.exit(f"loaded {bad}")
 print(len(mods))
 print("repro_torch.core.path_scan" in mods)
+print(all(f"repro_torch.sparse.{m}" in mods
+          for m in ("chunked", "screen_stream", "solver_stream")))
 """
 
 
@@ -35,16 +37,17 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    # every submodule was imported, core/rules/dvi.py and core/path_scan.py
-    # among them
-    count, has_scan = out.stdout.split()[-2:]
-    assert int(count) >= 27 and has_scan == "True"
+    # every submodule was imported, core/rules/dvi.py, core/path_scan.py and
+    # the three modules of repro_torch.sparse among them
+    count, has_scan, has_sparse = out.stdout.split()[-3:]
+    assert int(count) >= 31 and has_scan == "True" and has_sparse == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):
     from repro_torch.core.path import PathDriver, svm_path
     from repro_torch.data import make_sparse_classification
     from repro_torch.launch.train_svm import main
+    from repro_torch.sparse import FeatureChunked
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ds = make_sparse_classification(m=20, n=10, seed=0)
@@ -72,6 +75,13 @@ def test_cuda_request_raises_without_gpu(monkeypatch):
         main(["--m", "20", "--n", "10", "--engine", "scan"])
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--m", "20", "--n", "10", "--engine", "batched"])
+    fc = FeatureChunked.from_dense(ds.X, chunk_m=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        svm_path(fc, ds.y)  # chunked storage runs on the GPU by default
+    with pytest.raises(RuntimeError, match="cuda"):
+        PathDriver(chunk_skip=False).run(fc, ds.y)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--m", "20", "--n", "10", "--storage", "chunked", "--chunk-m", "8"])
 
 
 def test_unknown_rule_and_engine_fail_early():

@@ -25,6 +25,7 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.core.dual import lambda_max, theta_at_lambda_max
 from repro_torch.core.screening import (
     edpp_scalars,
+    feature_reductions,
     shared_scalars,
     shared_scalars_from_stats,
 )
@@ -519,6 +520,55 @@ def test_cuda_edpp_screen_matches_plain(shape, dtype):
     assert bool(torch.isnan(screen.screen_bounds_edpp(X, y, bad, sh, e)).all())
 
 
+def _d_theta_cases(X, y, n, seed):
+    """The feature screen's calls with the optional d_theta output: the VI
+    mode on an inexact anchor, and the dynamic variant (sample weights and
+    the gap-sphere cap)."""
+    rng = np.random.default_rng(seed)
+    s = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).to(X.device)
+    theta = torch.from_numpy((rng.random(n) / 3.0).astype(np.float32)).to(X.device)
+    sh = shared_scalars(y, 3.0, 2.0, theta, delta=0.02)
+    cap = torch.tensor(0.05, device=X.device)
+    return (("vi", theta, sh, None, None),
+            ("dynamic", theta * s, _dynamic_shared(y, 3.0, theta * s, 0.05, s), s, cap))
+
+
+def test_screen_d_theta_output_plain():
+    """On the CPU the d_theta output is the plain reductions' d_theta and
+    leaves the bounds as they were."""
+    X, _, y, _ = _inputs(130, 70, torch.float32, 130, seed=41)
+    for _, theta, sh, w, cap in _d_theta_cases(X, y, 70, seed=42):
+        bounds, d_theta = screen.screen_bounds_from_shared(
+            X, y, theta, sh, w, cap, want_d_theta=True)
+        assert torch.equal(bounds, screen.screen_bounds_from_shared(X, y, theta, sh, w, cap))
+        assert torch.equal(d_theta, feature_reductions(X, y, theta, w).d_theta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cuda_screen_d_theta_output(shape, dtype):
+    """Card only: the feature screen's optional d_theta output (VI mode and
+    dynamic variant) against the plain ``feature_reductions(...).d_theta``
+    (rtol 1e-5: fp32 sums in different orders), with the bounds of the
+    launch bit for bit those of the launch without the output, and one
+    launch counted each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    m, n = shape
+    X, _, y, _ = _inputs(m, n, dtype, m, seed=43)
+    X, y = X.cuda(), y.cuda()
+    for kind, theta, sh, w, cap in _d_theta_cases(X, y, n, seed=44):
+        name = "screen_bounds" if kind == "vi" else "screen_bounds_dynamic"
+        before = screen.LAUNCHES[name]
+        bounds, d_theta = screen.screen_bounds_from_shared(
+            X, y, theta, sh, w, cap, want_d_theta=True)
+        assert screen.LAUNCHES[name] == before + 1
+        assert torch.equal(bounds, screen.screen_bounds_from_shared(X, y, theta, sh, w, cap))
+        _, want = screen.screen_bounds_plain(X, y, theta, sh, w, cap, want_d_theta=True)
+        _close(d_theta.cpu(), want.cpu())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
@@ -580,3 +630,40 @@ def test_cuda_fista_graph_replay_matches_eager():
         assert int(r.n_iters) == host.n_iters
         assert torch.equal(r.w, host.w) and float(r.obj) == host.obj
     assert hinge.skipped_counts()["hinge_grad"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_chunked_stream_matches_in_core():
+    """Card only: the out-of-core stream (``repro_torch.sparse``) delivers
+    every chunk intact through its pinned double buffer: the streamed
+    feature screen equals the in-core kernel launch bit for bit, on dense
+    chunks and on CSR chunks densified on the device (one launch per
+    chunk); and the chunked path on the card matches the CPU's at 300
+    fixed iterations a step (rel 1e-6, the tolerance of the in-core
+    card-vs-CPU check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    from repro_torch.core.path import PathDriver
+    from repro_torch.core.screening import screen_bounds
+    from repro_torch.core.solver import lipschitz_estimate
+    from repro_torch.sparse import FeatureChunked, screen_stream
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dense = make_sparse_classification(m=300, n=130, seed=21)
+    sparse = make_sparse_classification(m=300, n=130, seed=23, density=0.04)
+    for ds, fc in ((dense, FeatureChunked.from_dense(dense.X, chunk_m=64)),
+                   (sparse, FeatureChunked.from_csr(sparse.csr, chunk_m=64))):
+        X, y = torch.from_numpy(ds.X).cuda(), torch.from_numpy(ds.y).cuda()
+        lmax = float(lambda_max(X, y))
+        theta = theta_at_lambda_max(y, lmax)
+        before = screen.LAUNCHES["screen_bounds"]
+        _, got = screen_stream(fc, y, lmax, 0.6 * lmax, theta)
+        assert screen.LAUNCHES["screen_bounds"] == before + fc.n_chunks
+        assert torch.equal(got, screen_bounds(X, y, lmax, 0.6 * lmax, theta))
+    L = float(lipschitz_estimate(torch.from_numpy(dense.X)))
+    kw = dict(tol=-1.0, max_iters=300, L=L)
+    card = PathDriver(device="cuda", **kw).run(
+        FeatureChunked.from_dense(dense.X, chunk_m=64), dense.y)
+    cpu = PathDriver(device="cpu", **kw).run(
+        FeatureChunked.from_dense(dense.X, chunk_m=64), dense.y)
+    np.testing.assert_allclose(card.objectives, cpu.objectives, rtol=1e-6)
