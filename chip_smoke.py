@@ -128,6 +128,13 @@ NEWS20_RATIO = 0.3  # the news20-shaped path's lam_min_ratio (8 lambdas)
 # (NVIDIA H100 80GB HBM3 at 700 W)
 LIP_CHUNK_M = 65_536
 VECTORS = 32  # the O(m + n) fp32 vectors the peak-memory limit allows
+# the sharded phases: FISTA iterations a step (no stop rule), the grids, the
+# bench instance's grid and iterations, and the tolerances
+GRID_ITERS = 50
+GRIDS = ((2, 2), (4, 1), (1, 4))
+GRID_SMALL = dict(n_lambdas=6, lam_min_ratio=0.05, max_iters=60, tol=-1.0)
+GRID_SMALL_COMPOSITE = dict(n_lambdas=6, lam_min_ratio=0.02, max_iters=60, tol=-1.0)
+GRID_TIMEOUT_S = 600
 
 
 T_START = time.perf_counter()
@@ -158,6 +165,22 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: the rows of the feature screen's partial sums (``FeatureReductions``)
+SCREEN_SUMS = ("d_theta", "d_one", "d_y", "d_sq")
+
+
+def sums_error(got, want, scale, k: int) -> tuple:
+    """Sums of k terms against their plain version, sum by sum: each error
+    held to :func:`tolerance` at the size of its own terms, ``scale`` being
+    the same sums taken over the terms' absolute values (a row of centred
+    features sums to about 0, where the sum's own size says nothing of its
+    rounding). Returns the largest error and the largest error over its
+    tolerance."""
+    err = (got.float() - want.float()).abs()
+    tol = max(1e-5, 4 * EPS32 * math.sqrt(k)) * torch.clamp_min(scale.float().abs(), 1.0)
+    return float(err.max()), float((err / tol).max())
+
+
 def tolerance(k: int, scale: float) -> float:
     """Kernel vs plain version: the same fp32 sums of k terms taken in two
     orders; each carries rounding error ~eps * sqrt(k) of the output's
@@ -176,7 +199,8 @@ class Kernels:
         self.lam_max, self.theta_max = lam_max_fn, theta_fn  # core/dual.py
         self.max_err = {"margin_obj": 0.0, "hinge_grad": 0.0, "screen_bounds": 0.0,
                         "screen_bounds_dynamic": 0.0, "screen_bounds_edpp": 0.0,
-                        "sample_surplus": 0.0}
+                        "sample_surplus": 0.0, "margin_partial": 0.0,
+                        "screen_partial": 0.0, "sample_partial": 0.0}
         self.variants_seen = {"margin_obj": set(), "hinge_grad": set(),
                               "sample_surplus": set()}
 
@@ -196,6 +220,18 @@ class Kernels:
         self.max_err[name] = max(self.max_err[name], err)
         require(err <= tol, f"{name} {where}: max_abs_err {err:.3e} > tol {tol:.3e}")
         return {"max_abs_err": err, "tol": tol}
+
+    def _check_rows(self, name, got, want, scale, k, where, rows):
+        """A partial mode's stacked sums, row by row and sum by sum
+        (:func:`sums_error`)."""
+        out = {}
+        for row, g, p, sc in zip(rows, got, want, scale, strict=True):
+            err, ratio = sums_error(g, p, sc, k)
+            self.max_err[name] = max(self.max_err[name], err)
+            require(ratio <= 1.0, f"{name} {where} {row}: max_abs_err {err:.3e} is "
+                                  f"{ratio:.2f} x its tolerance")
+            out[row] = {"max_abs_err": err, "err_over_tol": ratio}
+        return out
 
     def margin(self, X, w, y, b, vm, where):
         h = self.hinge
@@ -363,6 +399,57 @@ class Kernels:
         out["nan_theta"] = "all NaN"
         return out
 
+    def partial(self, X, w, y, gen, where):
+        """The partial modes: each one's sums against its plain version
+        (the bound check's tolerance: the margin's and the sample's k = m
+        terms, the screen's k = n, weighted too), and a partial launch then
+        its finalize on the unsplit X bit for bit the full launch (the
+        margin, the sample surplus, the screen's VI, dynamic and EDPP
+        modes)."""
+        h, sc = self.hinge, self.screen
+        m, n = X.shape
+        theta = (torch.rand(n, generator=gen) / 5.0).cuda()
+        s = (torch.rand(n, generator=gen) < 0.7).float().cuda()
+        b = torch.tensor(0.2, device="cuda")
+        sh = self.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
+        e = self.edpp_scalars(y, 5.0, 3.0, theta, delta=0.01)
+        shd = self.dynamic_shared(y, 5.0, theta * s, 0.05, s)
+        cap = torch.tensor(0.05, device="cuda")
+        u_part, pair = h.margin_partial_op(X, w), sc.sample_partial_op(X, w)
+        sums, sums_w = sc.screen_partial_op(X, y, theta), sc.screen_partial_op(
+            X, y, theta * s, s)
+        out = {
+            "margin_partial": self._check("margin_partial", u_part,
+                                          h.margin_partial_plain(X, w), m, where),
+            "sample_partial": self._check_rows(
+                "sample_partial", pair, sc.sample_partial_plain(X, w),
+                sc.sample_partial_plain(X.abs(), w.abs()), m, where, ("x_w", "x_sq")),
+            "screen_partial": self._check_rows(
+                "screen_partial", sums, sc.screen_partial_plain(X, y, theta),
+                sc.screen_partial_plain(X.abs(), y.abs(), theta.abs()), n, where,
+                SCREEN_SUMS),
+            "screen_partial_weighted": self._check_rows(
+                "screen_partial", sums_w, sc.screen_partial_plain(X, y, theta * s, s),
+                sc.screen_partial_plain(X.abs(), y.abs(), (theta * s).abs(), s), n,
+                where, SCREEN_SUMS)}
+        bits = {
+            "margin": all(torch.equal(p, q) for p, q in zip(
+                h.margin_obj_op(X, w, y, b), h.margin_finalize_op(u_part, y, b))),
+            "sample": all(torch.equal(p, q) for p, q in zip(
+                sc.sample_surplus_op(X, w, y, 0.13, 0.37, 0.05),
+                sc.sample_finalize_op(pair, y, 0.13, 0.37, 0.05))),
+            "screen_vi": torch.equal(sc.screen_bounds_from_shared(X, y, theta, sh),
+                                     sc.screen_finalize_op(sums, sh)),
+            "screen_dynamic": torch.equal(
+                sc.screen_bounds_from_shared(X, y, theta * s, shd, s, cap),
+                sc.screen_finalize_op(sums_w, shd, cap_delta=cap, weighted=True)),
+            "screen_edpp": torch.equal(sc.screen_bounds_edpp(X, y, theta, sh, e),
+                                       sc.screen_finalize_op(sums, sh, edpp=e)),
+        }
+        require(all(bits.values()), f"partial modes {where}: finalize != full launch {bits}")
+        out["bitwise_vs_full"] = bits
+        return out
+
     def surplus(self, X, w1, y, gen, where):
         """The sample-surplus kernel in every SURPLUS_CASES case: the
         surplus and the margins u it returns. Both sum k = m terms."""
@@ -435,6 +522,7 @@ def phase_kernels_ragged(K, gen) -> None:
             res["screen_edpp"] = K.edpp(X, y, gen, f"{m}x{n} {dtype}")
             res["screen_d_theta"] = K.d_theta(X, y, gen, f"{m}x{n} {dtype}")
             res["sample_surplus"] = K.surplus(X, w, y, gen, f"{m}x{n} {dtype}")
+            res["partial_modes"] = K.partial(X, w, y, gen, f"{m}x{n} {dtype}")
             emit({"phase": "kernels_ragged", "shape": [m, n], "row_offset": off,
                   "dtype": str(dtype), "bulk_aligned": K.hinge.bulk_aligned(X),
                   "checks": res})
@@ -462,6 +550,7 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         res["screen_edpp"] = K.edpp(Xd, y, gen, f"full {dtype}")
         res["screen_d_theta"] = K.d_theta(Xd, y, gen, f"full {dtype}")
         res["sample_surplus"] = K.surplus(Xd, w, y, gen, f"full {dtype}")
+        res["partial_modes"] = K.partial(Xd, w, y, gen, f"full {dtype}")
         require(res["margin_vm%d" % m]["variant"] == "bulk"
                 and res["grad_vm%d" % m]["variant"] == "bulk"
                 and res["sample_surplus"]["hist=True dw=0.37 variant"] == "bulk",
@@ -1654,6 +1743,322 @@ def phase_chunked_small_vs_plain(PathDriver, FeatureChunked, lipschitz_estimate,
     emit(out)
 
 
+def grid_rank(grid, arrays, cfg) -> dict:
+    """One rank of the sharded phases (spawned: ``core/distributed.py``
+    ``run_grid``, gloo; the ranks share the one card, or run on the CPU).
+    Copies its block of the memory-mapped X to its device; with ``lam1``,
+    step 1's screen from the closed-form anchor (``screen_sharded``); with
+    ``path``, the sharded scan path; with ``host``, the launcher's host lane
+    (composite); with ``small``, the bench instance's paths (feature_vi,
+    edpp, dvi on the scan lane, composite on the host lane). Each path runs
+    with the launch counts set to 0 just before it and read just after."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.path_scan import svm_path_scan_sharded
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_svm import run_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = cfg["device"]
+    t_rank = time.perf_counter()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"rank": grid.rank, "backend": grid.backend, "runs": {}}
+
+    def blocks(xk, yk):
+        X = torch.from_numpy(np.array(grid.block(arrays[xk]))).to(dev)
+        return X, torch.from_numpy(np.array(grid.col_block(arrays[yk]))).to(dev)
+
+    def counted(label, fn):
+        ops.reset_launch_counts()
+        D.ALLREDUCE.update(calls=0, bytes=0)
+        t0 = time.perf_counter()
+        res = fn()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out["runs"][label] = {"wall_s": time.perf_counter() - t0,
+                              "launches": ops.launch_counts(),
+                              "allreduce": dict(D.ALLREDUCE)}
+        return res
+
+    if "lam1" in cfg:
+        X, y = blocks("X", "y")
+        theta0 = torch.from_numpy(np.array(grid.col_block(cfg["theta0"]))).to(dev)
+        _, bounds = counted("screen", lambda: D.screen_sharded(
+            grid, X, y, cfg["lmax"], cfg["lam1"], theta0, delta=0.0))
+        out["bounds1"] = D.gather_rows(grid, bounds).cpu().numpy()
+        if "path" in cfg:
+            out["path"] = counted("path", lambda: svm_path_scan_sharded(
+                grid, X, y, device=dev, L=cfg["L"], **cfg["path"]))
+        if "host" in cfg:
+            out["host"] = counted("host", lambda: run_path(
+                grid, X, y, rules="composite", L=cfg["L"], device=dev, **cfg["host"]))
+            # each partial launch on the rank's block while the ranks share the card
+            from repro_torch.kernels import hinge, screen
+            w = torch.full((X.shape[0],), 0.01, device=dev)
+            torch.distributed.barrier()
+            out["partial_ms_shared_card"] = {
+                "margin_partial": timed_ms(lambda: hinge.margin_partial_op(X, w), 20),
+                "screen_partial": timed_ms(lambda: screen.screen_partial_op(X, y, y), 20),
+                "sample_partial": timed_ms(lambda: screen.sample_partial_op(X, w), 20)}
+        del X
+    if "small" in cfg:
+        X, y = blocks("Xs", "ys")
+        for rules in ("feature_vi", "edpp", "dvi"):
+            out[f"small_{rules}"] = counted(f"small_{rules}", lambda: svm_path_scan_sharded(
+                grid, X, y, rules=rules, device=dev, L=cfg["Ls"], **cfg["small"])).objectives
+        out["small_composite"] = counted("small_composite", lambda: run_path(
+            grid, X, y, rules="composite", L=cfg["Ls"], device=dev,
+            **cfg["small_composite"])).objectives
+    out["wall_s"] = time.perf_counter() - t_rank
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    return out
+
+
+def rank_report(outs, grid) -> list:
+    """Per rank: wall, all-reduce calls and bytes, peak device memory, the
+    backend and the partial-mode launches of each run."""
+    partial = ("margin_partial", "margin_finalize", "screen_partial", "screen_finalize",
+               "sample_partial", "sample_finalize")
+    return [{"grid": f"{grid[0]}x{grid[1]}", "rank": o["rank"], "backend": o["backend"],
+             "wall_s": o["wall_s"], "peak_bytes": o["peak_bytes"],
+             "partial_ms_shared_card": o.get("partial_ms_shared_card"),
+             "runs": {k: {"wall_s": v["wall_s"], **v["allreduce"],
+                          "partial_launches": {p: v["launches"][p] for p in partial}}
+                      for k, v in o["runs"].items()}} for o in outs]
+
+
+def phase_sharded_unit_grid(svm_path_scan, svm_path_scan_sharded, svm_grid, ops, X, y,
+                            L) -> tuple:
+    """The sharded scan engine on a 1 x 1 grid in this process (a world of
+    one: every collective is the identity) against ``svm_path_scan(reduce=
+    "mask")`` on the feature path's grid at GRID_ITERS iterations a step
+    (``tol=-1``), with the same L: keep masks, weights, biases, objectives,
+    iterations and gaps bit for bit. Returns the single-device path (the
+    sharded grids' reference) and the 1 x 1 run's launch counts."""
+    t0 = time.perf_counter()
+    kw = dict(n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO, max_iters=GRID_ITERS,
+              tol=-1.0, L=L)
+    single = svm_path_scan(X, y, reduce="mask", device="cuda", **kw)
+    ops.reset_launch_counts()
+    unit = svm_path_scan_sharded(svm_grid(1, 1), X, y, device="cuda", **kw)
+    launches = ops.launch_counts()
+    same = {
+        "keep_masks": bool(np.array_equal(unit.extras["keep_masks"],
+                                          single.extras["keep_masks"])),
+        "weights": bool(np.array_equal(unit.weights, single.weights)),
+        "biases": bool(np.array_equal(unit.biases, single.biases)),
+        "objectives": bool(np.array_equal(unit.objectives, single.objectives)),
+        "iterations": bool(np.array_equal(unit.solver_iters, single.solver_iters)),
+        "gaps": bool(np.array_equal(unit.extras["gaps"], single.extras["gaps"])),
+    }
+    emit({"phase": "sharded_unit_grid", "shape": list(X.shape), "bitwise": same,
+          "kept": unit.kept.tolist(), "launches": launches,
+          "engine": unit.extras["engine"], "seconds": time.perf_counter() - t0})
+    require(all(same.values()), f"1 x 1 sharded scan differs from svm_path_scan: {same}")
+    for name in ("margin_obj", "hinge_grad", "screen_bounds"):
+        require(launches[name] > 0, f"sharded_unit_grid: {name} never launched")
+    return single, launches
+
+
+def phase_sharded_grid(D, screen_bounds, lambda_max_fn, theta_fn, X, y, X_path, y_path,
+                       single, full, composite, L, small) -> dict:
+    """The grids 2 x 2, 4 x 1 and 1 x 4 as spawned ranks sharing the card
+    (gloo over CUDA tensors; the parent saved X once, each rank maps it and
+    copies its block). Step 1's screen from the closed-form anchor: 4 x 1
+    bit for bit the single-device kernel's bounds, the others within
+    rtol/atol 2e-4 and keeping every feature the unscreened solve uses. On
+    2 x 2: the scan path at GRID_ITERS iterations a step (objectives within
+    rel 1e-5 of the single-device scan path, safe against the unscreened
+    path, objectives against float64) and the launcher's host lane with
+    ``composite`` on the composite grid (screened samples at slack 0 in
+    float64, objectives within rel 1e-5 of ``PathDriver(composite, mask)``
+    at the same iterations); the 2 x 2 ranks also run the bench instance
+    for :func:`phase_sharded_small_vs_plain`. Returns rank 0's 2 x 2 runs
+    (launch counts) and the bench results."""
+    t_phase = time.perf_counter()
+    lams = single.lambdas
+    lmax = lambda_max_fn(X, y)
+    theta0 = theta_fn(y, lmax)
+    want = screen_bounds(X, y, lmax, float(lams[1]), theta0).cpu().numpy()
+    support, _ = missed_features(full, 1, np.ones(X.shape[0], bool))
+    out = {"phase": "sharded_grid", "shape": list(X.shape), "iters": GRID_ITERS,
+           "grids": {}}
+    arrays = {"X": X_path, "y": y_path, "Xs": small["X"], "ys": small["y"]}
+    path_kw = dict(n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO,
+                   max_iters=GRID_ITERS, tol=-1.0)
+    host_kw = dict(n_lambdas=N_LAMBDAS, lam_min_ratio=COMPOSITE_RATIO,
+                   max_iters=GRID_ITERS, tol=-1.0)
+    keep2 = None
+    for grid in GRIDS:
+        t0 = time.perf_counter()
+        cfg = dict(device="cuda", lmax=float(lmax), lam1=float(lams[1]),
+                   theta0=theta0.cpu().numpy(), L=L)
+        if grid == (2, 2):
+            cfg.update(path=path_kw, host=host_kw, small=GRID_SMALL,
+                       small_composite=GRID_SMALL_COMPOSITE, Ls=small["L"])
+        outs = D.run_grid(grid_rank, *grid, arrays, (cfg,), backend="gloo",
+                          device="cuda", timeout=GRID_TIMEOUT_S)
+        for o in outs[1:]:
+            require(np.array_equal(o["bounds1"], outs[0]["bounds1"]),
+                    f"grid {grid}: ranks disagree on the bounds")
+        got = outs[0]["bounds1"]
+        keep = ~(got < 1.0 - 2e-3)
+        g = {"seconds": time.perf_counter() - t0,
+             "bounds_bitwise": bool(np.array_equal(got, want)),
+             "bounds_max_abs_err": float(np.abs(got - want).max()),
+             "kept_step1": int(keep.sum()),
+             "missed_step1": int(np.sum(missed_features(full, 1, keep)[1])),
+             "support_step1": support, "ranks": rank_report(outs, grid)}
+        if grid[1] == 1:
+            require(g["bounds_bitwise"], f"grid {grid}: step-1 bounds not bit for bit")
+        else:
+            require(np.allclose(got, want, rtol=2e-4, atol=2e-4),
+                    f"grid {grid}: step-1 bounds off by {g['bounds_max_abs_err']:.3e}")
+        require(g["missed_step1"] == 0, f"grid {grid}: step 1 screened an active feature")
+        if grid == (2, 2):
+            keep2 = outs[0]
+            r = keep2["path"]
+            rel = float(np.max(np.abs(r.objectives - single.objectives)
+                               / np.abs(single.objectives)))
+            missed = [missed_features(full, k, r.extras["keep_masks"][k])[1]
+                      for k in range(1, SAFETY_STEPS)]
+            g["path"] = {"max_rel_obj_vs_single": rel, "tol": 1e-5,
+                         "kept": r.kept.tolist(), "kept_single": single.kept.tolist(),
+                         "missed": missed, "wall_s": keep2["runs"]["path"]["wall_s"],
+                         "single_wall_s": float(single.extras["total_seconds"])}
+            require(rel <= 1e-5, f"2 x 2 scan path vs single device: rel {rel:.3e}")
+            require(not any(missed), f"2 x 2 scan path screened active features {missed}")
+            phase_objective_check(r, X, y, "sharded_path_objective_f64")
+            h = keep2["host"]
+            rel_h = float(np.max(np.abs(h.objectives - composite.objectives)
+                                 / np.abs(composite.objectives)))
+            rel64, xi_scr = screened_slack_f64(h, X, y)
+            g["host"] = {"max_rel_obj_vs_single": rel_h, "tol": 1e-5,
+                         "kept": h.kept.tolist(), "kept_samples": h.kept_samples.tolist(),
+                         "kept_samples_single": composite.kept_samples.tolist(),
+                         "verify_rounds": h.verify_rounds.tolist(),
+                         "max_rel_obj_f64": rel64, "worst_screened_xi": xi_scr,
+                         "wall_s": keep2["runs"]["host"]["wall_s"]}
+            require(rel_h <= 1e-5, f"2 x 2 host lane vs PathDriver: rel {rel_h:.3e}")
+            require(int(h.kept_samples.min()) < X.shape[1],
+                    "2 x 2 host lane screened no sample")
+            for run in ("path", "host"):
+                la = keep2["runs"][run]["launches"]
+                for name in ("margin_partial", "margin_finalize", "hinge_grad",
+                             "screen_partial", "screen_finalize"):
+                    require(la[name] > 0, f"2 x 2 {run}: {name} never launched")
+            require(keep2["runs"]["host"]["launches"]["sample_partial"] > 0
+                    and keep2["runs"]["host"]["launches"]["sample_finalize"] > 0,
+                    "2 x 2 host lane: the sample kernel's partial mode never launched")
+        out["grids"][f"{grid[0]}x{grid[1]}"] = g
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return keep2
+
+
+def phase_sharded_small_vs_plain(D, card) -> None:
+    """The bench instance (2000 x 400, seed 11) on the 2 x 2 grid: card
+    ranks (from :func:`phase_sharded_grid`) against CPU ranks (gloo on the
+    CPU, the plain versions), the same L, at 60 FISTA iterations a step:
+    ``feature_vi``, ``edpp``, ``dvi`` on the scan lane and ``composite`` on
+    the host lane, objectives within rel 1e-6."""
+    t0 = time.perf_counter()
+    small = card["small_inputs"]
+    cfg = dict(device="cpu", small=GRID_SMALL, small_composite=GRID_SMALL_COMPOSITE,
+               Ls=small["L"])
+    cpu = D.run_grid(grid_rank, 2, 2, {"Xs": small["X"], "ys": small["y"]}, (cfg,),
+                     backend="gloo", device="cpu", timeout=GRID_TIMEOUT_S)[0]
+    out = {"phase": "sharded_small_vs_plain", "shape": list(small["X"].shape),
+           "grid": "2x2", "tol": 1e-6}
+    for key in ("small_feature_vi", "small_edpp", "small_dvi", "small_composite"):
+        rel = float(np.max(np.abs(card[key] - cpu[key]) / np.abs(cpu[key])))
+        out[key] = {"max_rel_obj": rel, "card_wall_s": card["runs"][key]["wall_s"],
+                    "cpu_wall_s": cpu["runs"][key]["wall_s"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    for key, v in out.items():
+        if isinstance(v, dict):
+            require(v["max_rel_obj"] <= 1e-6, f"{key}: card vs CPU rel {v['max_rel_obj']:.3e}")
+
+
+def phase_partial_timing(hinge, screen, shared_scalars, edpp_scalars, X, y) -> dict:
+    """Each partial mode on the full-width block of a 2 x 2 grid (25,000 x
+    5,000 fp32), its plain version and the library call, its finalize, the
+    error against the plain sums, and the least time the card could take;
+    and a partial launch then its finalize on that block against the full
+    launch, bit for bit (the 1 x 1 contract at the block's shape)."""
+    m, n = X.shape[0] // 2, X.shape[1] // 2
+    Xb = X[:m, :n].contiguous()
+    yb = y[:n].contiguous()
+    g = torch.Generator().manual_seed(5)
+    w = (torch.randn(m, generator=g) * 0.01).cuda()
+    theta = (torch.rand(n, generator=g) / 5.0).cuda()
+    b = torch.tensor(0.1, device="cuda")
+    sh = shared_scalars(yb, 5.0, 3.0, theta, delta=1e-3)
+    e = edpp_scalars(yb, 5.0, 3.0, theta, delta=1e-3)
+    u_part = hinge.margin_partial_op(Xb, w)
+    sums = screen.screen_partial_op(Xb, yb, theta)
+    pair = screen.sample_partial_op(Xb, w)
+    bits = {
+        "margin": all(torch.equal(p, q) for p, q in zip(
+            hinge.margin_obj_op(Xb, w, yb, b), hinge.margin_finalize_op(u_part, yb, b))),
+        "screen": torch.equal(screen.screen_bounds_from_shared(Xb, yb, theta, sh),
+                              screen.screen_finalize_op(sums, sh)),
+        "screen_edpp": torch.equal(screen.screen_bounds_edpp(Xb, yb, theta, sh, e),
+                                   screen.screen_finalize_op(sums, sh, edpp=e)),
+        "sample": all(torch.equal(p, q) for p, q in zip(
+            screen.sample_surplus_op(Xb, w, yb, 0.13, 0.37, 0.05),
+            screen.sample_finalize_op(pair, yb, 0.13, 0.37, 0.05))),
+    }
+    require(all(bits.values()), f"partial mode + finalize != full launch: {bits}")
+
+    def err(got, want, scale, k):
+        """The largest error of the sums, each held at its own terms' size
+        (:func:`sums_error`)."""
+        e_, ratio = sums_error(got, want, scale, k)
+        require(ratio <= 1.0, f"partial mode vs plain: max_abs_err {e_:.3e} is "
+                              f"{ratio:.2f} x its tolerance")
+        return e_
+
+    x_bytes = m * n * 4
+    out = {
+        "margin_obj": {
+            "ms": timed_ms(lambda: hinge.margin_partial_op(Xb, w), 20),
+            "finalize_ms": timed_ms(lambda: hinge.margin_finalize_op(u_part, yb, b), 20),
+            "plain_ms": timed_ms(lambda: hinge.margin_partial_plain(Xb, w), 20),
+            "library_ms": timed_ms(lambda: torch.mv(Xb.t(), w), 20),
+            "bytes": x_bytes + m * 4 + n * 4, "flops": 2 * m * n,
+            "max_abs_err": err(u_part, hinge.margin_partial_plain(Xb, w),
+                               hinge.margin_partial_plain(Xb.abs(), w.abs()), m)},
+        "screen_bounds": {
+            "ms": timed_ms(lambda: screen.screen_partial_op(Xb, yb, theta), 20),
+            "finalize_ms": timed_ms(lambda: screen.screen_finalize_op(sums, sh), 20),
+            "plain_ms": timed_ms(lambda: screen.screen_partial_plain(Xb, yb, theta), 20),
+            "library_ms": None,
+            "bytes": x_bytes + 2 * n * 4 + 4 * m * 4, "flops": 7 * m * n,
+            "max_abs_err": err(sums, screen.screen_partial_plain(Xb, yb, theta),
+                               screen.screen_partial_plain(Xb.abs(), yb.abs(), theta.abs()),
+                               n)},
+        "sample_surplus": {
+            "ms": timed_ms(lambda: screen.sample_partial_op(Xb, w), 20),
+            "finalize_ms": timed_ms(lambda: screen.sample_finalize_op(
+                pair, yb, 0.13, 0.37, 0.05), 20),
+            "plain_ms": timed_ms(lambda: screen.sample_partial_plain(Xb, w), 20),
+            "library_ms": timed_ms(lambda: torch.mv(Xb.t(), w), 20),
+            "bytes": x_bytes + m * 4 + 2 * n * 4, "flops": 4 * m * n,
+            "max_abs_err": err(pair, screen.sample_partial_plain(Xb, w),
+                               screen.sample_partial_plain(Xb.abs(), w.abs()), m)},
+    }
+    for v in out.values():
+        t_bytes = v["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = v["flops"] / FP32_FLOPS * 1e3
+        v["bound_ms"] = max(t_bytes, t_ops)
+        v["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    emit({"phase": "partial_timing", "shape": [m, n], "bitwise_vs_full": bits, **out})
+    del Xb
+    return out
+
+
 def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
     """One kernel's entry of the ``kernels`` line: its times, its bound (the
     larger of bytes over the HBM rate and flops over the fp32 rate) and its
@@ -1863,12 +2268,14 @@ def main() -> int:
     from repro_torch.core.dual import lambda_max, theta_at_lambda_max
     from repro_torch.core import solver
     from repro_torch.core.path import PathDriver, svm_path
+    from repro_torch.core import distributed
     from repro_torch.core.path_scan import (
         clear_engine_cache,
         compact_caps_batched,
         engine_cache_info,
         svm_path_batched,
         svm_path_scan,
+        svm_path_scan_sharded,
     )
     from repro_torch.core.solver import lipschitz_estimate
     from repro_torch.core.rules import AutoRule, SampleVIRule
@@ -1934,6 +2341,27 @@ def main() -> int:
         svm_path, ops, solver.CHUNK_ITERS, X, y, res_scan, full)
     phase_engine_memory(clear_engine_cache, engine_cache_info, "scan_dynamic")
     phase_path_walls(svm_path, X, y)
+    # the sharded phases: X saved once for the spawned ranks
+    L_full = float(lipschitz_estimate(X))
+    tmp = tempfile.TemporaryDirectory()
+    X_path, y_path = f"{tmp.name}/X.npy", f"{tmp.name}/y.npy"
+    np.save(X_path, X_host)
+    np.save(y_path, y.cpu().numpy())
+    single, launches_unit = phase_sharded_unit_grid(
+        svm_path_scan, svm_path_scan_sharded, distributed.svm_grid, ops, X, y, L_full)
+    composite = PathDriver(rules="composite", reduce="mask", L=L_full, tol=-1.0,
+                           max_iters=GRID_ITERS, device="cuda").run(
+        X, y, n_lambdas=N_LAMBDAS, lam_min_ratio=COMPOSITE_RATIO)
+    ds_small = make_sparse_classification(m=2000, n=400, seed=11)
+    small = {"X": ds_small.X, "y": ds_small.y,
+             "L": float(lipschitz_estimate(torch.from_numpy(ds_small.X)))}
+    grid22 = phase_sharded_grid(distributed, screen_bounds, lambda_max, theta_at_lambda_max,
+                                X, y, X_path, y_path, single, full, composite, L_full,
+                                small)
+    grid22["small_inputs"] = small
+    phase_sharded_small_vs_plain(distributed, grid22)
+    tmp.cleanup()
+    partial_t = phase_partial_timing(hinge, screen, shared_scalars, edpp_scalars, X, y)
     engine_launches["chunked"] = phase_chunked_path(
         PathDriver, svm_path, ops, sparse, screen, shared_scalars, screen_bounds,
         theta_at_lambda_max, X_host, X, y, res, full, float(lipschitz_estimate(X)))
@@ -1949,6 +2377,24 @@ def main() -> int:
         for label, counts in engine_launches.items():
             row[f"launches_{label}_path"] = int(counts[row["name"]])
             row[f"skipped_{label}_path"] = int(counts.get(f"skipped_{row['name']}", 0))
+
+    partial_names = {"margin_obj": ("margin_partial", "margin_finalize"),
+                     "screen_bounds": ("screen_partial", "screen_finalize"),
+                     "sample_surplus": ("sample_partial", "sample_finalize")}
+    for row in rows:  # the partial modes: times on a 2 x 2 block, sharded launches
+        names = partial_names.get(row["name"])
+        if names is None:
+            continue
+        t = partial_t[row["name"]]
+        row["partial_mode"] = {
+            "kernels": list(names), "shape": [X.shape[0] // 2, X.shape[1] // 2],
+            **{k: t[k] for k in ("ms", "finalize_ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by")},
+            "max_abs_err": max(t["max_abs_err"], K.max_err[names[0]]),
+            **{f"launches_{run}_2x2_rank0": {nm: int(grid22["runs"][run]["launches"][nm])
+                                             for nm in names}
+               for run in ("path", "host")}}
+        row["launches_sharded_unit_grid"] = int(launches_unit[row["name"]])
 
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)

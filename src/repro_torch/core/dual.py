@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from .screening import row_dot
+from .solver import Collectives, _identity, is_local
 
 __all__ = [
     "safe_theta_and_delta",
@@ -30,6 +31,9 @@ __all__ = [
     "dual_objective",
     "duality_gap_estimate",
     "GapEstimate",
+    "bias_at_lambda_max_sharded",
+    "lambda_max_sharded",
+    "theta_at_lambda_max_sharded",
 ]
 
 
@@ -124,3 +128,37 @@ def safe_theta_and_delta(X, y, w, b, lam, n_feas_iters: int = 8):
         torch.as_tensor(float(n), dtype=y.dtype, device=y.device))
     delta = (est.theta_radius + 2.0 * eq_resid) / lam
     return est.alpha / lam, delta
+
+
+# -- sharded forms: X, y and theta are a rank's blocks of a grid -------------
+# (core/distributed.py); ``col`` its reductions, ``n_total`` the samples of
+# the whole X. The reference computes these on the whole X before its
+# shard_map; a rank here holds only its block. A local ``col`` runs the
+# single-device function.
+
+
+def bias_at_lambda_max_sharded(y_blk: torch.Tensor, col: Collectives,
+                               n_total: int) -> torch.Tensor:
+    """``b* = psum_data(sum y) / n`` on every rank (the local mean when the
+    sample axis is whole)."""
+    if col.psum_data is _identity:
+        return bias_at_lambda_max(y_blk)
+    return col.psum_data(torch.sum(y_blk)) / float(n_total)
+
+
+def lambda_max_sharded(X_blk: torch.Tensor, y_blk: torch.Tensor,
+                       col: Collectives, n_total: int) -> torch.Tensor:
+    """``pmax_model |psum_data X_blk (y_blk - b*)|`` on every rank."""
+    if is_local(col):
+        return lambda_max(X_blk, y_blk)
+    b = bias_at_lambda_max_sharded(y_blk, col, n_total)
+    corr = col.psum_data(row_dot(X_blk, y_blk - b))
+    return col.pmax_model(torch.max(torch.abs(corr)))
+
+
+def theta_at_lambda_max_sharded(y_blk: torch.Tensor, lam_max, col: Collectives,
+                                n_total: int) -> torch.Tensor:
+    """The rank's block of the closed-form dual point at ``lam_max``."""
+    if is_local(col):
+        return theta_at_lambda_max(y_blk, lam_max)
+    return (1.0 - y_blk * bias_at_lambda_max_sharded(y_blk, col, n_total)) / lam_max

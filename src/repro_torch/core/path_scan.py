@@ -83,23 +83,35 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.ops import screen_bounds_edpp, screen_bounds_from_shared
 from . import solver
-from .dual import bias_at_lambda_max, lambda_max, theta_at_lambda_max
+from .dual import (
+    bias_at_lambda_max,
+    bias_at_lambda_max_sharded,
+    lambda_max,
+    lambda_max_sharded,
+    theta_at_lambda_max,
+    theta_at_lambda_max_sharded,
+)
 from .path import PathResult, _validate_grid, default_lambda_grid
 from .rules.programs import PROGRAMS, resolve_programs, stack_needs_history
 from .screening import SAFE_TAU, edpp_scalars_from_stats, shared_scalars_from_stats
 from .solver import (
     HEALTH_SCREEN_REFUSED,
+    LOCAL,
+    Collectives,
+    _identity,
     fista_run,
     fista_run_dynamic,
     gap_theta_delta,
     host_fetch,
     lipschitz_estimate,
+    region_stats,
+    seam_screen_bounds,
 )
 
 __all__ = [
     "svm_path_scan",
+    "svm_path_scan_sharded",
     "svm_path_batched",
     "ScanPathOutputs",
     "compact_caps",
@@ -205,47 +217,49 @@ def _batched_statics(X, y, sm, shared_x: bool) -> tuple:
 # -- the screen ------------------------------------------------------------------
 
 
-def _region_stats(y, statics, lam2, anchor) -> dict:
+def _region_stats(y, statics, lam2, anchor, col=LOCAL) -> dict:
     """The arguments of ``shared_scalars_from_stats`` for the region
-    anchored at ``anchor = (lam, theta, delta)`` targeting ``lam2``."""
+    anchored at ``anchor = (lam, theta, delta)`` targeting ``lam2`` (the
+    theta statistics summed over the grid's samples under ``col``)."""
     lam_a, theta, delta = anchor
-    one_y, n_tot = statics
-    return dict(lam1=lam_a, lam2=lam2, one_y=one_y, theta_dot_one=torch.sum(theta),
-                theta_dot_y=theta @ y, theta_sq=theta @ theta, n_tot=n_tot,
-                delta=delta)
+    return dict(lam1=lam_a, lam2=lam2, delta=delta,
+                **region_stats(y, theta, col, statics=statics))
 
 
-def _vi_bounds(X, y, sm, statics, lam2, anchor):
+def _vi_bounds(X, y, sm, statics, lam2, anchor, col=LOCAL):
     """The VI bound of one anchor: one launch of the feature screen (its
-    weighted instantiation under a sample mask)."""
-    sh = shared_scalars_from_stats(**_region_stats(y, statics, lam2, anchor))
-    return screen_bounds_from_shared(X, y, anchor[1], sh, weights=sm)
+    weighted instantiation under a sample mask; sharded over samples, its
+    partial mode, the all-reduce and its finalize)."""
+    sh = shared_scalars_from_stats(**_region_stats(y, statics, lam2, anchor, col))
+    return seam_screen_bounds(X, y, anchor[1], sh, col, weights=sm)
 
 
-def _edpp_bounds(X, y, sm, statics, lam2, anchor):
+def _edpp_bounds(X, y, sm, statics, lam2, anchor, col=LOCAL):
     """The EDPP bound of one anchor (min-composed with its VI bound): one
-    launch of the feature screen's EDPP mode."""
+    launch of the feature screen's EDPP mode (sharded over samples: the
+    partial mode and the EDPP finalize)."""
     if sm is not None:
         raise NotImplementedError(
             "the edpp program under a sample mask needs a weighted EDPP mode "
             "of the feature-screen kernel, which the port does not have yet; "
             "use rules='feature_vi' or 'dvi' with a sample mask")
-    kw = _region_stats(y, statics, lam2, anchor)
-    return screen_bounds_edpp(X, y, anchor[1], shared_scalars_from_stats(**kw),
-                              edpp_scalars_from_stats(**kw))
+    kw = _region_stats(y, statics, lam2, anchor, col)
+    return seam_screen_bounds(X, y, anchor[1], shared_scalars_from_stats(**kw), col,
+                              edpp=edpp_scalars_from_stats(**kw))
 
 
-def _stack_bounds(progs, X, y, sm, statics, lam2, anchors):
+def _stack_bounds(progs, X, y, sm, statics, lam2, anchors, col=LOCAL):
     """Elementwise min of the stack's bounds (the reference's
     ``stack_bounds`` over its programs), each program from the kernel.
     ``anchors`` are oldest to latest; a two-anchor program (``dvi``) takes
     the min with the older anchor's VI bound while that anchor's lambda
-    exceeds ``lam2``."""
+    exceeds ``lam2``. ``col``: a sharded seam (X the rank's block; the
+    statics and anchors' lambdas global)."""
     memo = {}
 
     def vi(i):
         if i not in memo:
-            memo[i] = _vi_bounds(X, y, sm, statics, lam2, anchors[i])
+            memo[i] = _vi_bounds(X, y, sm, statics, lam2, anchors[i], col)
         return memo[i]
 
     out = None
@@ -253,7 +267,7 @@ def _stack_bounds(progs, X, y, sm, statics, lam2, anchors):
         if name == "feature_vi":
             b = vi(-1)
         elif name == "edpp":
-            b = _edpp_bounds(X, y, sm, statics, lam2, anchors[-1])
+            b = _edpp_bounds(X, y, sm, statics, lam2, anchors[-1], col)
         elif name == "dvi":
             b = vi(-1)
             if len(anchors) >= 2:
@@ -329,7 +343,7 @@ def _solve(Xs, ye, sme, lam, w0, b0, fms, inv_L, vm, o):
                                  o["max_iters"], o["tol"], o["screen_every"],
                                  o["tau"], 4, valid_m=vm)
     return fista_run(Xs, ye, lam, w0, b0, inv_L, sme, fms, o["max_iters"],
-                     o["tol"], valid_m=vm)
+                     o["tol"], valid_m=vm, col=o["col"])
 
 
 def _solve_element(Xe, ye, sme, lam, inv_L, w, b, fmask, cap, kept, o):
@@ -338,7 +352,8 @@ def _solve_element(Xe, ye, sme, lam, inv_L, w, b, fmask, cap, kept, o):
     ``cap``-row buffer. Returns ``(w over all m rows, result)``."""
     m = Xe.shape[0]
     if cap == m:
-        inv = (_inv_L(lipschitz_estimate(Xe, row_mask=fmask))
+        inv = (_inv_L(lipschitz_estimate(Xe, row_mask=fmask, col=o["col"],
+                                         cols=o["cols"]))
                if o["exact_lipschitz"] else inv_L)
         res = _solve(Xe, ye, sme, lam, w * fmask, b, fmask, inv, None, o)
         return res.w, res
@@ -362,7 +377,8 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
                        caps: tuple, shared_x: bool, max_iters: int,
                        screening: bool, dynamic: bool, screen_every: int,
                        exact_lipschitz: bool, rules: tuple = ("feature_vi",),
-                       n_feas_iters: int = 8, telemetry: Optional[dict] = None):
+                       n_feas_iters: int = 8, telemetry: Optional[dict] = None,
+                       col: Collectives = LOCAL, cols: Optional[tuple] = None):
     """One batched lambda step: screen every element, pick one shared
     compact capacity, solve and certify every element (the reference's
     ``_batched_path_step``; a single path is B = 1).
@@ -375,7 +391,9 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
     so a padded element solves its unpadded problem. One host fetch: every
     element's kept count (the shared capacity is the batch-max over the
     live ones). ``telemetry`` (a dict) receives each element's solve
-    seconds under ``"solve_seconds"``. Returns ``(carry', out)``, every
+    seconds under ``"solve_seconds"``. ``col`` (with ``cols``, the rank's
+    first column and the whole n): a sharded seam, X the rank's block, the
+    counts summed over the feature axis. Returns ``(carry', out)``, every
     :class:`ScanPathOutputs` leaf leading with B."""
     m, n = X.shape[-2], X.shape[-1]
     B = lam.shape[0]
@@ -403,7 +421,7 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
             anchors = ((lam_prev[e], theta[e], delta[e]),)
             if hist:
                 anchors = ((lam_old[e], theta_old[e], delta_old[e]),) + anchors
-            bounds = _stack_bounds(progs, Xe, ye, sme, st, lam[e], anchors)
+            bounds = _stack_bounds(progs, Xe, ye, sme, st, lam[e], anchors, col)
             keeps.append((~(bounds < tau)) | ~ok)
         else:
             keeps.append(torch.ones((m,), dtype=torch.bool, device=X.device))
@@ -411,8 +429,9 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
     keep = torch.stack(keeps)
     anchor_ok = torch.stack(oks)
     fmask = keep.to(X.dtype)
-    kept_ct = torch.sum(keep, dim=1).to(torch.int32)
-    resurrected = torch.sum(keep & (fmask_prev < 0.5), dim=1).to(torch.int32)
+    kept_ct = col.psum_model(torch.sum(keep, dim=1).to(torch.int32))
+    resurrected = col.psum_model(
+        torch.sum(keep & (fmask_prev < 0.5), dim=1).to(torch.int32))
 
     # -- one fetch: the kept counts pick the shared capacity
     kept_h, act_h = host_fetch(torch.stack([kept_ct, act.to(torch.int32)]), "step")
@@ -422,7 +441,8 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
 
     # -- solve and certify, one element after another
     o = dict(max_iters=max_iters, tol=tol, dynamic=dynamic,
-             screen_every=screen_every, tau=tau, exact_lipschitz=exact_lipschitz)
+             screen_every=screen_every, tau=tau, exact_lipschitz=exact_lipschitz,
+             col=col, cols=cols)
     outs, secs = [], []
     for e in range(B):
         Xe, ye, sme, _ = elem(e)
@@ -431,7 +451,8 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
                                  fmask[e], cap, kept_h[e], o)
         secs.append(time.perf_counter() - t0)
         theta2, delta2, gap = gap_theta_delta(Xe, ye, w2, res.b, lam[e], sme,
-                                              n_feas_iters=n_feas_iters, u=res.u)
+                                              n_feas_iters=n_feas_iters, u=res.u,
+                                              col=col)
         outs.append((w2, res.b, res.obj, res.n_iters, res.converged, gap, delta2,
                      theta2, res.health))
     if telemetry is not None:
@@ -441,7 +462,7 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
     refused = torch.where(anchor_ok, 0, HEALTH_SCREEN_REFUSED).to(torch.int32)
     out = ScanPathOutputs(
         w=w2, b=b2, obj=obj, kept=kept_ct,
-        active=torch.sum(torch.abs(w2) > 1e-10, dim=1).to(torch.int32),
+        active=col.psum_model(torch.sum(torch.abs(w2) > 1e-10, dim=1).to(torch.int32)),
         n_iters=n_it.to(torch.int32), converged=conv, gap=gap, delta=delta2,
         fmask=keep, cap=torch.full((B,), cap, dtype=torch.int32, device=X.device),
         resurrected=resurrected, health=health.to(torch.int32) | refused)
@@ -461,7 +482,9 @@ def _batched_path_scan_program(X, y, sm, lambdas, w0, b0, theta0, delta0, lam0,
                                exact_lipschitz: bool, reduce: str = "compact",
                                rules: tuple = ("feature_vi",),
                                shared_x: bool = False, n_feas_iters: int = 8,
-                               telemetry: Optional[dict] = None) -> ScanPathOutputs:
+                               telemetry: Optional[dict] = None,
+                               col: Collectives = LOCAL,
+                               cols: Optional[tuple] = None) -> ScanPathOutputs:
     """B whole paths, the grid walked step by step over the batch
     (:func:`_batched_path_step`); outputs lead with (B, T).
 
@@ -474,10 +497,12 @@ def _batched_path_scan_program(X, y, sm, lambdas, w0, b0, theta0, delta0, lam0,
     B, T = lambdas.shape
     caps = compact_caps(m) if reduce == "compact" else ()
     if L is None:
-        L = (lipschitz_estimate(X) if shared_x
+        L = (lipschitz_estimate(X, col=col, cols=cols) if shared_x
              else torch.stack([lipschitz_estimate(X[e]) for e in range(B)]))
     inv_L = torch.broadcast_to(_inv_L(torch.as_tensor(L, device=dev)), (B,))
     statics = _batched_statics(X, y, sm, shared_x)
+    if col.psum_data is not _identity:
+        statics = tuple(col.psum_data(torch.stack(statics)))
     act = torch.ones((B,), dtype=torch.bool, device=dev)
 
     def bc(v, shape):
@@ -496,7 +521,7 @@ def _batched_path_scan_program(X, y, sm, lambdas, w0, b0, theta0, delta0, lam0,
             caps=caps, shared_x=shared_x, max_iters=max_iters, screening=screening,
             dynamic=dynamic, screen_every=screen_every,
             exact_lipschitz=exact_lipschitz, rules=rules,
-            n_feas_iters=n_feas_iters, telemetry=telemetry)
+            n_feas_iters=n_feas_iters, telemetry=telemetry, col=col, cols=cols)
         steps.append(out)
     return ScanPathOutputs(*(torch.stack(list(v), dim=1) for v in zip(*steps)))
 
@@ -506,15 +531,18 @@ def _path_scan_program(X, y, lambdas, w0, b0, theta0, delta0, lam0, L, tau, tol,
                        screen_every: int, exact_lipschitz: bool,
                        reduce: str = "mask", rules: tuple = ("feature_vi",),
                        n_feas_iters: int = 8,
-                       telemetry: Optional[dict] = None) -> ScanPathOutputs:
+                       telemetry: Optional[dict] = None,
+                       col: Collectives = LOCAL,
+                       cols: Optional[tuple] = None) -> ScanPathOutputs:
     """The single-path program (the reference's): one element of
     :func:`_batched_path_scan_program`. ``lambdas`` (T,) on X's device;
-    outputs lead with T."""
+    outputs lead with T. ``col``, ``cols``: a sharded seam (mask mode)."""
     outs = _batched_path_scan_program(
         X, y, None, lambdas[None, :], w0, b0, theta0, delta0, lam0, L, tau, tol,
         max_iters=max_iters, screening=screening, dynamic=dynamic,
         screen_every=screen_every, exact_lipschitz=exact_lipschitz, reduce=reduce,
-        rules=rules, shared_x=True, n_feas_iters=n_feas_iters, telemetry=telemetry)
+        rules=rules, shared_x=True, n_feas_iters=n_feas_iters, telemetry=telemetry,
+        col=col, cols=cols)
     return ScanPathOutputs(*(v[0] for v in outs))
 
 
@@ -720,3 +748,83 @@ def svm_path_batched(X, y, lambdas: Optional[np.ndarray] = None,
         r.extras.update(total_seconds=float(wall_s), batch=B, batch_index=i)
         results.append(r)
     return results
+
+
+def svm_path_scan_sharded(grid, X, y, lambdas: Optional[Sequence[float]] = None,
+                          n_lambdas: int = 10, lam_min_ratio: float = 0.1, *,
+                          screening: bool = True, tau: float = SAFE_TAU,
+                          tol: float = 1e-9, max_iters: int = 4000,
+                          dynamic: bool = False, exact_lipschitz: bool = False,
+                          rules=None, L=None, device="cuda") -> PathResult:
+    """The scan engine on a grid of ranks (reference
+    ``svm_path_scan_sharded``): every rank of ``grid``
+    (``distributed.svm_grid``) calls it with its block of X and its columns
+    of y, and runs the steps of :func:`svm_path_scan` with the grid's seam.
+
+    Per step: the screen from the carried anchor(s) (a grid with
+    ``data == 1`` launches the feature screen on the rank's rows with global
+    scalars; otherwise its partial mode, the all-reduce over samples and its
+    finalize, for ``feature_vi``, ``edpp`` and ``dvi`` alike), the mask-mode
+    solve (``solver.fista_run`` with the seam), the certificate
+    (``gap_theta_delta`` with the seam); kept, active and resurrected counts
+    are summed over features. ``lambda_max`` and the anchor at it come from
+    all-reduced sums (``dual.lambda_max_sharded``); L from the sharded power
+    iteration, which starts from the single-device start vector. On a ``1 x
+    1`` grid every collective is the identity and the result is
+    :func:`svm_path_scan`'s (``reduce="mask"``) bit for bit.
+
+    Mask reduction only (compaction indexes global rows), no dynamic
+    in-solver re-screen (the reference's ``ValueError``). Every rank returns
+    the same :class:`PathResult`: weights and keep masks are gathered over
+    the feature axis. ``extras`` add ``grid``, ``backend`` and
+    ``allreduce`` (calls and bytes of this rank)."""
+    from .distributed import ALLREDUCE, gather_rows  # lazy: distributed imports us
+
+    if dynamic:
+        raise ValueError(
+            "dynamic in-solver screening is not supported on the sharded scan "
+            "engine (nor on the reference's); use svm_path_scan(dynamic=True) on "
+            "one device, or the host engine (svm_path(dynamic=True))")
+    static_kw = _static_opts(max_iters, screening, False, 1, exact_lipschitz, "mask",
+                             rules)
+    opts = dict(static_kw)
+    col = grid.col
+    dev = resolve_device(device)
+    X = torch.as_tensor(X).to(dev).contiguous()
+    y = torch.as_tensor(y).to(device=dev, dtype=X.dtype)
+    m_loc, n_loc = X.shape
+    m, n = grid.shape(X)
+    cols = (grid.j * n_loc, n)
+    before = _counters()
+    ar0 = dict(ALLREDUCE)
+    t0 = time.perf_counter()
+    lam_max_t = lambda_max_sharded(X, y, col, n)
+    lam_max_val = float(host_fetch(lam_max_t, "setup"))
+    if lambdas is None:
+        lambdas = default_lambda_grid(lam_max_val, n_lambdas, lam_min_ratio)
+    lambdas = _validate_grid(lambdas)
+    lam0 = lam_max_t.to(X.dtype)
+    if L is None:
+        L = lipschitz_estimate(X, col=col, cols=cols)
+    tele: dict = {}
+    outs = _path_scan_program(
+        X, y, torch.as_tensor(lambdas, dtype=X.dtype).to(dev),
+        torch.zeros((m_loc,), dtype=X.dtype, device=dev),
+        bias_at_lambda_max_sharded(y, col, n),
+        theta_at_lambda_max_sharded(y, lam0, col, n),
+        torch.zeros((), dtype=X.dtype, device=dev), lam0, L, float(tau), float(tol),
+        max_iters=opts["max_iters"], screening=opts["screening"], dynamic=False,
+        screen_every=opts["screen_every"], exact_lipschitz=opts["exact_lipschitz"],
+        reduce="mask", rules=opts["rules"], telemetry=tele, col=col, cols=cols)
+    outs = outs._replace(w=gather_rows(grid, outs.w),
+                         fmask=gather_rows(grid, outs.fmask.to(torch.int32)) > 0,
+                         cap=torch.full_like(outs.cap, m))
+    outs = _to_host(outs)
+    wall_s = time.perf_counter() - t0
+    extras = {"solve_seconds": np.asarray([s[0] for s in tele["solve_seconds"]]),
+              "grid": {"model": grid.model, "data": grid.data},
+              "backend": grid.backend,
+              "allreduce": {k: ALLREDUCE[k] - ar0[k] for k in ALLREDUCE},
+              **_counters_since(before)}
+    return _to_path_result(lambdas, outs, lam_max_val, wall_s, static_kw, "scan_sharded",
+                           extras)

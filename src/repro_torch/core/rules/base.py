@@ -182,6 +182,7 @@ def solve_with_verification(
     y: torch.Tensor,
     s_mask: np.ndarray,
     max_rounds: int = 3,
+    violators: Optional[Callable] = None,
 ):
     """The verified sample-screening protocol (reference
     ``solve_with_verification``), on device tensors.
@@ -195,6 +196,10 @@ def solve_with_verification(
     solve), so the loop ends and the accepted solution satisfies every
     screened sample's ``xi_i = 0`` certificate.
 
+    ``violators`` (optional) replaces the rules' check for a sharded X: a
+    function ``(w_full, b, screened host indices) -> host indices`` that
+    every rank answers alike (``distributed.sample_violators_sharded``).
+
     Mutates ``s_mask`` in place; returns ``(result, w_full, b, rounds)``.
     """
     verifying = [r for r in sample_rules if r.needs_verification]
@@ -203,9 +208,12 @@ def solve_with_verification(
         res, w_full, b = solve(s_mask)
         if s_mask.all() or not verifying:
             return res, w_full, b, rounds
-        scr_idx = torch.from_numpy(np.nonzero(~s_mask)[0]).to(X.device)
-        viol = torch.cat([r.verify(X, y, w_full, b, scr_idx)
-                          for r in verifying]).cpu().numpy()
+        if violators is not None:
+            viol = violators(w_full, b, np.nonzero(~s_mask)[0])
+        else:
+            scr_idx = torch.from_numpy(np.nonzero(~s_mask)[0]).to(X.device)
+            viol = torch.cat([r.verify(X, y, w_full, b, scr_idx)
+                              for r in verifying]).cpu().numpy()
         if len(viol) == 0:
             return res, w_full, b, rounds
         rounds += 1

@@ -37,6 +37,7 @@ import torch
 
 from ...kernels.ops import sample_surplus_op
 from ..screening import _EPS, _t_max
+from ..solver import _identity
 from .base import AXIS_SAMPLES, ConvexRegion, ScreeningRule, register_rule
 
 __all__ = ["SampleVIRule", "sample_slack_caps", "sample_margin_surplus",
@@ -157,9 +158,18 @@ class SampleVIRule(ScreeningRule):
     def keep(self, bounds: torch.Tensor) -> torch.Tensor:
         return ~(bounds >= 0.0)
 
-    def verify(self, X, y, w, b, screened_idx) -> torch.Tensor:
+    def verify(self, X, y, w, b, screened_idx, col=None) -> torch.Tensor:
         """Screened samples whose margin at ``(w, b)`` is below 1, tested
         in float64 over the support of ``w`` on X's device
-        (:func:`margins_f64`)."""
-        margins = margins_f64(X, w, b, screened_idx)
+        (:func:`margins_f64`). ``col`` (a sharded seam,
+        ``core/distributed.py``): X is the rank's block and ``w`` its rows;
+        the float64 partial margins of the rank's rows are summed over the
+        feature axis in float64 before ``b`` is added and the test is made
+        (never on fp32 sharded margins)."""
+        if col is None or col.psum_model is _identity:
+            margins = margins_f64(X, w, b, screened_idx)
+        else:
+            margins = col.psum_model(margins_f64(X, w, 0.0, screened_idx))
+            margins = margins + torch.as_tensor(b, dtype=torch.float64,
+                                                device=margins.device)
         return violators_from_margins(y, margins, screened_idx)

@@ -45,6 +45,21 @@ inputs (:func:`graph_cache_info`). On a CPU X the chunk runs eagerly.
 :func:`fista_run_dynamic` runs it in segments with the dynamic refresh on
 the device between them, one fetch a segment. :data:`FETCHES` counts the
 host fetches of both loops, :data:`GRAPHS` the captures and replays.
+
+The reduction seam (:class:`Collectives`, reference ``solver.py``): the
+scan engines' loop, the certificate, the dynamic refresh and the Lipschitz
+estimate take ``col``, four reductions over the two axes of a sharded X
+(``core/distributed.py``): margins and L1 norms over the feature axis,
+gradients and losses over the sample axis. :data:`LOCAL` binds them to the
+identity, the single-device program, op for op. Under a sharded seam X is
+the rank's block; margins come from the margin kernel's partial mode, the
+all-reduce and its finalize (``kernels/hinge.py``); every decision reads
+all-reduced values (the guard's non-finite test the all-reduced
+objective), so every rank takes it alike; the chunks run eagerly (a
+collective of another process cannot be captured),
+and the host reads the all-reduced ``go`` and restart flags each iteration
+(``FETCHES["sharded"]``), so a restart's sweeps and collectives run only
+when it fires, as under the reference's ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -56,10 +71,22 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.ops import hinge_grad_op, margin_obj_op, screen_bounds_from_shared
+from ..kernels.ops import (
+    hinge_grad_op,
+    margin_finalize_op,
+    margin_obj_op,
+    margin_partial_op,
+    screen_bounds_edpp,
+    screen_bounds_from_shared,
+    screen_finalize_op,
+    screen_partial_op,
+)
 from .screening import SAFE_TAU, shared_scalars_from_stats
 
 __all__ = [
+    "Collectives",
+    "LOCAL",
+    "is_local",
     "FistaState",
     "FistaResult",
     "DynamicFistaResult",
@@ -73,6 +100,8 @@ __all__ = [
     "fista_run_dynamic",
     "gap_theta_delta",
     "refresh_bounds",
+    "region_stats",
+    "seam_screen_bounds",
     "host_fetch",
     "graph_cache_info",
     "clear_graph_cache",
@@ -80,6 +109,32 @@ __all__ = [
     "FETCHES",
     "GRAPHS",
 ]
+
+class Collectives(NamedTuple):
+    """The four cross-shard reductions of the solver's math (reference
+    ``solver.Collectives``): each takes a tensor and returns its reduction,
+    a new tensor, on every rank of the axis."""
+
+    psum_model: object  # sum over the feature axis (margins, sum |w|)
+    psum_data: object   # sum over the sample axis (gradients, losses)
+    psum_bias: object   # the bias gradient's sum over the samples
+    pmax_model: object  # max over the feature axis (dual feasibility, guard)
+
+
+def _identity(x):
+    return x
+
+
+#: The single-device binding: every reduction is the identity, so the
+#: sharded code paths are the local program op for op (a trivial all-reduce
+#: would still cost a call, and a grid axis of size 1 binds to this).
+LOCAL = Collectives(_identity, _identity, _identity, _identity)
+
+
+def is_local(col: Collectives) -> bool:
+    """True when every reduction of ``col`` is the identity."""
+    return all(f is _identity for f in col)
+
 
 #: Cap on health-guard rollbacks per solve. Each trip halves the step size;
 #: a solve still tripping after 8 is unrecoverable (poisoned operands).
@@ -105,9 +160,11 @@ CHUNK_ITERS = 8
 #: iteration, two with a restart), ``"chunk"`` :func:`fista_run`'s ``go``
 #: flag, ``"segment"`` a dynamic refresh of :func:`fista_run_dynamic`,
 #: ``"step"`` a scan-engine step's kept counts (its compact buffer is picked
-#: on the host), ``"setup"`` and ``"result"`` a scan path's first and last.
+#: on the host), ``"setup"`` and ``"result"`` a scan path's first and last,
+#: ``"sharded"`` a sharded loop's per-iteration reads of ``go`` and of the
+#: restart flag.
 FETCHES = {"host_loop": 0, "chunk": 0, "segment": 0, "step": 0, "setup": 0,
-           "result": 0}
+           "result": 0, "sharded": 0}
 #: CUDA graphs of :func:`fista_run` chunks: captures and replays
 GRAPHS = {"captures": 0, "replays": 0}
 
@@ -164,7 +221,9 @@ def soft_threshold(x: torch.Tensor, tau) -> torch.Tensor:
 
 def lipschitz_estimate(X: torch.Tensor, n_iters: int = 100,
                        generator: Optional[torch.Generator] = None,
-                       row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       row_mask: Optional[torch.Tensor] = None,
+                       col: Collectives = LOCAL,
+                       cols: Optional[tuple] = None) -> torch.Tensor:
     """Power iteration for ``sigma_max([X; 1^T])^2`` (augmented bias row).
 
     100 iterations, not the reference's 30: on the 2000 x 400 bench instance
@@ -175,30 +234,54 @@ def lipschitz_estimate(X: torch.Tensor, n_iters: int = 100,
     start alike). Returns a 0-d tensor on X's device; it never exceeds the
     true value beyond rounding. ``row_mask`` (0/1 over rows) estimates for
     ``X * row_mask[:, None]`` without making that copy of X.
+
+    Sharded (``col`` not :data:`LOCAL`): X is the rank's block and ``cols =
+    (first column, n of the whole X)``; every rank draws the whole start
+    vector and takes its columns, so the estimate starts where the
+    single-device one does, and the two GEMVs and the norms are reduced
+    over the grid (reference ``lipschitz_estimate(col=)``).
     """
     n = X.shape[1]
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    v = torch.randn(n, generator=generator, device=generator.device,
-                    dtype=X.dtype).to(X.device)
+    c0, n_all = cols if cols is not None else (0, n)
+    v = torch.randn(n_all, generator=generator, device=generator.device,
+                    dtype=X.dtype)[c0:c0 + n].to(X.device)
+
+    def norm(v):
+        if col.psum_data is _identity:
+            return torch.linalg.vector_norm(v)
+        return torch.sqrt(col.psum_data(torch.sum(v * v)))
+
     for _ in range(n_iters):
-        v = v / torch.clamp_min(torch.linalg.vector_norm(v), 1e-30)
-        u_w = torch.mv(X, v)
+        v = v / torch.clamp_min(norm(v), 1e-30)
+        u_w = col.psum_data(torch.mv(X, v))
         if row_mask is not None:
             u_w = u_w * row_mask
-        v = torch.mv(X.t(), u_w) + torch.sum(v)
-    return torch.linalg.vector_norm(v)  # ||A^T A v|| with ||v|| = 1
+        v = col.psum_model(torch.mv(X.t(), u_w)) + col.psum_data(torch.sum(v))
+    return norm(v)  # ||A^T A v|| with ||v|| = 1
 
 
-def _margin_obj_sweep(X, y, lam, w, b, sm, valid_m, flag=None):
+def _margin_obj_sweep(X, y, lam, w, b, sm, valid_m, flag=None, col=LOCAL):
     """One fused pass over X: ``(u = X^T w, objective(w, b))``. With a sample
     mask the O(n) masked loss is recomputed from the returned slacks.
-    ``flag``: the sweep's predicate (``kernels/hinge.py``)."""
-    u, xi, loss = margin_obj_op(X, w, y, b, valid_m, flag)
+    ``flag``: the sweep's predicate (``kernels/hinge.py``). Under a seam
+    that sums over features, the margin kernel's partial mode, then one
+    all-reduce of the partial margins with the rank's ``sum |w|`` packed
+    behind them, then the kernel's finalize; the loss is then summed over
+    samples."""
+    l1 = torch.sum(torch.abs(w))
+    if col.psum_model is _identity:
+        u, xi, loss = margin_obj_op(X, w, y, b, valid_m, flag)
+    else:
+        packed = col.psum_model(torch.cat([margin_partial_op(X, w, valid_m, flag),
+                                           l1.reshape(1)]))
+        u, xi, loss = margin_finalize_op(packed[:-1], y, b, flag)
+        l1 = packed[-1]
     if sm is not None:
         xi = xi * sm
         loss = 0.5 * torch.sum(xi * xi)
-    return u, loss + lam * torch.sum(torch.abs(w))
+    return u, col.psum_data(loss) + lam * l1
 
 
 def _fetch(obj: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -358,7 +441,8 @@ def _scalar(v, dtype, device) -> torch.Tensor:
 
 
 def gap_theta_delta(X, y, w, b, lam, sample_mask: Optional[torch.Tensor] = None,
-                    n_feas_iters: int = 4, u: Optional[torch.Tensor] = None):
+                    n_feas_iters: int = 4, u: Optional[torch.Tensor] = None,
+                    col: Collectives = LOCAL):
     """Gap-certified ``(theta, delta, gap)`` at the current iterate, all on
     X's device (reference ``solver.gap_theta_delta``).
 
@@ -371,61 +455,107 @@ def gap_theta_delta(X, y, w, b, lam, sample_mask: Optional[torch.Tensor] = None,
     ``4 eps |p_obj|`` (cancellation must not shrink delta), and a
     non-finite gap, delta or theta sets ``delta = gap = inf``. ``lam`` is a
     number or a 0-d tensor on X's device (the scan engines': no host read).
+    ``col``: the reductions of a sharded X, at the reference's places; the
+    rank's theta is finite whenever the all-reduced gap is (its sums enter
+    the gap), so a sharded certificate tests the gap and delta only.
     """
     sm = sample_mask
     lam_t = _scalar(lam, X.dtype, X.device)
     if u is None:
-        u = torch.mv(X.t(), w)
+        u = col.psum_model(torch.mv(X.t(), w))
     xi = torch.clamp_min(1.0 - y * (u + b), 0.0)
     if sm is not None:
         xi = xi * sm
     alpha = xi
-    p_obj = 0.5 * torch.sum(alpha * alpha) + lam_t * torch.sum(torch.abs(w))
-    n_eff = (torch.sum(sm) if sm is not None
-             else torch.full((), float(y.shape[0]), dtype=X.dtype, device=X.device))
+    p_obj = (col.psum_data(0.5 * torch.sum(alpha * alpha))
+             + lam_t * col.psum_model(torch.sum(torch.abs(w))))
+    n_eff = col.psum_data(
+        torch.sum(sm) if sm is not None
+        else torch.full((), float(y.shape[0]), dtype=X.dtype, device=X.device))
 
     def corr_scale(a):
-        mx = torch.max(torch.abs(torch.mv(X, y * a)))  # max_j |fhat_j^T a|
+        # max_j |fhat_j^T a|
+        mx = col.pmax_model(torch.max(torch.abs(col.psum_data(torch.mv(X, y * a)))))
         return torch.clamp_max(lam_t / torch.clamp_min(mx, 1e-30), 1.0)
 
     for _ in range(n_feas_iters):
         alpha = alpha * corr_scale(alpha)
-        alpha = torch.clamp_min(alpha - (alpha @ y) / n_eff * y, 0.0)
+        alpha = torch.clamp_min(alpha - col.psum_data(alpha @ y) / n_eff * y, 0.0)
         if sm is not None:
             alpha = alpha * sm
     alpha = alpha * corr_scale(alpha)  # the inequality constraints hold for sure
-    d_obj = torch.sum(alpha) - 0.5 * torch.sum(alpha * alpha)
+    d_obj = (col.psum_data(torch.sum(alpha))
+             - 0.5 * col.psum_data(torch.sum(alpha * alpha)))
     gap = torch.clamp_min(p_obj - d_obj, 0.0)
     gap = torch.maximum(gap, 4.0 * _EPS32 * torch.abs(p_obj))
-    eq_resid = torch.abs(alpha @ y) / torch.sqrt(n_eff)
+    eq_resid = torch.abs(col.psum_data(alpha @ y)) / torch.sqrt(n_eff)
     delta = (torch.sqrt(2.0 * gap) + 2.0 * eq_resid) / lam_t
     theta = alpha / lam_t
-    cert_ok = (torch.isfinite(gap) & torch.isfinite(delta)
-               & torch.isfinite(theta).all())
+    cert_ok = torch.isfinite(gap) & torch.isfinite(delta)
+    if is_local(col):
+        cert_ok = cert_ok & torch.isfinite(theta).all()
     inf = torch.full((), float("inf"), dtype=X.dtype, device=X.device)
     return theta, torch.where(cert_ok, delta, inf), torch.where(cert_ok, gap, inf)
 
 
 def refresh_bounds(X, y, lam, theta, delta,
-                   sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   sample_mask: Optional[torch.Tensor] = None,
+                   col: Collectives = LOCAL) -> torch.Tensor:
     """The in-solver feature bounds at ``lam`` (reference ``_dynamic_run``):
     the at-lambda VI region (``lam1 = lam2 = lam``) from the certified
     ``(theta, delta)``, with its theta-independent statistics taken over the
     live samples only, capped elementwise by the gap sphere's
     ``|f.(y theta)| + ||f|| delta`` (NaN-propagating min). One launch of the
     feature screen's dynamic variant on a CUDA X, its plain version on a
-    CPU X."""
-    s = sample_mask
+    CPU X. Sharded over samples (``col``): the screen's partial mode (its
+    weighted instantiation under a sample mask), the all-reduce of the four
+    sums and the kernel's finalize with the cap, from all-reduced
+    statistics; over features only, the dynamic variant on the rank's
+    rows."""
     lam_t = _scalar(lam, theta.dtype, theta.device)
-    if s is None:
-        one_y, n_tot = torch.sum(y), torch.full_like(lam_t, float(y.shape[0]))
-    else:
-        one_y, n_tot = torch.sum(y * s), torch.sum(s)
-    sh = shared_scalars_from_stats(
-        lam_t, lam_t, one_y=one_y, theta_dot_one=torch.sum(theta),
-        theta_dot_y=theta @ y, theta_sq=theta @ theta, n_tot=n_tot,
-        delta=delta)
-    return screen_bounds_from_shared(X, y, theta, sh, weights=s, cap_delta=delta)
+    sh = shared_scalars_from_stats(lam_t, lam_t, **region_stats(y, theta, col,
+                                                                 sample_mask),
+                                   delta=delta)
+    return seam_screen_bounds(X, y, theta, sh, col, weights=sample_mask,
+                              cap_delta=delta)
+
+
+def region_stats(y, theta, col: Collectives = LOCAL,
+                 weights: Optional[torch.Tensor] = None,
+                 statics: Optional[tuple] = None) -> dict:
+    """The sample statistics of the region anchored at ``theta``: the
+    keywords ``one_y``, ``theta_dot_one``, ``theta_dot_y``, ``theta_sq`` and
+    ``n_tot`` of ``screening.shared_scalars_from_stats``. ``statics = (one_y,
+    n_tot)`` when they are known and global (a path's), else taken over the
+    live samples ``weights`` (all without). Sharded over samples (``col``):
+    what is not global yet is summed in one all-reduce."""
+    st = [torch.sum(theta), theta @ y, theta @ theta]
+    if statics is None:
+        st += ([torch.sum(y), torch.full_like(st[0], float(y.shape[0]))]
+               if weights is None else [torch.sum(y * weights), torch.sum(weights)])
+    if col.psum_data is not _identity:
+        st = list(col.psum_data(torch.stack(st)))
+    one_y, n_tot = st[3:] if statics is None else statics
+    return dict(one_y=one_y, theta_dot_one=st[0], theta_dot_y=st[1], theta_sq=st[2],
+                n_tot=n_tot)
+
+
+def seam_screen_bounds(X, y, theta, sh, col: Collectives = LOCAL, *,
+                       weights: Optional[torch.Tensor] = None, cap_delta=None,
+                       edpp=None) -> torch.Tensor:
+    """The feature screen's bounds of X's rows under the seam, from the
+    region's global scalars ``sh`` (and ``edpp``'s, for the EDPP mode). With
+    the sample axis whole, one launch on X's rows (``weights``: its weighted
+    instantiation; ``cap_delta``: the gap-sphere cap). Sharded over samples:
+    its partial mode, the all-reduce of the four sums, and its finalize."""
+    if col.psum_data is _identity:
+        if edpp is not None:
+            return screen_bounds_edpp(X, y, theta, sh, edpp)
+        return screen_bounds_from_shared(X, y, theta, sh, weights=weights,
+                                         cap_delta=cap_delta)
+    sums = col.psum_data(screen_partial_op(X, y, theta, weights=weights))
+    return screen_finalize_op(sums, sh, cap_delta=cap_delta, edpp=edpp,
+                              weighted=weights is not None)
 
 
 class DynamicFistaResult(NamedTuple):
@@ -656,17 +786,23 @@ def _go(s: RunState, c: RunConsts) -> torch.Tensor:
     return (s.k < c.k_stop) & (_rel3_t(s) > c.tol) & (trips < MAX_GUARD_TRIPS)
 
 
-def _run_init(X, y, c: RunConsts, w0, b0, sm, valid_m) -> RunState:
+def _agreed(bad: torch.Tensor, col: Collectives) -> torch.Tensor:
+    """A rank's verdict on its block of w, made every rank's: a max over
+    the feature axis (the identity locally)."""
+    return bad if is_local(col) else col.pmax_model(bad.to(torch.float32)) > 0.5
+
+
+def _run_init(X, y, c: RunConsts, w0, b0, sm, valid_m, col=LOCAL) -> RunState:
     """The first state, as the host loop's :func:`_init_state` makes it
     (warm start sanitized, one trip for a poisoned one, one fused sweep), on
     the device."""
     dev = X.device
     b0 = _scalar(b0, torch.float32, dev)
     fin_w = torch.isfinite(w0)
-    bad0 = ~(fin_w.all() & torch.isfinite(b0))
+    bad0 = _agreed(~(fin_w.all() & torch.isfinite(b0)), col)
     w0 = torch.where(fin_w, w0, torch.zeros_like(w0))
     b0 = torch.where(torch.isfinite(b0), b0, torch.zeros_like(b0))
-    u0, obj0 = _margin_obj_sweep(X, y, c.lam, w0, b0, sm, valid_m)
+    u0, obj0 = _margin_obj_sweep(X, y, c.lam, w0, b0, sm, valid_m, col=col)
     one = torch.ones((), dtype=torch.float32, device=dev)
     inf = torch.full((), np.inf, dtype=torch.float32, device=dev)
     s = RunState(w=w0, b=b0, w_prev=w0, b_prev=b0, u=u0, u_prev=u0, t=one,
@@ -676,7 +812,8 @@ def _run_init(X, y, c: RunConsts, w0, b0, sm, valid_m) -> RunState:
     return s._replace(go=_go(s, c))
 
 
-def _run_prox(X, y, c, sm, fmask, valid_m, w_a, b_a, u_a, inv_Le, thr, flag):
+def _run_prox(X, y, c, sm, fmask, valid_m, w_a, b_a, u_a, inv_Le, thr, flag,
+              col=LOCAL):
     """One proximal-gradient step from ``(w_a, b_a)`` with margins ``u_a``
     (the host loop's ``prox_from``); both sweeps predicated on ``flag``."""
     xi = torch.clamp_min(1.0 - y * (u_a + b_a), 0.0)
@@ -684,18 +821,26 @@ def _run_prox(X, y, c, sm, fmask, valid_m, w_a, b_a, u_a, inv_Le, thr, flag):
         xi = xi * sm
     gw = hinge_grad_op(X, y, xi, valid_m, flag)
     gb = -torch.sum(y * xi)
+    if col.psum_bias is col.psum_data and not is_local(col):
+        packed = col.psum_data(torch.cat([gw, gb.reshape(1)]))  # one all-reduce
+        gw, gb = packed[:-1], packed[-1]
+    else:
+        gw, gb = col.psum_data(gw), col.psum_bias(gb)
     w_new = soft_threshold(w_a - inv_Le * gw, thr)
     if fmask is not None:
         w_new = w_new * fmask
     b_new = b_a - inv_Le * gb
-    u_new, obj_new = _margin_obj_sweep(X, y, c.lam, w_new, b_new, sm, valid_m, flag)
+    u_new, obj_new = _margin_obj_sweep(X, y, c.lam, w_new, b_new, sm, valid_m, flag,
+                                       col)
     return w_new, b_new, u_new, obj_new
 
 
-def _run_body(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState) -> RunState:
+def _run_body(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState,
+              col: Collectives = LOCAL) -> RunState:
     """One iteration of the host loop's body with its decisions as selects.
     With ``go`` false every field comes back unchanged and both sweeps are
-    switched off."""
+    switched off. Under a sharded seam the restart's step runs only when the
+    host reads that it fired."""
     go = s.go
     inv_Le = c.inv_L * s.backoff
     thr = c.lam * inv_Le
@@ -705,12 +850,16 @@ def _run_body(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState) -> RunState:
     zb = s.b + beta * (s.b - s.b_prev)
     uz = s.u + beta * (s.u - s.u_prev)
     args = (X, y, c, sm, fmask, valid_m)
-    w_c, b_c, u_c, obj_c = _run_prox(*args, zw, zb, uz, inv_Le, thr, go.to(torch.int32))
+    w_c, b_c, u_c, obj_c = _run_prox(*args, zw, zb, uz, inv_Le, thr, go.to(torch.int32),
+                                     col)
     # monotone restart: a plain step from (w, b), its sweeps switched off
     # unless it fires
     restarted = go & (obj_c > s.obj)
-    w_r, b_r, u_r, obj_r = _run_prox(*args, s.w, s.b, s.u, inv_Le, thr,
-                                     restarted.to(torch.int32))
+    if is_local(col) or host_fetch(restarted, "sharded"):
+        w_r, b_r, u_r, obj_r = _run_prox(*args, s.w, s.b, s.u, inv_Le, thr,
+                                         restarted.to(torch.int32), col)
+    else:  # not fired: the selects below keep the candidate
+        w_r, b_r, u_r, obj_r = w_c, b_c, u_c, obj_c
     # a restart iteration is not convergence evidence
     rel = torch.where(restarted, np.inf, torch.abs(s.obj - obj_c)
                       / torch.clamp_min(torch.abs(s.obj), 1e-30))
@@ -721,7 +870,11 @@ def _run_body(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState) -> RunState:
     t_next = torch.where(restarted, 1.0, t_next)
     # guard: a non-finite candidate, or a restart step that raised the
     # objective beyond rounding, rolls back, halves the step, counts a trip
-    finite = torch.isfinite(w_c).all() & torch.isfinite(b_c) & torch.isfinite(obj_c)
+    # (sharded: a non-finite entry of a rank's w makes the all-reduced
+    # sum |w|, so the objective, non-finite on every rank: no max needed)
+    finite = torch.isfinite(b_c) & torch.isfinite(obj_c)
+    if is_local(col):
+        finite = torch.isfinite(w_c).all() & finite
     blowup = restarted & (obj_c > s.obj + _GUARD_SLACK
                           * torch.clamp_min(torch.abs(s.obj), 1.0))
     trip = go & (~finite | blowup)
@@ -741,9 +894,12 @@ def _run_body(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState) -> RunState:
     return new._replace(go=go & _go(new, c))
 
 
-def _run_chunk(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState) -> RunState:
+def _run_chunk(X, y, sm, fmask, valid_m, c: RunConsts, s: RunState,
+               col: Collectives = LOCAL) -> RunState:
     for _ in range(CHUNK_ITERS):
-        s = _run_body(X, y, sm, fmask, valid_m, c, s)
+        if not (is_local(col) or host_fetch(s.go, "sharded")):
+            break  # a sharded solve that stopped runs no more collectives
+        s = _run_body(X, y, sm, fmask, valid_m, c, s, col)
     return s
 
 
@@ -754,10 +910,10 @@ class _Chunks:
     X is read where it lies), cached in :data:`_GRAPH_CACHE`. A chunk's
     first run in a cache entry is eager, on the static buffers: it launches
     every kernel once (the library build, each kernel's first-launch set-up)
-    before the capture."""
+    before the capture. ``col``: a sharded seam (eager chunks)."""
 
-    def __init__(self, X, y, sm, fmask, valid_m):
-        self.X, self.valid_m = X, valid_m
+    def __init__(self, X, y, sm, fmask, valid_m, col=LOCAL):
+        self.X, self.valid_m, self.col = X, valid_m, col
         self.graph, self.counts = None, None
         self.y, self.sm, self.fmask = y, sm, fmask
         self.state = self.consts = None
@@ -772,7 +928,7 @@ class _Chunks:
 
     def _chunk(self) -> None:
         self.state = _run_chunk(self.X, self.y, self.sm, self.fmask,
-                                self.valid_m, self.consts, self.state)
+                                self.valid_m, self.consts, self.state, self.col)
 
     def run(self) -> RunState:
         """Chunks until the stop rule says stop (one fetch a chunk)."""
@@ -847,9 +1003,9 @@ _GRAPH_CACHE: "OrderedDict[tuple, _GraphChunks]" = OrderedDict()
 GRAPH_CACHE_SIZE = 32
 
 
-def _chunks_for(X, y, sm, fmask, valid_m) -> _Chunks:
-    if X.device.type != "cuda":
-        return _Chunks(X, y, sm, fmask, valid_m)
+def _chunks_for(X, y, sm, fmask, valid_m, col=LOCAL) -> _Chunks:
+    if X.device.type != "cuda" or not is_local(col):
+        return _Chunks(X, y, sm, fmask, valid_m, col)
     key = (str(X.device), X.data_ptr(), tuple(X.shape), X.dtype, tuple(X.stride()),
            valid_m, sm is not None, fmask is not None)
     entry = _GRAPH_CACHE.get(key)
@@ -891,7 +1047,8 @@ def _run_result(s: RunState, c: RunConsts) -> FistaResult:
 
 def fista_run(X, y, lam, w0, b0, inv_L, sample_mask: Optional[torch.Tensor] = None,
               feature_mask: Optional[torch.Tensor] = None, max_iters: int = 2000,
-              tol: float = 1e-9, valid_m: Optional[int] = None) -> FistaResult:
+              tol: float = 1e-9, valid_m: Optional[int] = None,
+              col: Collectives = LOCAL) -> FistaResult:
     """The FISTA loop with every decision on the device (reference
     ``solver.fista_run``); see the module docstring.
 
@@ -904,10 +1061,11 @@ def fista_run(X, y, lam, w0, b0, inv_L, sample_mask: Optional[torch.Tensor] = No
     :class:`FistaResult` whose scalars are 0-d tensors on X's device: no
     host read but one ``go`` fetch a chunk of :data:`CHUNK_ITERS`
     iterations. ``n_iters`` and the objective equal :func:`fista_solve`'s
-    on the same inputs."""
+    on the same inputs. ``col``: a sharded seam, X and the vectors the
+    rank's blocks (see the module docstring)."""
     c = _consts(lam, inv_L, tol, max_iters, X.device)
-    s = _run_init(X, y, c, w0, b0, sample_mask, valid_m)
-    chunks = _chunks_for(X, y, sample_mask, feature_mask, valid_m)
+    s = _run_init(X, y, c, w0, b0, sample_mask, valid_m, col)
+    chunks = _chunks_for(X, y, sample_mask, feature_mask, valid_m, col)
     chunks.load(s, c)
     return _run_result(chunks.run(), c)
 
@@ -917,7 +1075,9 @@ def fista_run_dynamic(X, y, lam, w0, b0, inv_L,
                       feature_mask: torch.Tensor, max_iters: int, tol: float,
                       screen_every: int = 50, tau: float = SAFE_TAU,
                       n_feas_iters: int = 4,
-                      valid_m: Optional[int] = None) -> FistaResult:
+                      valid_m: Optional[int] = None,
+                      col: Collectives = LOCAL,
+                      telemetry: Optional[dict] = None) -> FistaResult:
     """:func:`fista_run` in segments of ``screen_every`` iterations with the
     dynamic refresh between them, all on the device (reference
     ``_dynamic_run``, the scan engines' ``dynamic=True``).
@@ -933,13 +1093,16 @@ def fista_run_dynamic(X, y, lam, w0, b0, inv_L,
     The certificate and the screen read all rows of X (padded rows are zero
     and stay out of the mask). Host cost: the chunks' fetches and one fetch
     a segment (``FETCHES["segment"]`` counts the refreshes). Returns a
-    :class:`FistaResult` as :func:`fista_run` does."""
+    :class:`FistaResult` as :func:`fista_run` does. ``col``: a sharded seam.
+    ``telemetry`` (a dict) receives ``kept_per_segment`` and
+    ``gap_per_segment`` (read in the segment's fetch) and the final
+    ``feature_mask``."""
     dev = X.device
     screen_every = max(int(screen_every), 1)
     fmask = feature_mask.to(dtype=X.dtype).clone()
     c = _consts(lam, inv_L, tol, max_iters, dev)
-    s = _run_init(X, y, c, w0 * fmask, b0, sample_mask, valid_m)
-    chunks = _chunks_for(X, y, sample_mask, fmask, valid_m)
+    s = _run_init(X, y, c, w0 * fmask, b0, sample_mask, valid_m, col)
+    chunks = _chunks_for(X, y, sample_mask, fmask, valid_m, col)
     chunks.load(s, c)
     go = max_iters > 0
     while go:
@@ -948,16 +1111,16 @@ def fista_run_dynamic(X, y, lam, w0, b0, inv_L,
         chunks.load(chunks.state, c._replace(k_stop=seg_stop))
         s = chunks.run()
         # -- refresh, on the device
-        theta, delta, _ = gap_theta_delta(X, y, s.w, s.b, c.lam, sample_mask,
-                                          n_feas_iters, u=s.u)
-        bounds = refresh_bounds(X, y, c.lam, theta, delta, sample_mask)
+        theta, delta, gap = gap_theta_delta(X, y, s.w, s.b, c.lam, sample_mask,
+                                            n_feas_iters, u=s.u, col=col)
+        bounds = refresh_bounds(X, y, c.lam, theta, delta, sample_mask, col)
         cert_ok = torch.isfinite(delta)
         keep = (~(bounds < tau)) | ~cert_ok
         new_mask = fmask * keep.to(fmask.dtype)
         w_m = s.w * new_mask
-        moved = torch.sum((s.w - w_m) * (s.w - w_m)) > 0.0
+        moved = col.psum_model(torch.sum((s.w - w_m) * (s.w - w_m))) > 0.0
         u_m, obj_m = _margin_obj_sweep(X, y, c.lam, w_m, s.b, sample_mask,
-                                       valid_m, moved.to(torch.int32))
+                                       valid_m, moved.to(torch.int32), col)
         inf = torch.full_like(s.obj, np.inf)
         masked = s._replace(w=w_m, w_prev=w_m, b_prev=s.b, u=u_m, u_prev=u_m,
                             t=torch.ones_like(s.t), obj=obj_m, rel_change=inf,
@@ -969,5 +1132,15 @@ def fista_run_dynamic(X, y, lam, w0, b0, inv_L,
         fmask = new_mask
         chunks.set_fmask(fmask)
         chunks.load(s, c)
-        go = bool(host_fetch(s.go, "segment"))
+        if telemetry is None:
+            go = bool(host_fetch(s.go, "segment"))
+        else:
+            go, kept, gap_h = host_fetch(torch.stack([
+                s.go.double(), col.psum_model(torch.sum(fmask)).double(),
+                gap.double()]), "segment")
+            telemetry.setdefault("kept_per_segment", []).append(int(kept))
+            telemetry.setdefault("gap_per_segment", []).append(gap_h)
+            go = go > 0.5
+    if telemetry is not None:
+        telemetry["feature_mask"] = fmask > 0.5
     return _run_result(chunks.state, c)

@@ -44,6 +44,15 @@ SIGNATURES = {
                                _P],
     "screen_bounds_samples": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P, _I, _P],
+    # the partial modes and their finalizers (a sharded run)
+    "margin_partial": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P, _I, _P],
+    "margin_finalize": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
+    "sample_partial": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                       _P],
+    "sample_finalize": [_P, _I, _P, _P, _P, _P, _P, _I, _P],
+    "screen_partial_features": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P],
+    "screen_finalize_features": [_P, _P, _I, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

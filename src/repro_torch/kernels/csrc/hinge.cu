@@ -44,6 +44,14 @@
 //    ragged edges are masked in the kernels, so no padding or loss
 //    correction is needed.
 //
+// Partial mode (a sharded run, core/distributed.py): `margin_partial` stops
+// before the finalize and writes u_part = X_blk^T w_blk (the slabs summed in
+// slab order by sweep::slab_sum_kernel, no bias, no xi, no loss); after the
+// all-reduce over the feature axis, `margin_finalize` runs the finalize below
+// on the reduced u with one slab, then the loss sum. The slab sum is the
+// finalize's own sum, and 0 + u = u, so on an unsplit X the two calls give
+// the bits of `margin_obj`. `margin_obj` itself is unchanged.
+//
 // Predicated launches: both entry points take an optional device pointer to
 // an int flag. Every block of every kernel of the launch reads it first and
 // returns at once when it is 0, so the launch reads no X and writes no
@@ -412,6 +420,47 @@ int margin_obj(const void* X, int x_bf16, const float* w, const float* y,
   const int fin_blocks = (n + kFinThreads - 1) / kFinThreads;
   margin_finalize_kernel<<<fin_blocks, kFinThreads, 0, s>>>(
       part, slabs, n, y, b, u, xi, loss_part, flag);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  loss_sum_kernel<<<1, kFinThreads, 0, s>>>(loss_part, fin_blocks, loss, flag);
+  return cudaGetLastError();
+}
+
+// Partial mode of margin_obj: u_part = X^T w over the first valid_m rows
+// (no bias), from the same sweep and the same slab sum as margin_obj's
+// finalize. part: (slabs, n) scratch; u_part: (n,). flag, skipped: as for
+// margin_obj. Returns cudaGetLastError().
+int margin_partial(const void* X, int x_bf16, const float* w, int n,
+                   int valid_m, int bulk, int grid, int seg_cols, int slabs,
+                   int stage_rows, int stages, float* part, float* u_part,
+                   const int* flag, int* skipped, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const sweep::ColumnPlan p{valid_m, n, seg_cols, slabs, stage_rows, stages};
+  err = x_bf16 ? launch_margin_partial<__nv_bfloat16>(X, w, p, bulk, grid, part,
+                                                      flag, skipped, s)
+               : launch_margin_partial<float>(X, w, p, bulk, grid, part, flag,
+                                              skipped, s);
+  if (err != cudaSuccess) return err;
+  const int blocks = (n + kFinThreads - 1) / kFinThreads;
+  sweep::slab_sum_kernel<1><<<blocks, kFinThreads, 0, s>>>(part, slabs, n,
+                                                           u_part, flag);
+  return cudaGetLastError();
+}
+
+// The finalize of margin_obj on all-reduced margins u_red (n,): u = u_red,
+// xi = max(0, 1 - y (u + b)), loss = 1/2 sum xi^2. loss_part: (ceil(n / 256),)
+// scratch. flag: as for margin_obj (a switched-off launch is counted by the
+// sweep's launch, not here). Returns cudaGetLastError().
+int margin_finalize(const float* u_red, const float* y, const float* b, int n,
+                    float* u, float* xi, float* loss_part, float* loss,
+                    const int* flag, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int fin_blocks = (n + kFinThreads - 1) / kFinThreads;
+  margin_finalize_kernel<<<fin_blocks, kFinThreads, 0, s>>>(
+      u_red, 1, n, y, b, u, xi, loss_part, flag);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   loss_sum_kernel<<<1, kFinThreads, 0, s>>>(loss_part, fin_blocks, loss, flag);
   return cudaGetLastError();

@@ -35,6 +35,13 @@
 //  * rows that are not 16-byte aligned (fp32 n % 4 != 0, bf16 n % 8 != 0,
 //    an offset view) take `sample_partial_scalar`, the same walk with
 //    direct loads; ragged edges are masked in the kernel, nothing is padded;
+//  * partial mode (a sharded run, core/distributed.py): `sample_partial`
+//    stops before the finalizer and writes the two column sums [x.w1, x.x]
+//    as a (2, n) pair (no b1), the slabs summed in slab order
+//    (sweep::slab_sum_kernel, the finalizer's own sum); after the all-reduce
+//    over the feature axis, `sample_finalize` runs the finalizer on the
+//    reduced pair with one split. On an unsplit X the two calls give the
+//    bits of `screen_bounds_samples`, which is unchanged;
 //  * both mins propagate NaN (as jnp.minimum and torch.minimum do; CUDA's
 //    fminf drops it), so a poisoned anchor gives a NaN surplus, which the
 //    rule keeps.
@@ -176,6 +183,41 @@ int screen_bounds_samples(const void* X, int x_bf16, const float* w1,
   const int col_blocks = (n + kThreads - 1) / kThreads;
   sample_finalize_kernel<<<col_blocks, kThreads, 0, s>>>(
       part, slabs, n, y, u_prev, scalars, u, surplus);
+  return cudaGetLastError();
+}
+
+// Partial mode of screen_bounds_samples: sums (2, n) = [X^T w1, column
+// sums of X * X] from the same sweep and slab sum. part: (2 * slabs, n)
+// scratch. Returns cudaGetLastError().
+int sample_partial(const void* X, int x_bf16, const float* w1, int m, int n,
+                   int bulk, int grid, int seg_cols, int slabs, int stage_rows,
+                   int stages, float* part, float* sums, int device,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const sweep::ColumnPlan p{m, n, seg_cols, slabs, stage_rows, stages};
+  err = x_bf16 ? launch_partial<__nv_bfloat16>(X, w1, p, bulk, grid, part, s)
+               : launch_partial<float>(X, w1, p, bulk, grid, part, s);
+  if (err != cudaSuccess) return err;
+  const int col_blocks = (n + kThreads - 1) / kThreads;
+  sweep::slab_sum_kernel<2><<<col_blocks, kThreads, 0, s>>>(part, slabs, n,
+                                                            sums, nullptr);
+  return cudaGetLastError();
+}
+
+// The finalizer of screen_bounds_samples on an all-reduced (2, n) pair
+// (one split): u = sums[0] + b1 and the surplus. scalars, u_prev: as for
+// screen_bounds_samples. Returns cudaGetLastError().
+int sample_finalize(const float* sums, int n, const float* y,
+                    const float* u_prev, const float* scalars, float* u,
+                    float* surplus, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int col_blocks = (n + kThreads - 1) / kThreads;
+  sample_finalize_kernel<<<col_blocks, kThreads, 0, s>>>(
+      sums, 1, n, y, u_prev, scalars, u, surplus);
   return cudaGetLastError();
 }
 

@@ -59,6 +59,21 @@
 // bound and touches none of its arithmetic: a null pointer gives the launch
 // without the output, bit for bit.
 
+// Partial mode (a sharded run, core/distributed.py; any of the two
+// instantiations): a third template flag stops the kernel after the shuffle
+// reduction and stores the four sums [d_theta, d_one, d_y, d_sq] as a
+// (4, m) array through the bounds pointer, in the weighted and unweighted
+// instantiations (`screen_partial_features`). After the all-reduce over the
+// sample axis, `screen_finalize_features` (screen_finalize_kernel, one
+// thread a feature) applies feature_bound and edpp_bound, the same device
+// functions, to the reduced sums. The flag is a template argument, so the
+// full launches are compiled from the source they had before it. The
+// finalize has two instantiations, one a launch instantiation's: with the
+// EDPP branch for the unweighted sums, without it for the weighted ones.
+// A finalize with the EDPP branch fused the weighted VI finalizer's
+// multiplies and adds otherwise than the weighted launch (last-bit
+// differences on an H100); mirroring the launch's code gives its bits.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -171,8 +186,9 @@ __device__ __forceinline__ float edpp_bound(float d_theta, float d_one,
 }
 
 // kWeighted: the reductions are weighted by w (n,); otherwise all ones.
-// edpp (unweighted only): the EDPP mode
-template <typename T, bool kWeighted>
+// edpp (unweighted only): the EDPP mode. kPartial: bounds is the (4, m)
+// output of the four sums, and nothing is finalized
+template <typename T, bool kWeighted, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads)
 screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
                        const float* __restrict__ theta,
@@ -226,6 +242,20 @@ screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
       a_s[r] += __shfl_xor_sync(0xffffffffu, a_s[r], off);
     }
   }
+  if constexpr (kPartial) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      if (lane == r && r < live) {
+        const size_t row = static_cast<size_t>(row0 + r);
+        const size_t lm = static_cast<size_t>(m);
+        bounds[row] = a_t[r];
+        bounds[lm + row] = a_o[r];
+        bounds[2 * lm + row] = a_y[r];
+        bounds[3 * lm + row] = a_s[r];
+      }
+    }
+    return;
+  }
   const Shared s = load_shared(sc);
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -252,6 +282,44 @@ void launch(const T* X, const float* y, const float* theta, const float* w,
   } else {
     screen_features_kernel<T, false><<<blocks, kThreads, 0, s>>>(
         X, y, theta, w, sc, m, n, edpp != 0, bounds, d_theta);
+  }
+}
+
+// bounds[j] from the all-reduced sums (4, m) of the partial mode: the
+// finalize of screen_features_kernel, one thread a feature. kEdppPath
+// mirrors the instantiation whose sums it finalizes: the unweighted one
+// holds the EDPP branch (a launch argument), the weighted one does not,
+// and the compiler fuses the VI finalizer's multiplies and adds as it does
+// in that instantiation only when the code around them is the same
+template <bool kEdppPath>
+__global__ void __launch_bounds__(kThreads)
+screen_finalize_kernel(const float* __restrict__ sums,
+                       const float* __restrict__ sc, int m, bool edpp,
+                       float* __restrict__ bounds) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= m) return;
+  const size_t lm = static_cast<size_t>(m);
+  const float d_t = sums[j], d_o = sums[lm + j], d_y = sums[2 * lm + j],
+              d_s = sums[3 * lm + j];
+  const Shared s = load_shared(sc);
+  const float vi = feature_bound(d_t, d_o, d_y, d_s, s);
+  if (kEdppPath && edpp) {
+    bounds[j] = edpp_bound(d_t, d_o, d_y, d_s, vi, s, load_edpp(sc));
+  } else {
+    bounds[j] = vi;
+  }
+}
+
+template <typename T>
+void launch_partial(const T* X, const float* y, const float* theta,
+                    const float* w, int m, int n, float* sums, int blocks,
+                    cudaStream_t s) {
+  if (w != nullptr) {
+    screen_features_kernel<T, true, true><<<blocks, kThreads, 0, s>>>(
+        X, y, theta, w, nullptr, m, n, false, sums, nullptr);
+  } else {
+    screen_features_kernel<T, false, true><<<blocks, kThreads, 0, s>>>(
+        X, y, theta, w, nullptr, m, n, false, sums, nullptr);
   }
 }
 
@@ -283,6 +351,51 @@ int screen_bounds_features(const void* X, int x_bf16, const float* y,
   } else {
     launch(static_cast<const float*>(X), y, theta, weights, scalars, m, n,
            bounds, d_theta, edpp, blocks, s);
+  }
+  return cudaGetLastError();
+}
+
+// Partial mode: sums (4, m) = [f_j . (y theta), f_j . (y w), f_j . w,
+// f_j . (f_j w)] for every feature row (w = weights, or all ones when null),
+// nothing finalized. Returns cudaGetLastError().
+int screen_partial_features(const void* X, int x_bf16, const float* y,
+                            const float* theta, const float* weights, int m,
+                            int n, float* sums, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows_per_block = (kThreads / 32) * kRowsPerWarp;
+  const int blocks = (m + rows_per_block - 1) / rows_per_block;
+  if (blocks == 0) return cudaSuccess;
+  if (x_bf16) {
+    launch_partial(static_cast<const __nv_bfloat16*>(X), y, theta, weights, m,
+                   n, sums, blocks, s);
+  } else {
+    launch_partial(static_cast<const float*>(X), y, theta, weights, m, n, sums,
+                   blocks, s);
+  }
+  return cudaGetLastError();
+}
+
+// bounds (m,) from all-reduced sums (4, m) and the packed scalars of
+// screen_bounds_features (the cap in slots 10-11; with edpp != 0 the EDPP
+// scalars in slots 12-14). weighted: the sums came from the weighted
+// instantiation (edpp must then be 0). Returns cudaGetLastError().
+int screen_finalize_features(const float* sums, const float* scalars, int m,
+                             int edpp, int weighted, float* bounds,
+                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (m + kThreads - 1) / kThreads;
+  if (blocks == 0) return cudaSuccess;
+  if (edpp && weighted) return cudaErrorInvalidValue;
+  if (weighted) {
+    screen_finalize_kernel<false><<<blocks, kThreads, 0, s>>>(sums, scalars, m,
+                                                              false, bounds);
+  } else {
+    screen_finalize_kernel<true><<<blocks, kThreads, 0, s>>>(sums, scalars, m,
+                                                             edpp != 0, bounds);
   }
   return cudaGetLastError();
 }

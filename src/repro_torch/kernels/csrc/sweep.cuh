@@ -369,4 +369,26 @@ __device__ __forceinline__ void column_sweep_scalar(const T* __restrict__ X,
   }
 }
 
+// out[r, j] = sum over s of part[r * slabs + s, j], in slab order, for the
+// kRows sums a column of a column sweep's (kRows * slabs, n) scratch: the
+// partial modes' outputs (csrc/hinge.cu margin_partial, csrc/sample.cu
+// sample_partial), summed exactly as their finalizers sum the slabs. One
+// thread a column, 256 a block. flag (nullable): a launch whose *flag is 0
+// returns at once (the margin's predicated launches).
+template <int kRows>
+__global__ void __launch_bounds__(256)
+slab_sum_kernel(const float* __restrict__ part, int slabs, int n,
+                float* __restrict__ out, const int* flag) {
+  if (flag != nullptr && *flag == 0) return;
+  const int j = blockIdx.x * 256 + threadIdx.x;
+  if (j >= n) return;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float acc = 0.f;
+    for (int s = 0; s < slabs; ++s)
+      acc += part[static_cast<size_t>(r * slabs + s) * n + j];
+    out[static_cast<size_t>(r) * n + j] = acc;
+  }
+}
+
 }  // namespace sweep

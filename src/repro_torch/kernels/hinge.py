@@ -31,6 +31,13 @@ a launch, not a read of X, on the iterations without one. The plain
 versions compute their result whatever the flag, and count the calls whose
 flag is 0 on the host; :func:`skipped_counts` gives both counts. Without a
 flag a launch is exactly the unpredicated one.
+
+The margin's partial mode (a sharded run, ``core/distributed.py``):
+:func:`margin_partial_op` stops before the finalize and returns ``X^T w``
+over the rank's rows; the caller all-reduces it over the feature axis and
+:func:`margin_finalize_op` runs the kernel's finalize on the sum. On an
+unsplit X the two give :func:`margin_obj_op`'s bits. The gradient needs no
+mode: its rows are the rank's own.
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ import torch
 
 from . import build
 
-#: launches of each kernel in this process (reset by ``ops.reset_launch_counts``)
-LAUNCHES = {"margin_obj": 0, "hinge_grad": 0}
+#: launches of each kernel in this process (reset by ``ops.reset_launch_counts``);
+#: ``margin_partial`` and ``margin_finalize`` are the margin's partial mode
+LAUNCHES = {"margin_obj": 0, "hinge_grad": 0, "margin_partial": 0,
+            "margin_finalize": 0}
 #: plain-version calls whose flag was 0 (CPU tensors); the card's predicated
 #: launches that did no work are counted on the device (:func:`skipped_counts`)
 SKIPPED = {"margin_obj": 0, "hinge_grad": 0}
@@ -52,7 +61,8 @@ _SKIP_SLOT = {"margin_obj": 0, "hinge_grad": 1}
 _skip_dev: dict = {}  # device -> (2,) int32 counter the kernels add to
 #: launches of each variant of the persistent-sweep kernels
 VARIANTS = {"margin_obj": {"bulk": 0, "scalar": 0},
-            "hinge_grad": {"bulk": 0, "scalar": 0}}
+            "hinge_grad": {"bulk": 0, "scalar": 0},
+            "margin_partial": {"bulk": 0, "scalar": 0}}
 
 _FIN_THREADS = 256  # csrc/hinge.cu kFinThreads: columns per finalize block
 
@@ -113,12 +123,21 @@ def reset_skipped() -> None:
         c.zero_()
 
 
-def margin_obj_plain(X, w, y, b, valid_m: Optional[int] = None):
-    """Plain PyTorch version of :func:`margin_obj_op` (fp32 accumulation)."""
+def margin_partial_plain(X, w, valid_m: Optional[int] = None):
+    """Plain PyTorch version of :func:`margin_partial_op`."""
     vm = _live_rows(X, valid_m)
-    u = torch.mv(X[:vm].float().t(), w[:vm].float())
+    return torch.mv(X[:vm].float().t(), w[:vm].float())
+
+
+def margin_finalize_plain(u, y, b):
+    """Plain PyTorch version of :func:`margin_finalize_op`."""
     xi = torch.clamp_min(1.0 - y * (u + b), 0.0)
     return u, xi, 0.5 * torch.sum(xi * xi)
+
+
+def margin_obj_plain(X, w, y, b, valid_m: Optional[int] = None):
+    """Plain PyTorch version of :func:`margin_obj_op` (fp32 accumulation)."""
+    return margin_finalize_plain(margin_partial_plain(X, w, valid_m), y, b)
 
 
 # -- launch plans of the persistent sweeps (csrc/sweep.cuh) -------------------
@@ -405,3 +424,64 @@ def hinge_grad_op(X, y, xi, valid_m: Optional[int] = None, flag=None,
     LAUNCHES["hinge_grad"] += 1
     VARIANTS["hinge_grad"]["bulk" if plan.bulk else "scalar"] += 1
     return g
+
+
+def margin_partial_op(X, w, valid_m: Optional[int] = None, flag=None):
+    """The margin's partial mode: ``u_part = X^T w`` over X's first
+    ``valid_m`` rows, (n,) fp32, before the bias and the finalize. A sharded
+    run all-reduces it over the feature axis and finalizes with
+    :func:`margin_finalize_op`. The sweep and the slab sum are
+    :func:`margin_obj_op`'s. ``flag`` as for :func:`margin_obj_op`."""
+    if not build.on_card(X):
+        _count_plain_skip("margin_obj", flag)
+        return margin_partial_plain(X, w, valid_m)
+    build.check_matrix(X)
+    m, n = X.shape
+    vm = _live_rows(X, valid_m)
+    build.check_vector(w, m, X, "w")
+    plan = column_sweep_plan(vm, n, X.element_size(), bulk_aligned(X),
+                             sm_count(X.device))
+    f32 = dict(dtype=torch.float32, device=X.device)
+    part = torch.empty(plan.scratch_shape(1), **f32)
+    u_part = torch.empty((n,), **f32)
+    flag_p, skip_p = _flag_args("margin_obj", X, flag)
+    dev, stream = build.stream_and_device(X)
+    err = build.library().margin_partial(
+        X.data_ptr(), int(X.dtype == torch.bfloat16), w.data_ptr(), n, vm,
+        int(plan.bulk), plan.grid, plan.seg_cols, plan.slabs, plan.stage_rows,
+        plan.stages, part.data_ptr(), u_part.data_ptr(), flag_p, skip_p, dev,
+        stream)
+    build.check(err, "margin_partial")
+    LAUNCHES["margin_partial"] += 1
+    VARIANTS["margin_partial"]["bulk" if plan.bulk else "scalar"] += 1
+    return u_part
+
+
+def margin_finalize_op(u, y, b, flag=None):
+    """The finalize of :func:`margin_obj_op` on all-reduced margins ``u``
+    (n,) fp32: ``(u, xi, loss)`` with the kernel's own arithmetic and loss
+    sum. On an unsplit X, ``margin_finalize_op(margin_partial_op(X, w), y,
+    b)`` gives :func:`margin_obj_op`'s bits. ``flag``: the launch's
+    predicate (a switched-off launch writes nothing)."""
+    if not build.on_card(u):
+        return margin_finalize_plain(u, y, b)
+    n = u.shape[0]
+    build.check_vector(u, n, u, "u")
+    build.check_vector(y, n, u, "y")
+    b = torch.as_tensor(b, dtype=torch.float32, device=u.device)
+    if b.dim() != 0:
+        raise ValueError(f"b must be a scalar, got shape {tuple(b.shape)}")
+    f32 = dict(dtype=torch.float32, device=u.device)
+    u_out, xi, loss = (torch.empty((n,), **f32), torch.empty((n,), **f32),
+                       torch.empty((), **f32))
+    loss_part = torch.empty((_cdiv(n, _FIN_THREADS),), **f32)
+    if flag is not None and (flag.device != u.device or flag.dtype != torch.int32):
+        raise ValueError("flag must be an int32 tensor on u's device")
+    dev, stream = build.stream_and_device(u)
+    err = build.library().margin_finalize(
+        u.data_ptr(), y.data_ptr(), b.data_ptr(), n, u_out.data_ptr(),
+        xi.data_ptr(), loss_part.data_ptr(), loss.data_ptr(),
+        None if flag is None else flag.data_ptr(), dev, stream)
+    build.check(err, "margin_finalize")
+    LAUNCHES["margin_finalize"] += 1
+    return u_out, xi, loss

@@ -3,18 +3,30 @@
 Each ``*_op`` here sends a CUDA tensor to its hand-written kernel and a CPU
 tensor to the kernel's plain PyTorch version; nothing else chooses (no
 environment toggle, no fallback from a failed build or launch). The launch
-counts show that a run went through the kernels.
+counts show that a run went through the kernels. The ``*_partial_op`` /
+``*_finalize_op`` pairs are the partial modes of the margin, sample and
+feature-screen kernels, which a sharded run (``core/distributed.py``) calls
+on either side of an all-reduce.
 """
 
 from __future__ import annotations
 
 from . import hinge as _hinge
 from . import screen as _screen
-from .hinge import hinge_grad_op, margin_obj_op  # noqa: F401
+from .hinge import (  # noqa: F401
+    hinge_grad_op,
+    margin_finalize_op,
+    margin_obj_op,
+    margin_partial_op,
+)
 from .screen import (  # noqa: F401
     pack_sample_scalars,
     pack_shared,
+    sample_finalize_op,
+    sample_partial_op,
     sample_surplus_op,
+    screen_finalize_op,
+    screen_partial_op,
     screen_bounds_edpp,
     screen_bounds_from_shared,
     screen_bounds_op,

@@ -31,6 +31,14 @@ min of the two, in the same read of X. Its plain version is the ``edpp``
 rule program over the four reductions (``core/rules/programs.py``).
 Counted apart as ``screen_bounds_edpp``.
 
+Partial modes (a sharded run, ``core/distributed.py``): the feature
+screen's (:func:`screen_partial_op`, its four sums in either instantiation)
+and the sample sweep's (:func:`sample_partial_op`, its two column sums)
+stop before their finalizers; the caller all-reduces the sums and
+:func:`screen_finalize_op` / :func:`sample_finalize_op` apply the kernels'
+own finalizers to them. On an unsplit X each pair gives its full launch's
+bits.
+
 For a CUDA ``X`` each entry point launches its kernel and counts the launch
 in :data:`LAUNCHES`; for a CPU ``X`` it runs the plain version beside it.
 """
@@ -41,6 +49,7 @@ import torch
 
 from ..core.screening import (
     EDPPShared,
+    FeatureReductions,
     ScreenShared,
     edpp_bounds_from_reductions,
     feature_reductions,
@@ -50,11 +59,14 @@ from ..core.screening import (
 from . import build
 from .hinge import bulk_aligned, column_sweep_plan, sm_count
 
-#: launches of the kernel in this process (reset by ``ops.reset_launch_counts``)
+#: launches of the kernel in this process (reset by ``ops.reset_launch_counts``);
+#: ``*_partial`` and ``*_finalize`` are the partial modes (a sharded run)
 LAUNCHES = {"screen_bounds": 0, "screen_bounds_dynamic": 0,
-            "screen_bounds_edpp": 0, "sample_surplus": 0}
+            "screen_bounds_edpp": 0, "sample_surplus": 0, "screen_partial": 0,
+            "screen_finalize": 0, "sample_partial": 0, "sample_finalize": 0}
 #: launches of each variant of the redesigned sample-surplus kernel
-VARIANTS = {"sample_surplus": {"bulk": 0, "scalar": 0}}
+VARIANTS = {"sample_surplus": {"bulk": 0, "scalar": 0},
+            "sample_partial": {"bulk": 0, "scalar": 0}}
 
 NUM_SCALARS = 12  # packed scalars, padded as in the reference
 NUM_SCALARS_EDPP = 16  # the feature screen's EDPP mode: 12, then 3, padded
@@ -82,18 +94,36 @@ def pack_shared(sh: ScreenShared, cap_delta=None,
                                    (0, NUM_SCALARS_EDPP - NUM_SCALARS - 3))
 
 
-def screen_bounds_plain(X, y, theta1, sh: ScreenShared, weights=None,
-                        cap_delta=None, want_d_theta: bool = False):
-    """Plain PyTorch version of :func:`screen_bounds_from_shared`."""
+def screen_partial_plain(X, y, theta1, weights=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`screen_partial_op`: the four
+    reductions of ``feature_reductions`` as a (4, m) fp32 stack."""
     red = feature_reductions(X.float(), y.float(), theta1.float(),
                              None if weights is None else weights.float())
+    return torch.stack(list(red))
+
+
+def screen_finalize_plain(sums, sh: ScreenShared, cap_delta=None,
+                          edpp: EDPPShared = None, weighted: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`screen_finalize_op` (one finalize for
+    both instantiations' sums: ``weighted`` changes nothing here)."""
+    red = FeatureReductions(*sums)
+    if edpp is not None:
+        return edpp_bounds_from_reductions(red, sh, edpp)
     bounds = screen_bounds_from_reductions(red, sh)
     if cap_delta is not None:
         delta = pack_shared(sh, cap_delta)[11]  # the fp32 value the kernel reads
         sphere = (torch.abs(red.d_theta)
                   + torch.sqrt(torch.clamp_min(red.d_sq, 0.0)) * delta)
         bounds = torch.minimum(bounds, sphere)  # NaN-propagating, as jnp.minimum
-    return (bounds, red.d_theta) if want_d_theta else bounds
+    return bounds
+
+
+def screen_bounds_plain(X, y, theta1, sh: ScreenShared, weights=None,
+                        cap_delta=None, want_d_theta: bool = False):
+    """Plain PyTorch version of :func:`screen_bounds_from_shared`."""
+    sums = screen_partial_plain(X, y, theta1, weights)
+    bounds = screen_finalize_plain(sums, sh, cap_delta)
+    return (bounds, sums[0]) if want_d_theta else bounds
 
 
 def _launch_features(X, y, theta1, scalars, weights, edpp, name,
@@ -153,8 +183,7 @@ def screen_bounds_edpp_plain(X, y, theta1, sh: ScreenShared,
     """Plain PyTorch version of :func:`screen_bounds_edpp`: the ``edpp``
     rule program (``stack_bounds(("edpp",), ...)``) over the four
     reductions, fp32."""
-    red = feature_reductions(X.float(), y.float(), theta1.float())
-    return edpp_bounds_from_reductions(red, sh, edpp)
+    return screen_finalize_plain(screen_partial_plain(X, y, theta1), sh, edpp=edpp)
 
 
 def screen_bounds_edpp(X, y, theta1, sh: ScreenShared,
@@ -199,6 +228,25 @@ def pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
     return v.to(device, non_blocking=True)
 
 
+def sample_partial_plain(X, w1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sample_partial_op`."""
+    Xf = X.float()
+    return torch.stack([torch.mv(Xf.t(), w1.float()), torch.sum(Xf * Xf, dim=0)])
+
+
+def sample_finalize_plain(sums, y, b1, dw=float("inf"), db=float("inf"),
+                          u_prev=None, shrink_factor=2.0, margin_floor=1e-3):
+    """Plain PyTorch version of :func:`sample_finalize_op`."""
+    sc = pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
+                             u_prev is not None, device=sums.device)
+    u = sums[0] + sc[0]
+    slack = torch.sqrt(torch.clamp_min(sums[1], 0.0)) * sc[1] + sc[2]
+    if u_prev is not None:
+        slack = torch.minimum(slack, sc[3] * torch.abs(u - u_prev) + sc[4])
+    slack = torch.clamp_max(slack, _BIG)
+    return y * u - 1.0 - slack, u
+
+
 def sample_surplus_plain(X, w1, y, b1, dw=float("inf"), db=float("inf"),
                          u_prev=None, shrink_factor=2.0, margin_floor=1e-3):
     """Plain PyTorch version of :func:`sample_surplus_op` (fp32 sums).
@@ -208,16 +256,8 @@ def sample_surplus_plain(X, w1, y, b1, dw=float("inf"), db=float("inf"),
     ``u_prev``, and the total slack clamps at 1e30. Returns ``(surplus,
     u)``, both (n,) fp32, with ``u = X^T w1 + b1``.
     """
-    sc = pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
-                             u_prev is not None, device=X.device)
-    Xf = X.float()
-    u = torch.mv(Xf.t(), w1.float()) + sc[0]
-    x_sq = torch.sum(Xf * Xf, dim=0)
-    slack = torch.sqrt(torch.clamp_min(x_sq, 0.0)) * sc[1] + sc[2]
-    if u_prev is not None:
-        slack = torch.minimum(slack, sc[3] * torch.abs(u - u_prev) + sc[4])
-    slack = torch.clamp_max(slack, _BIG)
-    return y * u - 1.0 - slack, u
+    return sample_finalize_plain(sample_partial_plain(X, w1), y, b1, dw, db,
+                                 u_prev, shrink_factor, margin_floor)
 
 
 def sample_surplus_op(X, w1, y, b1, dw=float("inf"), db=float("inf"),
@@ -257,4 +297,114 @@ def sample_surplus_op(X, w1, y, b1, dw=float("inf"), db=float("inf"),
     build.check(err, "sample_surplus")
     LAUNCHES["sample_surplus"] += 1
     VARIANTS["sample_surplus"]["bulk" if plan.bulk else "scalar"] += 1
+    return surplus, u
+
+
+# -- partial modes: a sharded run all-reduces the sums between the two calls --
+
+
+def screen_partial_op(X, y, theta1, weights=None) -> torch.Tensor:
+    """The feature screen's partial mode: the four reductions ``[f.(y theta1),
+    f.y, f.1, ||f||^2]`` (weighted by ``weights`` as the dynamic variant
+    weights them) of every feature row, a (4, m) fp32 tensor, from the
+    kernel's one read of X and nothing finalized. A run sharded over
+    samples all-reduces them and applies :func:`screen_finalize_op`."""
+    if not build.on_card(X):
+        return screen_partial_plain(X, y, theta1, weights)
+    build.check_matrix(X)
+    m, n = X.shape
+    build.check_vector(y, n, X, "y")
+    build.check_vector(theta1, n, X, "theta1")
+    if weights is not None:
+        build.check_vector(weights, n, X, "weights")
+    sums = torch.empty((4, m), dtype=torch.float32, device=X.device)
+    dev, stream = build.stream_and_device(X)
+    err = build.library().screen_partial_features(
+        X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
+        theta1.data_ptr(), None if weights is None else weights.data_ptr(), m, n,
+        sums.data_ptr(), dev, stream)
+    build.check(err, "screen_partial")
+    LAUNCHES["screen_partial"] += 1
+    return sums
+
+
+def screen_finalize_op(sums, sh: ScreenShared, cap_delta=None,
+                       edpp: EDPPShared = None, weighted: bool = False) -> torch.Tensor:
+    """Bounds (m,) from all-reduced partial sums (4, m): the feature screen's
+    finalize (``csrc/screen.cu`` ``feature_bound``, with the gap-sphere cap
+    ``cap_delta`` or the EDPP ball ``edpp``, as the full launches apply
+    them) on the reduced sums, one thread a feature. ``weighted``: the sums
+    came from the weighted instantiation (sample weights); its finalize is
+    compiled as that instantiation's is (no EDPP)."""
+    if not build.on_card(sums):
+        return screen_finalize_plain(sums, sh, cap_delta, edpp)
+    if sums.dim() != 2 or sums.shape[0] != 4 or sums.dtype != torch.float32 \
+            or not sums.is_contiguous():
+        raise ValueError(f"sums must be a contiguous (4, m) float32 tensor, got "
+                         f"{sums.dtype} {tuple(sums.shape)}")
+    m = sums.shape[1]
+    scalars = pack_shared(sh, cap_delta, edpp).to(sums.device)
+    bounds = torch.empty((m,), dtype=torch.float32, device=sums.device)
+    dev, stream = build.stream_and_device(sums)
+    err = build.library().screen_finalize_features(
+        sums.data_ptr(), scalars.data_ptr(), m, int(edpp is not None),
+        int(weighted), bounds.data_ptr(), dev, stream)
+    build.check(err, "screen_finalize")
+    LAUNCHES["screen_finalize"] += 1
+    return bounds
+
+
+def sample_partial_op(X, w1) -> torch.Tensor:
+    """The sample surplus's partial mode: ``[X^T w1, column sums of X * X]``,
+    a (2, n) fp32 tensor, from the kernel's sweep and slab sum, before
+    ``b1`` and the finalizer. A run sharded over features all-reduces it and
+    applies :func:`sample_finalize_op`."""
+    if not build.on_card(X):
+        return sample_partial_plain(X, w1)
+    build.check_matrix(X)
+    m, n = X.shape
+    build.check_vector(w1, m, X, "w1")
+    plan = column_sweep_plan(m, n, X.element_size(), bulk_aligned(X),
+                             sm_count(X.device))
+    f32 = dict(dtype=torch.float32, device=X.device)
+    part = torch.empty(plan.scratch_shape(2), **f32)
+    sums = torch.empty((2, n), **f32)
+    dev, stream = build.stream_and_device(X)
+    err = build.library().sample_partial(
+        X.data_ptr(), int(X.dtype == torch.bfloat16), w1.data_ptr(), m, n,
+        int(plan.bulk), plan.grid, plan.seg_cols, plan.slabs, plan.stage_rows,
+        plan.stages, part.data_ptr(), sums.data_ptr(), dev, stream)
+    build.check(err, "sample_partial")
+    LAUNCHES["sample_partial"] += 1
+    VARIANTS["sample_partial"]["bulk" if plan.bulk else "scalar"] += 1
+    return sums
+
+
+def sample_finalize_op(sums, y, b1, dw=float("inf"), db=float("inf"),
+                       u_prev=None, shrink_factor=2.0, margin_floor=1e-3):
+    """``(surplus, u)`` from all-reduced partial sums (2, n): the sample
+    kernel's finalizer with one split. On an unsplit X,
+    ``sample_finalize_op(sample_partial_op(X, w1), y, b1, ...)`` gives
+    :func:`sample_surplus_op`'s bits."""
+    if not build.on_card(sums):
+        return sample_finalize_plain(sums, y, b1, dw, db, u_prev, shrink_factor,
+                                     margin_floor)
+    if sums.dim() != 2 or sums.shape[0] != 2 or sums.dtype != torch.float32 \
+            or not sums.is_contiguous():
+        raise ValueError(f"sums must be a contiguous (2, n) float32 tensor, got "
+                         f"{sums.dtype} {tuple(sums.shape)}")
+    n = sums.shape[1]
+    build.check_vector(y, n, sums, "y")
+    if u_prev is not None:
+        build.check_vector(u_prev, n, sums, "u_prev")
+    scalars = pack_sample_scalars(b1, dw, db, shrink_factor, margin_floor,
+                                  u_prev is not None, device=sums.device)
+    f32 = dict(dtype=torch.float32, device=sums.device)
+    u, surplus = torch.empty((n,), **f32), torch.empty((n,), **f32)
+    dev, stream = build.stream_and_device(sums)
+    err = build.library().sample_finalize(
+        sums.data_ptr(), n, y.data_ptr(), (y if u_prev is None else u_prev).data_ptr(),
+        scalars.data_ptr(), u.data_ptr(), surplus.data_ptr(), dev, stream)
+    build.check(err, "sample_finalize")
+    LAUNCHES["sample_finalize"] += 1
     return surplus, u

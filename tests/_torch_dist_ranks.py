@@ -1,0 +1,76 @@
+"""Rank programs of ``tests/test_torch_distributed.py``: module-level
+functions (spawned ranks unpickle them by name) that import no JAX.
+
+Each program takes the rank's grid and the memory-mapped whole arrays, runs
+the sharded functions on its blocks and returns whole vectors (gathered
+over the grid) as numpy, so the test can hold every rank's answer against
+the single-device one.
+"""
+
+import numpy as np
+import torch
+
+from repro_torch.core import distributed as D
+from repro_torch.core.dual import lambda_max_sharded, theta_at_lambda_max_sharded
+from repro_torch.core.path_scan import svm_path_scan_sharded
+from repro_torch.core.solver import lipschitz_estimate
+from repro_torch.launch.train_svm import run_path
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def suite(grid, arrays, cfg):
+    """Every sharded function of the slice on one grid (see the test
+    module's fixtures for ``cfg``)."""
+    torch.set_num_threads(1)
+    X = torch.from_numpy(np.array(grid.block(arrays["X"])))
+    y = torch.from_numpy(np.array(grid.col_block(arrays["y"])))
+    m, n = grid.shape(X)
+    col = grid.col
+    rows = lambda v: torch.from_numpy(np.array(grid.row_block(v)))  # noqa: E731
+    cols = lambda v: torch.from_numpy(np.array(grid.col_block(v)))  # noqa: E731
+    out = {}
+    lmax = lambda_max_sharded(X, y, col, n)
+    out["lam_max"] = float(lmax)
+    theta0 = theta_at_lambda_max_sharded(y, lmax, col, n)
+    out["L"] = float(lipschitz_estimate(X, col=col, cols=(grid.j * X.shape[1], n)))
+    keep, bounds = D.screen_sharded(grid, X, y, lmax, 0.4 * lmax, theta0, delta=0.0)
+    out["bounds0"] = _np(D.gather_rows(grid, bounds))
+    out["keep0"] = _np(D.gather_rows(grid, keep.to(torch.int32))) > 0
+    keep, bounds = D.screen_sharded(grid, X, y, cfg["lam1"], cfg["lam2b"],
+                                    cols(cfg["theta_s"]), delta=cfg["delta_s"])
+    out["bounds_s"] = _np(D.gather_rows(grid, bounds))
+    out["keep_s"] = _np(D.gather_rows(grid, keep.to(torch.int32))) > 0
+    surplus, u1 = D.sample_surplus_sharded(
+        grid, X, y, rows(cfg["w1"]), cfg["b1"], cfg["dw"], cfg["db"],
+        cols(cfg["u_prev"]), 2.0, 1e-3)
+    out["surplus"] = _np(D.gather_cols(grid, surplus))
+    out["u1"] = _np(D.gather_cols(grid, u1))
+    fix = dict(max_iters=cfg["iters"], tol=-1.0, L=cfg["L"])
+    r = D.fista_sharded(grid, X, y, cfg["lam2"], **fix)
+    out["static"] = (_np(D.gather_rows(grid, r.w)), float(r.b), r.obj, r.n_iters)
+    r = D.fista_sharded(grid, X, y, cfg["lam2"], sample_mask=cols(cfg["sm"]),
+                        feature_mask=rows(cfg["fm"]), **fix)
+    out["masked"] = (_np(D.gather_rows(grid, r.w)), float(r.b), r.obj, r.n_iters)
+    r = D.fista_sharded(grid, X, y, cfg["lam2"], screen_every=cfg["screen_every"],
+                        **fix)
+    out["dynamic"] = (_np(D.gather_rows(grid, r.w)), float(r.b), r.obj, r.n_iters,
+                      _np(D.gather_rows(grid, r.feature_mask.to(torch.int32))) > 0,
+                      r.kept_per_segment)
+    out["paths"] = {}
+    for rules in cfg["rules"]:
+        p = svm_path_scan_sharded(grid, X, y, rules=rules, L=cfg["L"], device="cpu",
+                                  **cfg["path"])
+        out["paths"][rules] = (p.objectives, p.weights, p.kept, p.extras["keep_masks"],
+                               p.extras["engine"], p.extras["grid"])
+    out["host_lanes"] = {}
+    for name, kw in cfg.get("host_lanes", {}).items():
+        p = run_path(grid, X, y, L=cfg["L"], device="cpu", **kw)
+        out["host_lanes"][name] = (p.objectives, p.kept, p.kept_samples, p.weights,
+                                   p.biases, p.extras["keep_masks"],
+                                   p.extras.get("dynamic"),
+                                   p.extras.get("dynamic_keep_masks"))
+    out["allreduce"] = dict(D.ALLREDUCE)
+    return out

@@ -29,6 +29,7 @@ print(len(mods))
 print("repro_torch.core.path_scan" in mods)
 print(all(f"repro_torch.sparse.{m}" in mods
           for m in ("chunked", "screen_stream", "solver_stream")))
+print("repro_torch.core.distributed" in mods)
 """
 
 
@@ -37,10 +38,12 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    # every submodule was imported, core/rules/dvi.py, core/path_scan.py and
-    # the three modules of repro_torch.sparse among them
-    count, has_scan, has_sparse = out.stdout.split()[-3:]
-    assert int(count) >= 31 and has_scan == "True" and has_sparse == "True"
+    # every submodule was imported, core/rules/dvi.py, core/path_scan.py,
+    # the three modules of repro_torch.sparse and core/distributed.py among
+    # them
+    count, has_scan, has_sparse, has_dist = out.stdout.split()[-4:]
+    assert int(count) >= 32 and has_scan == "True" and has_sparse == "True"
+    assert has_dist == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):
@@ -75,6 +78,8 @@ def test_cuda_request_raises_without_gpu(monkeypatch):
         main(["--m", "20", "--n", "10", "--engine", "scan"])
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--m", "20", "--n", "10", "--engine", "batched"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--m", "20", "--n", "10", "--model", "2", "--data", "2"])
     fc = FeatureChunked.from_dense(ds.X, chunk_m=8)
     with pytest.raises(RuntimeError, match="cuda"):
         svm_path(fc, ds.y)  # chunked storage runs on the GPU by default

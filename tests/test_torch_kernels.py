@@ -667,3 +667,143 @@ def test_cuda_chunked_stream_matches_in_core():
     cpu = PathDriver(device="cpu", **kw).run(
         FeatureChunked.from_dense(dense.X, chunk_m=64), dense.y)
     np.testing.assert_allclose(card.objectives, cpu.objectives, rtol=1e-6)
+
+
+# -- partial modes (a sharded run: sums, all-reduce, finalize) ------------------------
+
+
+def _partial_inputs(m, n, dtype, seed):
+    X, w, y, _ = _inputs(m, n, dtype, m, seed)
+    g = torch.Generator().manual_seed(seed)
+    theta = torch.rand(n, generator=g) / 5.0
+    s = (torch.rand(n, generator=g) < 0.7).float()
+    u_prev = torch.randn(n, generator=g)
+    return X, w, y, theta, s, u_prev
+
+
+def _partial_calls(X, w, y, theta, s, u_prev, wrap):
+    """Each partial mode and its finalize through ``wrap`` (the ops or the
+    plain versions), beside the full launch: pairs (full, finalized)."""
+    ops = wrap
+    sh = shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
+    e = edpp_scalars(y, 5.0, 3.0, theta, delta=0.01)
+    shd = shared_scalars(y, 4.0, 4.0, theta * s, delta=0.05)
+    cap = torch.tensor(0.05, device=y.device)
+    b = torch.tensor(0.2, device=y.device)
+    sums = ops.screen_partial(X, y, theta, None)
+    sums_w = ops.screen_partial(X, y, theta * s, s)
+    pairs = {
+        "margin": (ops.margin_obj(X, w, y, b),
+                   ops.margin_finalize(ops.margin_partial(X, w), y, b)),
+        "sample": (ops.sample_surplus(X, w, y, 0.13, 0.37, 0.05, u_prev),
+                   ops.sample_finalize(ops.sample_partial(X, w), y, 0.13, 0.37, 0.05,
+                                       u_prev)),
+        "screen": ((ops.screen_full(X, y, theta, sh, None, None),),
+                   (ops.screen_finalize(sums, sh, None, None),)),
+        "screen_edpp": ((ops.screen_edpp(X, y, theta, sh, e),),
+                        (ops.screen_finalize(sums, sh, None, e),)),
+        "screen_dynamic": ((ops.screen_full(X, y, theta * s, shd, s, cap),),
+                           (ops.screen_finalize(sums_w, shd, cap, None, True),)),
+    }
+    return pairs, sums, sums_w
+
+
+PLAIN = SimpleNamespace(
+    margin_obj=hinge.margin_obj_plain, margin_partial=hinge.margin_partial_plain,
+    margin_finalize=hinge.margin_finalize_plain,
+    sample_surplus=screen.sample_surplus_plain,
+    sample_partial=screen.sample_partial_plain,
+    sample_finalize=screen.sample_finalize_plain,
+    screen_partial=screen.screen_partial_plain,
+    screen_finalize=screen.screen_finalize_plain,
+    screen_full=screen.screen_bounds_plain, screen_edpp=screen.screen_bounds_edpp_plain)
+CARD = SimpleNamespace(
+    margin_obj=hinge.margin_obj_op, margin_partial=hinge.margin_partial_op,
+    margin_finalize=hinge.margin_finalize_op, sample_surplus=screen.sample_surplus_op,
+    sample_partial=screen.sample_partial_op, sample_finalize=screen.sample_finalize_op,
+    screen_partial=screen.screen_partial_op, screen_finalize=screen.screen_finalize_op,
+    screen_full=screen.screen_bounds_from_shared, screen_edpp=screen.screen_bounds_edpp)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_partial_plain_sums(shape, dtype):
+    """The partial modes' plain versions: the margin's ``X^T w`` is
+    ``torch.mv``, the screen's four sums are ``feature_reductions`` (weighted
+    too), the sample's pair is ``[X^T w, column sums of X * X]``; and a
+    partial call followed by its finalize gives the plain full call's bits,
+    in every mode (the CPU side of the 1 x 1 contract)."""
+    X, w, y, theta, s, u_prev = _partial_inputs(*shape, dtype, seed=11)
+    pairs, sums, sums_w = _partial_calls(X, w, y, theta, s, u_prev, PLAIN)
+    Xf = X.float()
+    torch.testing.assert_close(hinge.margin_partial_plain(X, w), torch.mv(Xf.t(), w),
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(sums.numpy(), torch.stack(list(
+        feature_reductions(Xf, y, theta))).numpy())
+    np.testing.assert_array_equal(sums_w.numpy(), torch.stack(list(
+        feature_reductions(Xf, y, theta * s, s))).numpy())
+    pair = screen.sample_partial_plain(X, w)
+    np.testing.assert_array_equal(pair[0].numpy(), torch.mv(Xf.t(), w).numpy())
+    np.testing.assert_array_equal(pair[1].numpy(), torch.sum(Xf * Xf, 0).numpy())
+    for name, (full, fin) in pairs.items():
+        for a, c in zip(full, fin):
+            assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("split", [(2, 2), (4, 1), (1, 4)])
+def test_partial_sums_add_up_over_a_split(split):
+    """Summed over the blocks of a grid, the partial sums are the whole X's
+    (fp32, rtol 1e-5): the screen's over the column blocks of a row block,
+    the margin's and the sample's over the row blocks of a column block;
+    their finalizes then match the full calls at the same tolerance."""
+    M, Dd = split
+    m, n = 128, 64
+    X, w, y, theta, s, u_prev = _partial_inputs(m, n, torch.float32, seed=13)
+    rb, cb = m // M, n // Dd
+    sums = torch.cat([sum(screen.screen_partial_plain(
+        X[i * rb:(i + 1) * rb, j * cb:(j + 1) * cb], y[j * cb:(j + 1) * cb],
+        theta[j * cb:(j + 1) * cb]) for j in range(Dd)) for i in range(M)], dim=1)
+    u = torch.cat([sum(hinge.margin_partial_plain(
+        X[i * rb:(i + 1) * rb, j * cb:(j + 1) * cb], w[i * rb:(i + 1) * rb])
+        for i in range(M)) for j in range(Dd)])
+    pair = torch.cat([sum(screen.sample_partial_plain(
+        X[i * rb:(i + 1) * rb, j * cb:(j + 1) * cb], w[i * rb:(i + 1) * rb])
+        for i in range(M)) for j in range(Dd)], dim=1)
+    _close(sums, torch.stack(list(feature_reductions(X, y, theta))))
+    _close(u, torch.mv(X.t(), w))
+    _close(pair, screen.sample_partial_plain(X, w))
+    sh = shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
+    _close(screen.screen_finalize_plain(sums, sh), screen.screen_bounds_plain(X, y, theta, sh))
+    b = torch.tensor(0.2)
+    for a, c in zip(hinge.margin_finalize_plain(u, y, b), hinge.margin_obj_plain(X, w, y, b)):
+        _close(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
+def test_cuda_partial_modes(shape, dtype, offset):
+    """Card only: each partial mode against its plain sums (rtol 1e-5, fp32
+    sums in different orders), and a partial launch followed by its
+    finalize gives the full launch's bits in every mode (the full launches
+    are unchanged with the modes off); each counts its own launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    X, w, y, theta, s, u_prev = _partial_inputs(*shape, dtype, seed=17)
+    X = _on_card(X, offset)
+    w, y, theta, s, u_prev = (t.cuda() for t in (w, y, theta, s, u_prev))
+    before = {**hinge.LAUNCHES, **screen.LAUNCHES}
+    pairs, sums, sums_w = _partial_calls(X, w, y, theta, s, u_prev, CARD)
+    after = {**hinge.LAUNCHES, **screen.LAUNCHES}
+    for name, count in (("margin_partial", 1), ("margin_finalize", 1),
+                        ("sample_partial", 1), ("sample_finalize", 1),
+                        ("screen_partial", 2), ("screen_finalize", 3)):
+        assert after[name] - before[name] == count, name
+    _close(sums.cpu(), screen.screen_partial_plain(X, y, theta).cpu())
+    _close(sums_w.cpu(), screen.screen_partial_plain(X, y, theta * s, s).cpu())
+    _close(hinge.margin_partial_op(X, w).cpu(), hinge.margin_partial_plain(X, w).cpu())
+    _close(screen.sample_partial_op(X, w).cpu(), screen.sample_partial_plain(X, w).cpu())
+    for name, (full, fin) in pairs.items():
+        for a, c in zip(full, fin):
+            assert torch.equal(a, c), name
