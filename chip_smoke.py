@@ -57,7 +57,23 @@ n = 10,000 samples, fp32):
   the full-stream twin bit for bit, a float64 KKT check of every screened
   feature, peak device memory under its stated limit); and the 2,000 x
   400 bench instance, dense and at density 0.04, card against CPU
-  (``chunked_small_vs_plain``).
+  (``chunked_small_vs_plain``);
+* the sharded lanes (``core/distributed.py``): a ``1 x 1`` grid bit for
+  bit the scan engine; spawned 2 x 2, 4 x 1 and 1 x 4 grids of ranks
+  sharing the card over gloo (step 1's screen; on 2 x 2 the scan path and
+  the composite host lane, ``PathDriver(grid=..., reduce="mask")``, at
+  fixed iterations); the host lane's other options on the bench instance
+  (``host_lane_grid``: ``edpp`` and ``dvi`` on 2 x 2 and 1 x 4, ``auto``
+  and exact Lipschitz on 2 x 2, each against one device); card ranks
+  against CPU ranks; each partial mode timed on a 2 x 2 block;
+* checkpoints, faults and tracing on the full-width feature path
+  (``checkpoint_resume``: interrupted in step 4 and resumed, bit for bit
+  the uninterrupted path, each save's seconds and bytes; ``faults``: a
+  poisoned step refused and recovered, a corrupt store detected before
+  any screen and the launcher's exit code 2 on it; ``trace``: tracing off
+  and on in turns, every step's spans against its walls, and the
+  launcher's ``--profile`` captures with the kernels' names and the card's
+  busy share).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -87,10 +103,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -135,6 +153,23 @@ GRIDS = ((2, 2), (4, 1), (1, 4))
 GRID_SMALL = dict(n_lambdas=6, lam_min_ratio=0.05, max_iters=60, tol=-1.0)
 GRID_SMALL_COMPOSITE = dict(n_lambdas=6, lam_min_ratio=0.02, max_iters=60, tol=-1.0)
 GRID_TIMEOUT_S = 600
+# the host lane's options on a grid, on the bench instance (``host_lane_grid``):
+# a shallow grid, where the feature rules screen (the 0.05 grid keeps all
+# 2,000 features from step 1 on)
+GRID_LANE = dict(n_lambdas=6, lam_min_ratio=0.3, max_iters=60, tol=-1.0)
+GRID_LANES = {
+    (2, 2): {"edpp": dict(rules="edpp", **GRID_LANE),
+             "dvi": dict(rules="dvi", **GRID_LANE),
+             "auto": dict(rules="auto", **GRID_LANE),
+             "exact_lipschitz": dict(rules="feature_vi", exact_lipschitz=True,
+                                     **GRID_LANE)},
+    (1, 4): {"edpp": dict(rules="edpp", **GRID_LANE),
+             "dvi": dict(rules="dvi", **GRID_LANE)},
+}
+# checkpoints, faults and tracing on the full-width feature path
+STOP_STEP = 4     # the interrupted path stops in this step (after its solve)
+TRACE_PAIRS = 20  # tracing off and on back to back, the order alternating
+PROFILE_SHAPE = dict(m=20_000, n=4_000)  # the launcher's --profile captures
 
 
 T_START = time.perf_counter()
@@ -1743,19 +1778,301 @@ def phase_chunked_small_vs_plain(PathDriver, FeatureChunked, lipschitz_estimate,
     emit(out)
 
 
+def host_lane(PathDriver, AutoRule, grid, X, y, L, kw, device) -> tuple:
+    """The launcher's host lane on this rank of ``grid``:
+    ``PathDriver(grid=grid, reduce="mask")`` with ``kw`` (``rules``, the
+    solver options and the lambda grid; ``exact_lipschitz`` drops the path's
+    L). Returns the result and, for ``auto``, the policy's decisions per step
+    (extra sweep run, extra sweep on next, extra features screened)."""
+    kw = dict(kw)
+    path_kw = {k: kw.pop(k) for k in ("n_lambdas", "lam_min_ratio")}
+    if kw["rules"] == "auto":
+        kw["rules"] = AutoRule()
+    if not kw.get("exact_lipschitz"):
+        kw["L"] = L
+    res = PathDriver(grid=grid, reduce="mask", device=device, **kw).run(X, y, **path_kw)
+    decisions = None
+    if isinstance(kw["rules"], AutoRule):
+        decisions = [(t["extra_swept"], t["use_extra"], t["extra_screened"])
+                     for t in kw["rules"].telemetry]
+    return res, decisions
+
+
+class Interrupted(RuntimeError):
+    """Raised by :func:`stop_at`'s injector."""
+
+
+def stop_at(k: int):
+    """A ``PathDriver._fault_injector`` that interrupts the path in step
+    ``k``, after its solve and before its certificate and checkpoint."""
+    def injector(step, w, b):
+        if step == k:
+            raise Interrupted(f"step {k}")
+        return w, b
+    return injector
+
+
+def phase_checkpoint_resume(PathDriver, ops, X, y, L) -> None:
+    """The full-width feature path (gather, GRID_ITERS iterations a step)
+    with a checkpoint directory in a temporary directory, interrupted in
+    step 4 by an injected exception and resumed: weights, objectives and
+    kept counts bit for bit the uninterrupted path's. Prints the seconds
+    and bytes of each save."""
+    t0 = time.perf_counter()
+    kw = dict(L=L, tol=-1.0, max_iters=GRID_ITERS, device="cuda")
+    grid = dict(n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO)
+    full = PathDriver("feature_vi", **kw).run(X, y, **grid)
+    with tempfile.TemporaryDirectory() as d:
+        drv = PathDriver("feature_vi", ckpt_dir=d, **kw)
+        drv._fault_injector = stop_at(STOP_STEP)
+        t1 = time.perf_counter()
+        try:
+            drv.run(X, y, **grid)
+            require(False, "checkpoint_resume: the injected interruption never fired")
+        except Interrupted:
+            pass
+        interrupted_s = time.perf_counter() - t1
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = PathDriver("feature_vi", ckpt_dir=d, **kw).run(X, y, **grid)
+        resumed_s = time.perf_counter() - t1
+        launches = ops.launch_counts()
+    ck = res.extras["checkpoint"]
+    same = {"weights": bool(np.array_equal(res.weights, full.weights)),
+            "biases": bool(np.array_equal(res.biases, full.biases)),
+            "objectives": bool(np.array_equal(res.objectives, full.objectives)),
+            "kept": bool(np.array_equal(res.kept, full.kept)),
+            "keep_masks": bool(np.array_equal(res.extras["keep_masks"],
+                                              full.extras["keep_masks"]))}
+    emit({"phase": "checkpoint_resume", "shape": list(X.shape), "iters": GRID_ITERS,
+          "resumed_at": ck["resumed_at"], "bitwise": same, "kept": res.kept.tolist(),
+          "save_s": ck["seconds"], "save_bytes": ck["bytes"],
+          "uninterrupted_wall_s": float(full.wall_times.sum()),
+          "interrupted_s": interrupted_s, "resumed_s": resumed_s,
+          "launches_resumed": launches, "seconds": time.perf_counter() - t0})
+    require(ck["resumed_at"] == STOP_STEP, f"resumed at {ck['resumed_at']}")
+    require(all(same.values()), f"resumed path differs from the uninterrupted one: {same}")
+    for name in ("margin_obj", "hinge_grad", "screen_bounds"):
+        require(launches[name] > 0, f"checkpoint_resume: {name} never launched")
+
+
+def phase_faults(PathDriver, sparse, faults, ops, res, full, X, y) -> None:
+    """``poison_path_step(2)`` on the full-width feature path (default stop
+    rule): step 3's certificate is refused and it keeps all m features,
+    screening stays safe against the unscreened path, and every other
+    step's objective is within rel 1e-4 of the clean path's. Then a small
+    store (the bench instance, 256-row chunks) with chunk 1 corrupted: the
+    streamed screen raises ``StoreCorruptError`` before any screen kernel
+    launches, and the launcher, run as a process on it, exits 2 with no
+    traceback."""
+    from repro_torch.core.solver import HEALTH_SCREEN_REFUSED
+    from repro_torch.data import make_sparse_classification
+
+    t0 = time.perf_counter()
+    drv = PathDriver("feature_vi", device="cuda")
+    drv._fault_injector = faults.poison_path_step(2)
+    ops.reset_launch_counts()
+    p = drv.run(X, y, lambdas=res.lambdas)
+    launches = ops.launch_counts()
+    m = X.shape[0]
+    health = p.extras["health"]
+    rel = [float(abs(p.objectives[k] - res.objectives[k]) / abs(res.objectives[k]))
+           for k in range(len(res.lambdas)) if k != 2]
+    missed = [missed_features(full, k, p.extras["keep_masks"][k])[1]
+              for k in range(1, SAFETY_STEPS)]
+    out = {"phase": "faults", "shape": list(X.shape), "health": health.tolist(),
+           "kept": p.kept.tolist(), "kept_clean": res.kept.tolist(),
+           "max_rel_obj_vs_clean": max(rel), "tol": 1e-4, "missed": missed,
+           "poisoned_wall_s": float(p.wall_times.sum()),
+           "clean_wall_s": float(res.wall_times.sum())}
+    require(bool(health[3] & HEALTH_SCREEN_REFUSED), f"step 3 not refused: {health}")
+    require(int(p.kept[3]) == m, f"refused step 3 kept {p.kept[3]} of {m}")
+    require(max(rel) <= 1e-4, f"poisoned path vs clean: rel {max(rel):.3e}")
+    require(not any(missed), f"poisoned path screened used features {missed}")
+    for name in ("margin_obj", "hinge_grad", "screen_bounds"):
+        require(launches[name] > 0, f"faults: {name} never launched")
+
+    ds = make_sparse_classification(m=2000, n=400, seed=11)
+    with tempfile.TemporaryDirectory() as d:
+        sd = f"{d}/store"
+        sparse.FeatureChunked.from_dense(ds.X, chunk_m=256).save_store(sd, y=ds.y)
+        faults.corrupt_store_bytes(f"{sd}/X.bin", offset=300 * ds.X.shape[1] * 4)
+        fc = sparse.FeatureChunked.from_store(sd)
+        yc = torch.from_numpy(ds.y).cuda()
+        lmax = float(np.max(np.abs(ds.X @ (ds.y - ds.y.mean()))))
+        ops.reset_launch_counts()
+        try:
+            sparse.screen_step_stream(fc, yc, lmax, 0.5 * lmax, torch.zeros_like(yc))
+            raised = None
+        except sparse.StoreError as e:
+            raised = type(e).__name__
+        screen_launches = ops.launch_counts()["screen_bounds"]
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train_svm", "--storage", "mmap",
+             "--store-dir", sd, "--chunk-m", "256", "--device", "cuda"],
+            cwd=d, env=env, capture_output=True, text=True, timeout=300)
+    out.update(store_error=raised, store_screen_launches=screen_launches,
+               launcher_rc=proc.returncode, launcher_stderr=proc.stderr.strip()[-300:],
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    require(raised == "StoreCorruptError", f"corrupt store: raised {raised}")
+    require(screen_launches == 0, "the corrupt chunk reached the screen kernel")
+    require(proc.returncode == 2, f"launcher on a corrupt store: exit {proc.returncode}")
+    require("Traceback" not in proc.stderr + proc.stdout,
+            "launcher on a corrupt store printed a traceback")
+
+
+def busy_share(trace_path) -> tuple:
+    """``(busy share, kernel names)`` of a ``torch.profiler`` Chrome trace:
+    the union of the device's kernel, copy and set intervals inside the
+    ``path`` region over its length, and the names of the kernels."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    region = next(e for e in events if e.get("name") == "path"
+                  and e.get("cat") == "user_annotation")
+    lo, hi = region["ts"], region["ts"] + region["dur"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, lo
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    return busy / max(hi - lo, 1e-9), names, [e["name"] for e in events
+                                              if e.get("cat") == "user_annotation"]
+
+
+def count_syncs(fn):
+    """``(fn(), the synchronizing CUDA operations it ran)``: each host sync
+    that ``torch.cuda.set_sync_debug_mode("warn")`` reports is one warning."""
+    always = torch.is_warn_always_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.set_warn_always(True)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.set_warn_always(always)
+    return out, sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def phase_trace(svm_path, obs_trace, train_main, X, y) -> None:
+    """The full-width feature path with tracing off and on. Deterministic
+    gates: the same count of host syncs with tracing off and on (one run
+    each under ``torch.cuda.set_sync_debug_mode``), and in every traced run
+    each step has its four ``path.*`` spans, whose lengths are the result's
+    screen, solve, certify and step walls. Timed: TRACE_PAIRS pairs of an
+    untraced and a traced run back to back (the order alternating); the
+    overhead, the median of the pairs' on/off wall ratios less 1, stays
+    under 2%. Then the launcher's ``--profile`` on the scan path and on
+    the composite host path (PROFILE_SHAPE, in a temporary working
+    directory): the kernels' names in the captures, the host path's
+    regions named as its spans, and the card's busy share over each
+    path."""
+    t0 = time.perf_counter()
+    kw = dict(n_lambdas=N_LAMBDAS, lam_min_ratio=LAM_MIN_RATIO, device="cuda")
+    spans_ok = True
+
+    def traced():
+        nonlocal spans_ok
+        obs_trace.get_tracer().clear()
+        obs_trace.enable()
+        try:
+            r = svm_path(X, y, **kw)
+        finally:
+            obs_trace.disable()
+        evs = obs_trace.get_tracer().events
+        pt = r.extras["path_trace"]
+        for k in range(1, len(r.lambdas)):
+            dur = {e["name"]: e["dur"] * 1e-6 for e in evs
+                   if e["name"].startswith("path.") and e["args"].get("step") == k}
+            want = {"path.screen": r.screen_times[k],
+                    "path.solve": r.extras["solve_times"][k],
+                    "path.certify": pt.steps[k].certify_s,
+                    "path.step": r.wall_times[k]}
+            spans_ok &= dur.keys() == want.keys() and all(
+                abs(dur[n] - want[n]) <= 1e-6 * want[n] + 1e-9 for n in want)
+        return r
+
+    run = {"off": lambda: svm_path(X, y, **kw), "on": traced}
+    _, syncs_off = count_syncs(run["off"])
+    _, syncs_on = count_syncs(run["on"])
+    walls = {"off": [], "on": []}
+    for pair in range(TRACE_PAIRS):
+        for mode in (("off", "on") if pair % 2 == 0 else ("on", "off")):
+            t1 = time.perf_counter()
+            run[mode]()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t1)
+    obs_trace.get_tracer().clear()
+    ratios = np.asarray(walls["on"]) / np.asarray(walls["off"])
+    overhead = float(np.median(ratios)) - 1.0
+    spread = {"off_rel": float(np.ptp(walls["off"]) / np.median(walls["off"])),
+              "ratio_q25": float(np.quantile(ratios, 0.25)),
+              "ratio_q75": float(np.quantile(ratios, 0.75))}
+    out = {"phase": "trace", "shape": list(X.shape), "pairs": TRACE_PAIRS,
+           "walls_off_s": walls["off"], "walls_on_s": walls["on"],
+           "overhead": overhead, "spread": spread, "limit": 0.02, "syncs_off": syncs_off, "syncs_on": syncs_on,
+           "spans_match_walls": bool(spans_ok), "profiles": {}}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            for label, argv in (("scan", ["--engine", "scan"]),
+                                ("host_composite", ["--rules", "composite", "--reduce",
+                                                    "mask", "--lam-min-ratio", "0.02"])):
+                t1 = time.perf_counter()
+                rc = train_main(["--m", str(PROFILE_SHAPE["m"]), "--n",
+                                 str(PROFILE_SHAPE["n"]), "--device", "cuda",
+                                 "--profile", label, *argv])
+                share, names, regions = busy_share(f"{d}/{label}/profile.json")
+                out["profiles"][label] = {
+                    "rc": rc, "busy_share": share, "seconds": time.perf_counter() - t1,
+                    "kernels": sorted(n[:48] for n in names),
+                    "regions": sorted(set(regions))}
+        finally:
+            os.chdir(cwd)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    require(spans_ok, "trace: a step's spans do not match its walls")
+    require(syncs_on == syncs_off > 0,
+            f"trace: {syncs_on} host syncs traced against {syncs_off} untraced")
+    require(overhead < 0.02, f"trace: tracing costs {overhead:.2%} of the path wall "
+            f"(median of {TRACE_PAIRS} pairs)")
+    want = {"scan": ("margin_partial", "hinge_grad", "screen_features"),
+            "host_composite": ("margin_partial", "hinge_grad", "screen_features",
+                               "sample_partial")}
+    for label, kernels in want.items():
+        prof = out["profiles"][label]
+        require(prof["rc"] == 0, f"--profile {label}: exit {prof['rc']}")
+        for k in kernels:
+            require(any(k in n for n in prof["kernels"]),
+                    f"--profile {label}: no {k} kernel in the capture")
+    for region in ("path.screen", "path.solve", "path.certify", "path.step"):
+        require(region in out["profiles"]["host_composite"]["regions"],
+                f"--profile host_composite: no {region} region")
+
+
 def grid_rank(grid, arrays, cfg) -> dict:
     """One rank of the sharded phases (spawned: ``core/distributed.py``
     ``run_grid``, gloo; the ranks share the one card, or run on the CPU).
     Copies its block of the memory-mapped X to its device; with ``lam1``,
     step 1's screen from the closed-form anchor (``screen_sharded``); with
     ``path``, the sharded scan path; with ``host``, the launcher's host lane
-    (composite); with ``small``, the bench instance's paths (feature_vi,
-    edpp, dvi on the scan lane, composite on the host lane). Each path runs
-    with the launch counts set to 0 just before it and read just after."""
+    (``PathDriver(grid=grid, reduce="mask")``, composite); with ``small``,
+    the bench instance's paths (feature_vi, edpp, dvi on the scan lane,
+    composite on the host lane); with ``small_lanes``, the bench instance's
+    host lanes by name (:func:`host_lane`). Each path runs with the launch
+    counts set to 0 just before it and read just after."""
     from repro_torch.core import distributed as D
+    from repro_torch.core.path import PathDriver
     from repro_torch.core.path_scan import svm_path_scan_sharded
+    from repro_torch.core.rules import AutoRule
     from repro_torch.kernels import ops
-    from repro_torch.launch.train_svm import run_path
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = cfg["device"]
@@ -1790,8 +2107,9 @@ def grid_rank(grid, arrays, cfg) -> dict:
             out["path"] = counted("path", lambda: svm_path_scan_sharded(
                 grid, X, y, device=dev, L=cfg["L"], **cfg["path"]))
         if "host" in cfg:
-            out["host"] = counted("host", lambda: run_path(
-                grid, X, y, rules="composite", L=cfg["L"], device=dev, **cfg["host"]))
+            out["host"] = counted("host", lambda: host_lane(
+                PathDriver, AutoRule, grid, X, y, cfg["L"],
+                dict(rules="composite", **cfg["host"]), dev)[0])
             # each partial launch on the rank's block while the ranks share the card
             from repro_torch.kernels import hinge, screen
             w = torch.full((X.shape[0],), 0.01, device=dev)
@@ -1801,14 +2119,22 @@ def grid_rank(grid, arrays, cfg) -> dict:
                 "screen_partial": timed_ms(lambda: screen.screen_partial_op(X, y, y), 20),
                 "sample_partial": timed_ms(lambda: screen.sample_partial_op(X, w), 20)}
         del X
-    if "small" in cfg:
+    if "small" in cfg or "small_lanes" in cfg:
         X, y = blocks("Xs", "ys")
+    if "small" in cfg:
         for rules in ("feature_vi", "edpp", "dvi"):
             out[f"small_{rules}"] = counted(f"small_{rules}", lambda: svm_path_scan_sharded(
                 grid, X, y, rules=rules, device=dev, L=cfg["Ls"], **cfg["small"])).objectives
-        out["small_composite"] = counted("small_composite", lambda: run_path(
-            grid, X, y, rules="composite", L=cfg["Ls"], device=dev,
-            **cfg["small_composite"])).objectives
+        out["small_composite"] = counted("small_composite", lambda: host_lane(
+            PathDriver, AutoRule, grid, X, y, cfg["Ls"],
+            dict(rules="composite", **cfg["small_composite"]), dev)[0]).objectives
+    out["lanes"] = {}
+    for name, kw in cfg.get("small_lanes", {}).items():
+        res, decisions = counted(f"lane_{name}", lambda: host_lane(
+            PathDriver, AutoRule, grid, X, y, cfg["Ls"], kw, dev))
+        out["lanes"][name] = {"objectives": res.objectives, "kept": res.kept,
+                              "keep_masks": res.extras["keep_masks"],
+                              "decisions": decisions}
     out["wall_s"] = time.perf_counter() - t_rank
     out["peak_bytes"] = torch.cuda.max_memory_allocated() if dev == "cuda" else None
     return out
@@ -1888,16 +2214,20 @@ def phase_sharded_grid(D, screen_bounds, lambda_max_fn, theta_fn, X, y, X_path, 
                    max_iters=GRID_ITERS, tol=-1.0)
     host_kw = dict(n_lambdas=N_LAMBDAS, lam_min_ratio=COMPOSITE_RATIO,
                    max_iters=GRID_ITERS, tol=-1.0)
-    keep2 = None
+    keep2, lanes = None, {}
     for grid in GRIDS:
         t0 = time.perf_counter()
         cfg = dict(device="cuda", lmax=float(lmax), lam1=float(lams[1]),
-                   theta0=theta0.cpu().numpy(), L=L)
+                   theta0=theta0.cpu().numpy(), L=L, Ls=small["L"])
         if grid == (2, 2):
             cfg.update(path=path_kw, host=host_kw, small=GRID_SMALL,
-                       small_composite=GRID_SMALL_COMPOSITE, Ls=small["L"])
+                       small_composite=GRID_SMALL_COMPOSITE)
+        if grid in GRID_LANES:
+            cfg["small_lanes"] = GRID_LANES[grid]
         outs = D.run_grid(grid_rank, *grid, arrays, (cfg,), backend="gloo",
                           device="cuda", timeout=GRID_TIMEOUT_S)
+        if grid in GRID_LANES:
+            lanes[grid] = [{"lanes": o["lanes"], "runs": o["runs"]} for o in outs]
         for o in outs[1:]:
             require(np.array_equal(o["bounds1"], outs[0]["bounds1"]),
                     f"grid {grid}: ranks disagree on the bounds")
@@ -1953,7 +2283,68 @@ def phase_sharded_grid(D, screen_bounds, lambda_max_fn, theta_fn, X, y, X_path, 
         out["grids"][f"{grid[0]}x{grid[1]}"] = g
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
-    return keep2
+    return keep2, lanes
+
+
+def phase_host_lane_grid(PathDriver, svm_path_scan, keep2, lanes, small) -> None:
+    """The host lane on a grid through ``PathDriver(grid=..., reduce="mask")``
+    (the launcher's ``run_path`` is gone): the full-width 2 x 2 composite
+    lane's wall (checked in :func:`phase_sharded_grid`), and on the bench
+    instance on GRID_LANE (fixed iterations) ``edpp`` and ``dvi`` on 2 x 2
+    and 1 x 4, ``auto`` and ``--exact-lipschitz`` on 2 x 2, each against
+    single-device ``PathDriver(reduce="mask")`` on the card at the
+    tolerances of ``tests/test_torch_distributed.py`` (objectives within rel
+    1e-6, step 1's keep mask equal), every rank alike, safe against the
+    unscreened path, and ``auto``'s decisions the same on every rank."""
+    t0 = time.perf_counter()
+    Xs, ys = small["X"], small["y"]
+    path_kw = {k: GRID_LANE[k] for k in ("n_lambdas", "lam_min_ratio")}
+    solve_kw = {k: GRID_LANE[k] for k in ("max_iters", "tol")}
+    full = svm_path_scan(Xs, ys, screening=False, L=small["L"], device="cuda",
+                         max_iters=20_000, tol=1e-12, **path_kw)
+    support = np.abs(full.weights) > 1e-6
+    h = keep2["runs"]["host"]
+    out = {"phase": "host_lane_grid", "shape_full": "50000x10000",
+           "full_2x2_composite": {"wall_s": h["wall_s"],
+                                  "allreduce_calls": h["allreduce"]["calls"]},
+           "shape_small": list(Xs.shape), "tol": 1e-6, "lanes": {}}
+    for grid, ranks in lanes.items():
+        tag = f"{grid[0]}x{grid[1]}"
+        for name, kw in GRID_LANES[grid].items():
+            kw = {k: v for k, v in kw.items() if k not in path_kw and k not in solve_kw}
+            if not kw.get("exact_lipschitz"):
+                kw["L"] = small["L"]
+            single = PathDriver(reduce="mask", device="cuda", **solve_kw, **kw).run(
+                Xs, ys, **path_kw)
+            got = ranks[0]["lanes"][name]
+            for r in ranks[1:]:
+                require(np.array_equal(r["lanes"][name]["objectives"], got["objectives"])
+                        and r["lanes"][name]["decisions"] == got["decisions"],
+                        f"{tag} {name}: ranks disagree")
+            rel = float(np.max(np.abs(got["objectives"] - single.objectives)
+                               / np.abs(single.objectives)))
+            missed = int(np.sum(support & ~got["keep_masks"]))
+            la = ranks[0]["runs"][f"lane_{name}"]
+            out["lanes"][f"{name}_{tag}"] = {
+                "max_rel_obj_vs_single": rel, "kept": got["kept"].tolist(),
+                "kept_single": single.kept.tolist(), "missed": missed,
+                "step1_mask_equal": bool(np.array_equal(
+                    got["keep_masks"][1], single.extras["keep_masks"][1])),
+                "decisions_rank0": got["decisions"], "wall_s": la["wall_s"],
+                "allreduce_calls": la["allreduce"]["calls"],
+                "screen_launches": int(sum(la["launches"][k] for k in (
+                    "screen_bounds", "screen_bounds_edpp", "screen_partial")))}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    for key, v in out["lanes"].items():
+        require(v["max_rel_obj_vs_single"] <= 1e-6,
+                f"host lane {key} vs PathDriver: rel {v['max_rel_obj_vs_single']:.3e}")
+        require(v["step1_mask_equal"], f"host lane {key}: step 1 keeps differ")
+        require(v["missed"] == 0, f"host lane {key}: screened {v['missed']} used features")
+        require(min(v["kept"][1:]) < Xs.shape[0], f"host lane {key}: nothing screened")
+        require(v["screen_launches"] > 0, f"host lane {key}: the screen never launched")
+    require(any(s for s, _, _ in out["lanes"]["auto_2x2"]["decisions_rank0"]),
+            "auto on 2 x 2: no probe ran the extra sweep")
 
 
 def phase_sharded_small_vs_plain(D, card) -> None:
@@ -2287,7 +2678,10 @@ def main() -> int:
     )
     from repro_torch.data import make_sparse_classification
     from repro_torch.kernels import build, hinge, ops, screen
+    from repro_torch.launch.train_svm import main as train_main
+    from repro_torch.obs import trace as obs_trace
     import repro_torch.sparse as sparse
+    from repro_torch.testing import faults
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2341,8 +2735,11 @@ def main() -> int:
         svm_path, ops, solver.CHUNK_ITERS, X, y, res_scan, full)
     phase_engine_memory(clear_engine_cache, engine_cache_info, "scan_dynamic")
     phase_path_walls(svm_path, X, y)
-    # the sharded phases: X saved once for the spawned ranks
     L_full = float(lipschitz_estimate(X))
+    phase_checkpoint_resume(PathDriver, ops, X, y, L_full)
+    phase_faults(PathDriver, sparse, faults, ops, res, full, X, y)
+    phase_trace(svm_path, obs_trace, train_main, X, y)
+    # the sharded phases: X saved once for the spawned ranks
     tmp = tempfile.TemporaryDirectory()
     X_path, y_path = f"{tmp.name}/X.npy", f"{tmp.name}/y.npy"
     np.save(X_path, X_host)
@@ -2355,9 +2752,10 @@ def main() -> int:
     ds_small = make_sparse_classification(m=2000, n=400, seed=11)
     small = {"X": ds_small.X, "y": ds_small.y,
              "L": float(lipschitz_estimate(torch.from_numpy(ds_small.X)))}
-    grid22 = phase_sharded_grid(distributed, screen_bounds, lambda_max, theta_at_lambda_max,
-                                X, y, X_path, y_path, single, full, composite, L_full,
-                                small)
+    grid22, lanes = phase_sharded_grid(distributed, screen_bounds, lambda_max,
+                                       theta_at_lambda_max, X, y, X_path, y_path, single,
+                                       full, composite, L_full, small)
+    phase_host_lane_grid(PathDriver, svm_path_scan, grid22, lanes, small)
     grid22["small_inputs"] = small
     phase_sharded_small_vs_plain(distributed, grid22)
     tmp.cleanup()

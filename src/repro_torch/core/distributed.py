@@ -75,6 +75,7 @@ __all__ = [
     "sample_violators_sharded",
     "gather_rows",
     "gather_cols",
+    "rank0_value",
     "run_grid",
     "ALLREDUCE",
     "GROUP_TIMEOUT_S",
@@ -85,6 +86,12 @@ ALLREDUCE = {"calls": 0, "bytes": 0}
 #: the process groups' timeout: a rank that diverges fails the run, it does
 #: not hang it
 GROUP_TIMEOUT_S = 90.0
+#: the thread pools of a spawned rank, one thread each as torch's
+#: (``torch.set_num_threads(1)``): ranks that share a host must not
+#: oversubscribe its cores, and a numpy BLAS call's pool spins on the idle
+#: ones for a while after it returns (the environment is read at import)
+RANK_THREAD_ENV = {k: "1" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                   "MKL_NUM_THREADS")}
 
 
 @dataclass
@@ -230,6 +237,15 @@ def gather_cols(grid: SvmGrid, v_blk: torch.Tensor) -> torch.Tensor:
     """The whole sample-axis vector(s) from the ranks' column blocks (last
     axis), over the data group."""
     return _gather(v_blk, grid.data, grid.j, grid.col.psum_data)
+
+
+def rank0_value(grid: SvmGrid, v: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``v`` on every rank: ``v`` on rank 0 and zeros elsewhere,
+    summed over the model axis, then over the data axis. A decision that
+    reads a rank's own clock is made on rank 0 and agreed this way."""
+    col = grid.col
+    v = v if grid.rank == 0 else torch.zeros_like(v)
+    return col.psum_data(col.psum_model(v))
 
 
 def screen_sharded(grid: SvmGrid, X, y, lam1, lam2, theta1, tau: float = SAFE_TAU,
@@ -389,7 +405,8 @@ def run_grid(fn, model: int, data: int, arrays: Optional[dict] = None,
     CUDA ranks load the kernel library the caller built (call
     ``kernels.build.library()`` first); they do not build it. A rank that
     raises fails the call; so does one still running after ``timeout``
-    seconds (all ranks are then killed)."""
+    seconds (all ranks are then killed). Each rank runs its thread pools
+    (torch's, OpenMP's, BLAS's) on one thread (:data:`RANK_THREAD_ENV`)."""
     world = model * data
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
@@ -399,10 +416,19 @@ def run_grid(fn, model: int, data: int, arrays: Optional[dict] = None,
             else:
                 paths[k] = os.path.join(tmp, f"{k}.npy")
                 np.save(paths[k], np.asarray(v))
-        ctx = torch.multiprocessing.start_processes(
-            _rank_main, args=(fn, model, data, backend, device, tmp, paths,
-                              tuple(args)),
-            nprocs=world, join=False, start_method="spawn")
+        saved = {k: os.environ.get(k) for k in RANK_THREAD_ENV}
+        os.environ.update(RANK_THREAD_ENV)  # the children's, restored below
+        try:
+            ctx = torch.multiprocessing.start_processes(
+                _rank_main, args=(fn, model, data, backend, device, tmp, paths,
+                                  tuple(args)),
+                nprocs=world, join=False, start_method="spawn")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         deadline = time.monotonic() + timeout
         try:
             while not ctx.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))):

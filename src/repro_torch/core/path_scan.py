@@ -70,8 +70,18 @@ The Lipschitz constant is estimated once per path on the full X
 specs are resolved at dispatch (``rules/programs.resolve_programs``):
 sample rules and ``sifs`` raise before any work. The port leaves out the
 reference's ``use_pallas=`` and ``guards=``: the kernels always run on the
-card and the guard is always on. ``extras["path_trace"]`` waits for the
-port of the observability layer (ROADMAP item 14).
+card and the guard is always on.
+
+Observability (``repro_torch.obs``, the reference's names): each engine
+records its ``scan.dispatch`` / ``batched.dispatch`` /
+``scan_sharded.dispatch`` span from the stamps it takes for its wall, feeds
+the ``path.*`` metrics (``PathDriver._observe_run``) and returns
+``extras["path_trace"]``, built after the path from its outputs: a step's
+wall is the uniform share of the path's (the steps overlap on the device,
+``walls_observed=False``) and its ``solve_s`` the solve seconds the host
+loop stamps. With tracing on, the trace's per-step spans are synthesized
+into the tracer (``PathTrace.emit_to_tracer``). None of it syncs the
+device.
 """
 
 from __future__ import annotations
@@ -92,7 +102,9 @@ from .dual import (
     theta_at_lambda_max,
     theta_at_lambda_max_sharded,
 )
-from .path import PathResult, _validate_grid, default_lambda_grid
+from ..obs import trace as obs_trace
+from ..obs.path_trace import build_path_trace
+from .path import PathDriver, PathResult, _validate_grid, default_lambda_grid
 from .rules.programs import PROGRAMS, resolve_programs, stack_needs_history
 from .screening import SAFE_TAU, edpp_scalars_from_stats, shared_scalars_from_stats
 from .solver import (
@@ -556,10 +568,21 @@ def _to_path_result(lambdas, outs, lam_max_val: float, wall_s: float,
                     static_kw: tuple, engine: str = "scan",
                     extras: Optional[dict] = None) -> PathResult:
     """A :class:`PathResult` from host copies of one element's outputs
-    (numpy arrays, leading T)."""
+    (numpy arrays, leading T), with its ``path_trace`` (the per-step solve
+    seconds from ``extras["solve_seconds"]``); the run is folded into the
+    ``path.*`` metrics."""
     T = len(lambdas)
     opts = dict(static_kw)
+    extras = extras or {}
     per_step = np.full((T,), wall_s / max(T, 1), dtype=np.float64)
+    kept, health = np.asarray(outs.kept, np.int64), np.asarray(outs.health, np.int64)
+    path_trace = build_path_trace(
+        engine, lambdas, kept, None, np.asarray(outs.active, np.int64),
+        np.asarray(outs.n_iters, np.int64), per_step,
+        gaps=np.asarray(outs.gap, np.float64), deltas=np.asarray(outs.delta, np.float64),
+        health=health, solve_s=extras.get("solve_seconds"), total_s=float(wall_s),
+        walls_observed=False, meta={"reduce": opts["reduce"], "lam_max": float(lam_max_val)})
+    PathDriver._observe_run(engine, kept, health)
     return PathResult(
         lambdas=np.asarray(lambdas, np.float64),
         weights=np.asarray(outs.w, np.float64),
@@ -588,7 +611,8 @@ def _to_path_result(lambdas, outs, lam_max_val: float, wall_s: float,
             "resurrected": np.asarray(outs.resurrected, np.int64),
             "health": np.asarray(outs.health, np.int64),
             "options": dict(static_kw),
-            **(extras or {}),
+            "path_trace": path_trace,
+            **extras,
         },
     )
 
@@ -655,11 +679,14 @@ def svm_path_scan(X, y, lambdas: Optional[Sequence[float]] = None,
         screen_every=opts["screen_every"], exact_lipschitz=opts["exact_lipschitz"],
         reduce=opts["reduce"], rules=opts["rules"], telemetry=tele)
     outs = _to_host(outs)
-    wall_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    wall_s = t1 - t0
+    obs_trace.complete("scan.dispatch", t0, t1, steps=len(lambdas), reduce=opts["reduce"])
     extras = {"solve_seconds": np.asarray([s[0] for s in tele["solve_seconds"]]),
               **_counters_since(before)}
-    return _to_path_result(lambdas, outs, lam_max_val, wall_s, static_kw, "scan",
-                           extras)
+    r = _to_path_result(lambdas, outs, lam_max_val, wall_s, static_kw, "scan", extras)
+    r.extras["path_trace"].emit_to_tracer()
+    return r
 
 
 def svm_path_batched(X, y, lambdas: Optional[np.ndarray] = None,
@@ -737,7 +764,9 @@ def svm_path_batched(X, y, lambdas: Optional[np.ndarray] = None,
         reduce=opts["reduce"], rules=opts["rules"], shared_x=shared_x,
         telemetry=tele)
     outs = _to_host(outs)
-    wall_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    wall_s = t1 - t0
+    obs_trace.complete("batched.dispatch", t0, t1, batch=B)
     counts = _counters_since(before)
     solve_s = np.asarray(tele["solve_seconds"])  # (T, B)
     results = []
@@ -746,6 +775,8 @@ def svm_path_batched(X, y, lambdas: Optional[np.ndarray] = None,
         r = _to_path_result(grids[i], sub, float(lam_maxs[i]), wall_s / B, static_kw,
                             "batched", {"solve_seconds": solve_s[:, i], **counts})
         r.extras.update(total_seconds=float(wall_s), batch=B, batch_index=i)
+        r.extras["path_trace"].meta["batch_index"] = i
+        r.extras["path_trace"].emit_to_tracer()
         results.append(r)
     return results
 
@@ -820,11 +851,15 @@ def svm_path_scan_sharded(grid, X, y, lambdas: Optional[Sequence[float]] = None,
                          fmask=gather_rows(grid, outs.fmask.to(torch.int32)) > 0,
                          cap=torch.full_like(outs.cap, m))
     outs = _to_host(outs)
-    wall_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    wall_s = t1 - t0
+    obs_trace.complete("scan_sharded.dispatch", t0, t1, steps=len(lambdas))
     extras = {"solve_seconds": np.asarray([s[0] for s in tele["solve_seconds"]]),
               "grid": {"model": grid.model, "data": grid.data},
               "backend": grid.backend,
               "allreduce": {k: ALLREDUCE[k] - ar0[k] for k in ALLREDUCE},
               **_counters_since(before)}
-    return _to_path_result(lambdas, outs, lam_max_val, wall_s, static_kw, "scan_sharded",
-                           extras)
+    r = _to_path_result(lambdas, outs, lam_max_val, wall_s, static_kw, "scan_sharded",
+                        extras)
+    r.extras["path_trace"].emit_to_tracer()
+    return r

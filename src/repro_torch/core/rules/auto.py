@@ -21,7 +21,9 @@ the spend, never correctness. On a CUDA X a step is one launch of the
 feature-screen kernel's EDPP mode, plus one VI-mode launch from the old
 anchor while the extra sweep runs or at a probe. A probe waits for the card
 before it reads its clock (the one device sync the rule adds), so its
-sweep seconds are the device's.
+sweep seconds are the device's. On a grid of ranks (``PathDriver(grid=)``)
+each rank reads its own clock, so rank 0's decision is the one every rank
+takes (:meth:`AutoRule.select`'s ``agree``).
 """
 
 from __future__ import annotations
@@ -71,29 +73,44 @@ class AutoRule(FeatureVIRule):
 
     def bounds(self, X: torch.Tensor, y: torch.Tensor,
                region: ConvexRegion) -> torch.Tensor:
-        b = edpp_region_bounds(X, y, region)
+        def old_vi(anchor):
+            lam0, theta0, delta0 = anchor
+            sh0 = shared_scalars(y, lam0, region.lam2, theta0, delta=delta0)
+            return screen_bounds_from_shared(X, y, theta0, sh0)
+
+        b = self.select(edpp_region_bounds(X, y, region), region.lam2, old_vi)
+        self._anchor = (region.lam1, region.theta1, region.delta)
+        return b
+
+    def select(self, b: torch.Tensor, lam2: float, old_vi, count=None,
+               agree=None) -> torch.Tensor:
+        """The policy on one step: ``b`` is the EDPP bound, ``old_vi(anchor)``
+        the VI bound of the older anchor ``self._anchor`` targeting ``lam2``
+        (run when the extra sweep is on, or at a probe). A grid of ranks
+        passes ``count`` (the kept counts summed over the feature axis) and
+        ``agree`` (the decision every rank takes: rank 0's, whose clock
+        decides). Returns the step's bound; the caller sets the next older
+        anchor."""
         anchor = self._anchor
         probe = self._since_probe >= self.probe_every
         step_info = dict(extra_swept=False, extra_screened=0, sweep_s=0.0)
         # the older anchor certifies theta*(lam2) only when lam0 > lam2
-        if anchor is not None and anchor[0] > region.lam2 and (
-                self._use_extra or probe):
-            lam0, theta0, delta0 = anchor
+        if anchor is not None and anchor[0] > lam2 and (self._use_extra or probe):
             t0 = time.perf_counter()
-            sh0 = shared_scalars(y, lam0, region.lam2, theta0, delta=delta0)
-            both = torch.minimum(b, screen_bounds_from_shared(X, y, theta0, sh0))
+            both = torch.minimum(b, old_vi(anchor))
             # the copy to the host waits for both sweeps: an honest wall
-            kept = torch.stack([self.keep(b).sum(), self.keep(both).sum()]).cpu()
+            kept = torch.stack([self.keep(b).sum(), self.keep(both).sum()])
+            kept = (kept if count is None else count(kept)).cpu()
             sweep_s = time.perf_counter() - t0
             extra = int(kept[0] - kept[1])
-            self._use_extra = extra * (self._solve_per_feat or 0.0) > sweep_s
+            use = extra * (self._solve_per_feat or 0.0) > sweep_s
+            self._use_extra = use if agree is None else agree(use)
             self._since_probe = 0
             b = both
             step_info = dict(extra_swept=True, extra_screened=extra,
                              sweep_s=sweep_s)
         else:
             self._since_probe += 1
-        self._anchor = (region.lam1, region.theta1, region.delta)
-        self.telemetry.append(dict(lam2=float(region.lam2),
-                                   use_extra=self._use_extra, **step_info))
+        self.telemetry.append(dict(lam2=float(lam2), use_extra=self._use_extra,
+                                   **step_info))
         return b

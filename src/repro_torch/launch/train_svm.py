@@ -1,17 +1,27 @@
-"""Single-device sparse-SVM path trainer (the paper's workload) — PyTorch.
+"""Sparse-SVM path trainer (the paper's workload) — PyTorch.
 
-Port of the reference launcher's host lane: it builds a seeded synthetic
-problem, runs the screened regularization path (``core/path.py``
-``svm_path``) on ``--device`` (default the GPU) and prints one line per
-lambda step: kept features and samples, verification re-solves, active
-features, objective, FISTA iterations and wall time. ``--dynamic`` re-screens
-inside every solve each ``--screen-every`` iterations and adds each step's
-per-segment kept counts to its line. ``--engine scan`` runs the path with
-every solver decision on the device (``core/path_scan.py``; feature rules,
-``--reduce mask|compact``, ``--exact-lipschitz``), ``--engine batched``
-two problems at once (seeds ``--seed`` and ``--seed + 1``); their last line
-counts the host fetches and the CUDA graph replays. No checkpoint or serve
-mode.
+Port of the reference launcher: it builds a seeded synthetic problem (or
+reads ``--libsvm FILE``), runs the screened regularization path on
+``--device`` (default the GPU) and prints one line per lambda step: kept
+features and samples, verification re-solves, active features, objective,
+FISTA iterations and wall time. Its rows (the reference's keys) are
+written to ``artifacts/svm_path.json`` under the working directory.
+
+Engines. ``--engine host`` (default) is :class:`~repro_torch.core.path.PathDriver`
+(``--reduce gather|mask``); ``--dynamic`` re-screens inside every solve each
+``--screen-every`` iterations and adds each step's per-segment kept counts
+to its line; ``--exact-lipschitz`` estimates L in every solve on its reduced
+matrix. ``--engine scan`` runs the path with every solver decision on the
+device (``core/path_scan.py``; feature rules, ``--reduce mask|compact``),
+``--engine batched`` two problems at once (seeds ``--seed`` and ``--seed +
+1``); their last line counts the host fetches and the CUDA graph replays.
+
+Checkpoints. The host engine (in-core X) checkpoints the path after every
+step into ``--ckpt-dir`` (default ``artifacts/svm_ckpt``, as the reference)
+and a second run with the same directory resumes at the step after the
+last one saved. ``--ckpt-dir`` other than the default with ``--engine
+scan|batched`` or out-of-core storage is an error: those lanes have no
+per-step state to resume.
 
 Grid: ``--model M --data D`` with ``M * D > 1`` splits X's feature rows over
 M and its sample columns over D and spawns ``M * D`` ranks
@@ -19,22 +29,32 @@ M and its sample columns over D and spawns ``M * D`` ranks
 ``file://`` store in a temporary directory; the parent saves X once and each
 rank memory-maps its block). ``--engine scan`` runs
 ``path_scan.svm_path_scan_sharded`` (mask reduction; ``--reduce compact``
-and ``--dynamic`` raise); ``--engine host`` runs :func:`run_path`, the
-reference launcher's sharded host loop (``screen_sharded``,
-``sample_surplus_sharded`` with the rule's secant history,
-``fista_sharded`` with L estimated once, verified samples). ``--backend
-auto`` takes ``nccl`` when every rank has a GPU of its own and ``gloo``
-otherwise (ranks sharing one GPU, or ``--device cpu``). The reference's host
-lane also writes checkpoints (``--ckpt-dir``); this one does not yet.
+and ``--dynamic`` raise); ``--engine host`` runs ``PathDriver(grid=...,
+reduce="mask")`` on every rank (any feature rule with a rule program, and
+``auto`` with rank 0's policy; ``sample_vi``/``composite``/``sifs`` with
+verified samples; ``--dynamic``; ``--exact-lipschitz``), checkpointing
+through rank 0. ``--backend auto`` takes ``nccl`` when every rank has a GPU
+of its own and ``gloo`` otherwise (ranks sharing one GPU, or ``--device
+cpu``).
 
 Data: ``--libsvm FILE`` reads a libsvm text file instead of the synthetic
 problem. ``--storage chunked|csr|mmap`` runs the out-of-core lane
 (``sparse.FeatureChunked``, host engine, gather): ``chunked`` streams dense
 feature-row chunks of ``--chunk-m`` rows, ``csr`` CSR chunks (a synthetic
 ``--density < 1`` problem or ``--libsvm``), ``mmap`` a disk store built once
-from ``--libsvm`` (in ``--store-dir``, default ``<FILE>.store``). Step lines
-then show the live chunks; ``--no-chunk-skip`` streams every chunk (the
-full-stream twin) and the last line the transfer counts.
+from ``--libsvm`` (in ``--store-dir``, default ``<FILE>.store``), or an
+existing store opened from ``--store-dir`` alone. A store that is missing,
+corrupt or unreadable (``StoreError``) ends the run with one log line and
+exit code 2. Step lines then show the live chunks; ``--no-chunk-skip``
+streams every chunk (the full-stream twin) and the last line the transfer
+counts.
+
+Observability: ``--trace FILE`` records the ``repro_torch.obs`` spans of the
+run (the grid's ranks' too) and writes them as Chrome trace-event JSON
+(``REPRO_TRACE=1`` records without a file); ``--profile DIR`` captures a
+``torch.profiler`` trace of the path in this process (one device; CUDA
+activity on the card) inside a ``record_function("path")`` region, with
+regions named as the host path's spans, into ``DIR/profile.json``.
 
     PYTHONPATH=src python -m repro_torch.launch.train_svm --device cuda
     PYTHONPATH=src python -m repro_torch.launch.train_svm --m 2000 --n 400 --device cpu
@@ -46,6 +66,10 @@ full-stream twin) and the last line the transfer counts.
     PYTHONPATH=src python -m repro_torch.launch.train_svm --rules edpp --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --rules sifs \
         --lam-min-ratio 0.02 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --ckpt-dir /tmp/ck \
+        --device cpu   # run it twice: the second run resumes
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --trace /tmp/t.json \
+        --profile /tmp/prof --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --engine scan \
         --reduce compact --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --engine batched \
@@ -59,37 +83,34 @@ full-stream twin) and the last line the transfer counts.
     PYTHONPATH=src python -m repro_torch.launch.train_svm --model 2 --data 2 \
         --rules composite --lam-min-ratio 0.02 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --model 2 --data 2 \
+        --rules auto --exact-lipschitz --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --model 2 --data 2 \
         --engine scan --backend gloo --device cuda
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..core import distributed as dist_mod
-from ..core.dual import (
-    bias_at_lambda_max_sharded,
-    lambda_max_sharded,
-    theta_at_lambda_max_sharded,
-)
-from ..core.path import PathResult, _validate_grid, default_lambda_grid, svm_path
+from ..core.path import PathDriver, svm_path
 from ..core.path_scan import svm_path_scan_sharded
-from ..core.rules import AutoRule, FeatureVIRule, SampleVIRule, make_rules
-from ..core.rules.base import (
-    AXIS_FEATURES,
-    AXIS_SAMPLES,
-    ConvexRegion,
-    dynamic_tau,
-    solve_with_verification,
-)
-from ..core.solver import HEALTH_SCREEN_REFUSED, gap_theta_delta, lipschitz_estimate
 from ..data import load_libsvm, make_sparse_classification
 from ..device import resolve_device
-from ..sparse import FeatureChunked
+from ..obs import trace as obs_trace
+from ..obs.log import get_logger
+from ..obs.log import setup as log_setup
+from ..sparse import FeatureChunked, StoreError
+
+_LOG = get_logger("launch.train_svm")
+DEFAULT_CKPT_DIR = "artifacts/svm_ckpt"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,7 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host: gather (default) or mask; scan and batched: "
                          "mask (default) or compact")
     ap.add_argument("--exact-lipschitz", action="store_true",
-                    help="scan engines: re-estimate L on each step's reduced matrix")
+                    help="estimate L in every solve on its reduced matrix instead "
+                         "of once a path")
     ap.add_argument("--dynamic", action="store_true",
                     help="re-screen inside every FISTA solve each "
                          "--screen-every iterations (gap-certified)")
@@ -127,7 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk-m", type=int, default=512,
                     help="feature rows per chunk (--storage chunked|csr|mmap)")
     ap.add_argument("--store-dir", default=None, metavar="DIR",
-                    help="the --storage mmap store (default: <libsvm file>.store)")
+                    help="the --storage mmap store (default: <libsvm file>.store); "
+                         "without --libsvm, an existing store is opened")
     ap.add_argument("--no-chunk-skip", dest="chunk_skip", action="store_false",
                     help="chunked storage: stream every chunk every step (the "
                          "full-stream twin of the chunk-skip screen)")
@@ -138,6 +161,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", choices=("auto", "nccl", "gloo"), default="auto",
                     help="the grid's process-group backend: nccl needs a GPU per "
                          "rank; gloo runs ranks that share one GPU, or CPU ranks")
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR, metavar="DIR",
+                    help="host engine: checkpoint the path after every step here "
+                         "and resume from the latest checkpoint there")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record the obs spans of the run and write them here as "
+                         "Chrome trace-event JSON (open in Perfetto)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of this process "
+                         "(CUDA activity on the card) into DIR/profile.json")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -145,11 +177,20 @@ def build_parser() -> argparse.ArgumentParser:
 def _chunked_input(args, ap):
     """``(FeatureChunked, y)`` for ``--storage chunked|csr|mmap``."""
     if args.storage == "mmap":
-        if args.libsvm is None:
-            ap.error("--storage mmap needs --libsvm FILE (the store is built "
-                     "from it once)")
-        return FeatureChunked.from_libsvm_cached(
-            args.libsvm, store_dir=args.store_dir, chunk_m=args.chunk_m)
+        if args.libsvm is not None:
+            return FeatureChunked.from_libsvm_cached(
+                args.libsvm, store_dir=args.store_dir, chunk_m=args.chunk_m)
+        if args.store_dir is None:
+            ap.error("--storage mmap needs --libsvm FILE (to build the store) or "
+                     "--store-dir DIR (to open an existing one)")
+        # an existing store: a missing directory raises StoreMissingError,
+        # checksum or size damage StoreCorruptError (exit 2 in main)
+        fc = FeatureChunked.from_store(args.store_dir, chunk_m=args.chunk_m)
+        fc.verify()
+        if fc.labels is None:
+            ap.error(f"store {args.store_dir} has no labels (y.bin); rebuild it from "
+                     "the source text with --libsvm FILE")
+        return fc, fc.labels
     ds = (load_libsvm(args.libsvm) if args.libsvm is not None else
           make_sparse_classification(m=args.m, n=args.n, density=args.density,
                                      seed=args.seed))
@@ -180,169 +221,73 @@ def _print_path(res) -> None:
               f"iters={res.solver_iters[k]} wall={res.wall_times[k]:.4f}s{segs}")
 
 
-def run_path(grid, X, y, lambdas=None, n_lambdas: int = 10,
-             lam_min_ratio: float = 0.1, *, tol: float = 1e-9, max_iters: int = 4000,
-             rules="feature_vi", shrink_factor: float = 1.5,
-             max_verify_rounds: int = 3, dynamic: bool = False,
-             screen_every: int = 50, L=None, device="cuda") -> PathResult:
-    """The host lane on a grid (the reference launcher's ``run_path``, its
-    checkpoints left out): every rank calls it with its block ``X`` and its
-    columns ``y`` and gets the same :class:`PathResult`.
+def _rows(res) -> list:
+    """The reference launcher's result rows (``artifacts/svm_path.json``):
+    the host lane's, the out-of-core lane's (``live_chunks``) or the scan
+    engine's (``cap``, ``resurrected``)."""
+    ex, rows = res.extras, []
+    for k in range(len(res.lambdas)):
+        row = {"lam": float(res.lambdas[k]), "kept": int(res.kept[k])}
+        if "caps" in ex:
+            row.update(nnz=int(res.active[k]), obj=float(res.objectives[k]),
+                       iters=int(res.solver_iters[k]), cap=int(ex["caps"][k]),
+                       resurrected=int(ex["resurrected"][k]))
+            rows.append(row)
+            continue
+        row["kept_samples"] = int(res.kept_samples[k])
+        if "live_chunks" in ex:
+            row["live_chunks"] = int(ex["live_chunks"][k])
+        row.update(nnz=int(res.active[k]), obj=float(res.objectives[k]),
+                   iters=int(res.solver_iters[k]))
+        if "live_chunks" not in ex:
+            row["verify_rounds"] = int(res.verify_rounds[k])
+        row["wall_s"] = float(res.wall_times[k])
+        seg = ex.get("dynamic", {}).get(k)
+        if "dynamic_keep_masks" in ex and seg is not None:
+            row["dynamic_kept_per_segment"] = seg["kept_per_segment"]
+            row["kept_final"] = int(ex["dynamic_keep_masks"][k].sum())
+        rows.append(row)
+    return rows
 
-    Each step screens from the previous step's certified anchor:
-    ``FeatureVIRule`` through ``distributed.screen_sharded``, ``edpp`` and
-    ``dvi`` through their own ``bounds``/``keep`` on the rank's rows (on a
-    grid with ``data == 1`` only, where the region's scalars are global;
-    ``auto`` raises: its policy reads each rank's clock),
-    ``SampleVIRule`` through ``distributed.sample_surplus_sharded`` with its
-    secant history on the rule object; then the mask-mode solve
-    (``distributed.fista_sharded`` with the path's L, estimated once, and
-    ``--dynamic``'s in-solver re-screen) inside ``solve_with_verification``,
-    whose float64 check of the screened samples runs sharded
-    (``distributed.sample_violators_sharded``); then the certificate of the
-    next anchor (``solver.gap_theta_delta``, 8 feasibility rounds, sharded)
-    and the trust radii ``shrink_factor * ||w - w_prev||`` and ``|b -
-    b_prev|``. ``L``: a known Lipschitz bound (else the sharded estimate).
-    The steps are those of ``svm_path(reduce="mask")``."""
-    dev = resolve_device(device)
-    col = grid.col
-    X = torch.as_tensor(X).to(dev).contiguous()
-    y = torch.as_tensor(y).to(device=dev, dtype=X.dtype)
-    m_loc, n_loc = X.shape
-    m, n = grid.shape(X)
-    c0 = grid.j * n_loc
-    rule_list = make_rules(None if rules in (None, "none") else rules)
-    feature_rules = [r for r in rule_list if r.axis == AXIS_FEATURES]
-    sample_rules = [r for r in rule_list if r.axis == AXIS_SAMPLES]
-    generic = [r for r in feature_rules if type(r) is not FeatureVIRule]
-    if any(isinstance(r, AutoRule) for r in generic):
-        raise ValueError("rules='auto' picks its bound stack from each rank's own "
-                         "clock, so the ranks would screen under different "
-                         "policies; on a grid use feature_vi, edpp or dvi")
-    if grid.data > 1 and generic:
-        raise ValueError(f"feature rules {[r.name for r in generic]} have no sharded "
-                         "route over samples; on a grid with --data > 1 use "
-                         "feature_vi, sample_vi or composite")
-    if any(type(r) is not SampleVIRule for r in sample_rules):
-        raise ValueError("on a grid the sample rule is sample_vi "
-                         "(sample_surplus_sharded)")
-    for rule in rule_list:
-        rule.prepare(X, y)
-    L_path = lipschitz_estimate(X, col=col, cols=(c0, n)) if L is None else L
-    lam_max_val = float(lambda_max_sharded(X, y, col, n))
-    if lambdas is None:
-        lambdas = default_lambda_grid(lam_max_val, n_lambdas, lam_min_ratio)
-    lambdas = _validate_grid(lambdas)
-    T = len(lambdas)
-    f64 = dict(dtype=np.float64)
-    weights = torch.zeros((T, m_loc), dtype=torch.float64, device=dev)
-    biases, objectives, wall, s_times = (np.zeros((T,), **f64) for _ in range(4))
-    kept, kept_s, vrounds, active, iters, health = (
-        np.zeros((T,), dtype=np.int64) for _ in range(6))
-    dyn_log, sample_masks = {}, {}
-    # the features fed to each step's solver; with dynamic, those still live
-    # at its end (the rank's rows, gathered at the end)
-    masks = torch.ones((2 if dynamic else 1, T, m_loc), dtype=torch.int32, device=dev)
-    # step 0 at lam_max: the closed form is exact (delta = 0)
-    w = torch.zeros((m_loc,), dtype=X.dtype, device=dev)
-    b = float(bias_at_lambda_max_sharded(y, col, n))
-    theta = theta_at_lambda_max_sharded(y, float(lambdas[0]), col, n)
-    delta = torch.zeros((), dtype=X.dtype, device=dev)
-    xi0 = torch.clamp_min(1.0 - y.double() * b, 0.0)
-    biases[0] = b
-    objectives[0] = 0.5 * float(col.psum_data(torch.sum(xi0 * xi0)))
-    dw = db = float("inf")
-    lam_prev = float(lambdas[0])
-    tau_dyn = dynamic_tau(feature_rules)
-    violators = dist_mod.sample_violators_sharded(
-        grid, X, y, [r for r in sample_rules if r.needs_verification])
-    for k in range(1, T):
-        lam = float(lambdas[k])
-        t0 = time.perf_counter()
-        keep = torch.ones((m_loc,), dtype=torch.bool, device=dev)
-        s_mask = np.ones((n,), dtype=bool)
-        if rule_list and not bool(torch.isfinite(delta)):
-            health[k] |= HEALTH_SCREEN_REFUSED  # no region: keep everything
-        elif rule_list:
-            region = None
-            for rule in feature_rules:
-                if type(rule) is FeatureVIRule:
-                    keep &= dist_mod.screen_sharded(grid, X, y, lam_prev, lam, theta,
-                                                    tau=rule.tau, delta=delta)[0]
-                    continue
-                region = region or ConvexRegion.build(
-                    y, lam_prev, lam, theta, delta=delta, w1=w, b1=b, dw=dw, db=db)
-                keep &= rule.keep(rule.bounds(X, y, region))
-            for rule in sample_rules:
-                surplus, u1 = dist_mod.sample_surplus_sharded(
-                    grid, X, y, w, b, dw, db, rule._u_prev, rule.shrink_factor,
-                    rule.margin_floor)
-                rule._u_prev = u1
-                s_keep = dist_mod.gather_cols(grid, rule.keep(surplus).to(torch.float32))
-                s_mask &= s_keep.cpu().numpy() > 0.5
-        s_times[k] = time.perf_counter() - t0
-        fm = keep.to(X.dtype)
-        masks[:, k] = keep.to(torch.int32)
-        kept[k] = int(col.psum_model(torch.sum(fm)))
-        warm = {"w": w, "b": b}
 
-        def solve(mask):
-            sm = (None if mask.all() else
-                  torch.from_numpy(mask[c0:c0 + n_loc]).to(device=dev, dtype=X.dtype))
-            r = dist_mod.fista_sharded(
-                grid, X, y, lam, max_iters=max_iters, tol=tol, w0=warm["w"] * fm,
-                b0=warm["b"], sample_mask=sm, feature_mask=fm,
-                screen_every=screen_every if dynamic else None, tau=tau_dyn, L=L_path)
-            warm["w"], warm["b"] = r.w, float(r.b)
-            return r, r.w, float(r.b)
+def _write_rows(results) -> None:
+    out = Path("artifacts")
+    out.mkdir(exist_ok=True)
+    rows = [_rows(r) for r in results]
+    (out / "svm_path.json").write_text(
+        json.dumps(rows[0] if len(rows) == 1 else rows, indent=2))
 
-        res, w_new, b_new, rounds = solve_with_verification(
-            solve, sample_rules, X, y, s_mask, max_rounds=max_verify_rounds,
-            violators=violators)
-        theta, delta, _ = gap_theta_delta(X, y, w_new, torch.as_tensor(
-            b_new, dtype=X.dtype, device=dev), lam, None, n_feas_iters=8, u=None,
-            col=col)
-        step = w_new.double() - w.double()
-        dw = shrink_factor * float(torch.sqrt(col.psum_model(torch.sum(step * step))))
-        db = shrink_factor * abs(b_new - b)
-        w, b, lam_prev = w_new, b_new, lam
-        weights[k], biases[k], objectives[k] = w.double(), b, res.obj
-        kept_s[k], vrounds[k], iters[k] = int(s_mask.sum()), rounds, res.n_iters
-        if sample_rules:
-            sample_masks[k] = s_mask.copy()
-        active[k] = int(col.psum_model(torch.sum(torch.abs(w) > 1e-10).to(torch.int32)))
-        health[k] |= res.health
-        if dynamic:
-            dyn_log[k] = {"kept_per_segment": [int(v) for v in res.kept_per_segment]}
-            masks[1, k] = res.feature_mask.to(torch.int32)
-        wall[k] = time.perf_counter() - t0
-    masks = dist_mod.gather_rows(grid, masks).cpu().numpy() > 0
-    extras = {"lam_max": lam_max_val, "health": health, "engine": "host_sharded",
-              "keep_masks": masks[0], "sample_masks": sample_masks,
-              "grid": {"model": grid.model, "data": grid.data},
-              "backend": grid.backend}
-    if dynamic:
-        extras.update(dynamic=dyn_log, dynamic_keep_masks=masks[1])
-    return PathResult(
-        lambdas=lambdas, weights=dist_mod.gather_rows(grid, weights).cpu().numpy(),
-        biases=biases, objectives=objectives, kept=kept, active=active,
-        solver_iters=iters, wall_times=wall, screen_times=s_times,
-        screened=bool(rule_list), kept_samples=kept_s, verify_rounds=vrounds,
-        rules=tuple(r.name for r in rule_list), extras=extras)
+
+def _host_driver(opts: dict, reduce, device, **kw) -> PathDriver:
+    """The host lane's driver from the launcher's options (one device, or
+    with ``grid=`` this rank's of a grid)."""
+    return PathDriver(rules=[] if opts["rules"] == "none" else opts["rules"],
+                      reduce=reduce, dynamic=opts["dynamic"],
+                      screen_every=opts["screen_every"],
+                      exact_lipschitz=opts["exact_lipschitz"],
+                      ckpt_dir=opts["ckpt_dir"], device=device, **kw)
 
 
 def _grid_rank(grid, arrays, lane: str, device: str, kw: dict):
     """One rank of the launcher's grid: its block of the memory-mapped X and
     its columns of y, then the lane (``"scan"``: the sharded scan engine, the
     reference launcher's ``run_path_scan`` on a mesh; ``"host"``:
-    :func:`run_path`); returns its PathResult and its all-reduce counts."""
+    ``PathDriver(grid=grid, reduce="mask")``); returns its PathResult, its
+    all-reduce counts and, with ``kw["trace"]``, its recorded spans."""
     dist_mod.ALLREDUCE.update(calls=0, bytes=0)
+    kw = dict(kw)
+    if kw.pop("trace", False):
+        obs_trace.enable()
     X = torch.from_numpy(np.array(grid.block(arrays["X"])))
     y = torch.from_numpy(np.array(grid.col_block(arrays["y"])))
-    fn = svm_path_scan_sharded if lane == "scan" else run_path
+    grid_kw = {k: kw.pop(k) for k in ("n_lambdas", "lam_min_ratio")}
     t0 = time.perf_counter()
-    res = fn(grid, X, y, device=device, **kw)
-    return res, {"wall_s": time.perf_counter() - t0, **dist_mod.ALLREDUCE}
+    if lane == "scan":
+        res = svm_path_scan_sharded(grid, X, y, device=device, **grid_kw, **kw)
+    else:
+        res = _host_driver(kw, "mask", device, grid=grid).run(X, y, **grid_kw)
+    stats = {"wall_s": time.perf_counter() - t0, **dist_mod.ALLREDUCE}
+    return res, stats, obs_trace.get_tracer().events if obs_trace.enabled() else []
 
 
 def pick_backend(backend: str, device: torch.device, ranks: int) -> str:
@@ -361,8 +306,12 @@ def run_grid_lane(X, y, lane: str, model: int, data: int, backend: str = "auto",
                   device="cuda", **kw):
     """Spawns the ``model x data`` ranks of a lane (``"scan"`` or
     ``"host"``) on ``(X, y)``; returns ``(rank 0's PathResult, per-rank
-    stats)``. The parent builds the kernel library before the ranks start,
-    so they load it and never build it."""
+    stats)``. ``kw``: the lane's options (both lanes': ``n_lambdas``,
+    ``lam_min_ratio``, ``rules``, ``exact_lipschitz`` and ``trace``, whose
+    ranks' spans join this process's tracer with the rank as their thread
+    id; the host lane's also ``dynamic``, ``screen_every``, ``ckpt_dir``). The parent
+    builds the kernel library before the ranks start, so they load it and
+    never build it."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         from ..kernels import build
@@ -373,6 +322,10 @@ def run_grid_lane(X, y, lane: str, model: int, data: int, backend: str = "auto",
                              {"X": np.asarray(X, np.float32),
                               "y": np.asarray(y, np.float32)},
                              (lane, dev.type, kw), backend=backend, device=dev.type)
+    tracer = obs_trace.get_tracer()
+    for rank, (_, _, events) in enumerate(outs):
+        for ev in events:
+            tracer._append(dict(ev, tid=rank))
     return outs[0][0], [o[1] for o in outs]
 
 
@@ -395,8 +348,6 @@ def _check_grid_args(args, ap, reduce) -> None:
                  "--engine host on a grid")
     if args.engine == "host" and args.reduce == "gather":
         ap.error("the host lane on a grid reduces by mask (--reduce mask)")
-    if args.exact_lipschitz:
-        ap.error("--exact-lipschitz is a single-device option")
 
 
 def main(argv=None) -> int:
@@ -413,19 +364,61 @@ def main(argv=None) -> int:
                  "--reduce gather")
     if args.libsvm is not None and args.engine == "batched":
         ap.error("--engine batched generates its two problems; --libsvm reads one")
+    if (not host or chunked) and args.ckpt_dir != DEFAULT_CKPT_DIR:
+        ap.error("--ckpt-dir has no effect here: the scan engines run the path "
+                 "without per-step host state and the out-of-core lane does not "
+                 "checkpoint; use --engine host with --storage dense")
     _check_grid_args(args, ap, reduce)
-    device = resolve_device(args.device)
-    if args.model * args.data > 1:
-        return _main_grid(args, device)
-    kw = dict(n_lambdas=args.n_lambdas, lam_min_ratio=args.lam_min_ratio,
-              rules=[] if args.rules == "none" else args.rules, reduce=reduce,
-              dynamic=args.dynamic, screen_every=args.screen_every,
-              engine=args.engine, exact_lipschitz=args.exact_lipschitz,
-              device=device)
+    if args.profile and args.model * args.data > 1:
+        ap.error("--profile captures this process; the grid's ranks are others")
+    device = resolve_device(args.device)  # before anything is written
+    log_setup()
+    if args.trace:
+        obs_trace.enable()
+    try:
+        if args.model * args.data > 1:
+            return _main_grid(args, device)
+        try:
+            return _run(args, ap, reduce, device)
+        except StoreError as e:
+            # a missing store, a checksum mismatch or exhausted read retries:
+            # one line and exit code 2, not a traceback
+            _LOG.error("%s: %s", type(e).__name__, e)
+            raise SystemExit(2)
+    finally:
+        if args.trace:
+            _LOG.info("chrome trace written to %s (load in Perfetto)",
+                      obs_trace.export_chrome(args.trace))
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir, device):
+    """With ``--profile DIR``: a ``torch.profiler`` capture (CUDA activity on
+    the card) of the block, inside a ``record_function("path")`` region,
+    written to ``DIR/profile.json``."""
+    if not profile_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("path"):
+            yield
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "profile.json"))
+    _LOG.info("profiler trace written to %s", out / "profile.json")
+
+
+def _run(args, ap, reduce, device) -> int:
+    """One device: the host, scan or batched engine, in core or out of core."""
+    chunked = args.storage != "dense"
     seeds = range(args.seed, args.seed + (2 if args.engine == "batched" else 1))
     if chunked:
         Xs, ys = _chunked_input(args, ap)
-        kw["chunk_skip"] = args.chunk_skip
     else:
         sets = ([load_libsvm(args.libsvm)] if args.libsvm is not None else
                 [make_sparse_classification(m=args.m, n=args.n,
@@ -435,12 +428,26 @@ def main(argv=None) -> int:
         if args.engine == "batched":
             Xs, ys = np.stack([d.X for d in sets]), np.stack([d.y for d in sets])
     t0 = time.perf_counter()
-    results = svm_path(Xs, ys, **kw)
-    if args.engine != "batched":
-        results = [results]
+    grid = dict(n_lambdas=args.n_lambdas, lam_min_ratio=args.lam_min_ratio)
+    with _profiled(args.profile, device):
+        if args.engine == "host":
+            opts = dict(vars(args), ckpt_dir=None) if chunked else vars(args)
+            driver = _host_driver(opts, reduce, device, chunk_skip=args.chunk_skip)
+            results = [driver.run(Xs, ys, **grid)]
+        else:
+            results = svm_path(Xs, ys, rules=[] if args.rules == "none" else args.rules,
+                               reduce=reduce, dynamic=args.dynamic,
+                               screen_every=args.screen_every, engine=args.engine,
+                               exact_lipschitz=args.exact_lipschitz, device=device,
+                               **grid)
+            if args.engine == "scan":
+                results = [results]
     total = time.perf_counter() - t0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     m, n = Xs.shape[-2:]
+    ck = results[0].extras.get("checkpoint")
+    if ck is not None and ck["resumed_at"] > 1:
+        print(f"resumed at step {ck['resumed_at']} from {ck['dir']}")
     for seed, res in zip(seeds, results):
         print(f"device={name} m={m} n={n} seed={seed} engine={args.engine} "
               f"rules={args.rules} reduce={reduce} dynamic={args.dynamic} "
@@ -459,6 +466,7 @@ def main(argv=None) -> int:
                  f"streamed={st['chunks_streamed']} skipped={st['chunks_skipped']} "
                  f"bytes_put={st['bytes_put']}")
     print(f"path wall {total:.3f}s{tail}")
+    _write_rows(results)
     return 0
 
 
@@ -468,15 +476,20 @@ def _main_grid(args, device) -> int:
           make_sparse_classification(m=args.m, n=args.n, density=args.density,
                                      seed=args.seed))
     kw = dict(n_lambdas=args.n_lambdas, lam_min_ratio=args.lam_min_ratio,
-              rules="none" if args.rules == "none" else args.rules)
+              rules="none" if args.rules == "none" else args.rules,
+              exact_lipschitz=args.exact_lipschitz, trace=bool(args.trace))
     if args.engine == "host":
-        kw.update(dynamic=args.dynamic, screen_every=args.screen_every)
+        kw.update(dynamic=args.dynamic, screen_every=args.screen_every,
+                  ckpt_dir=str(Path(args.ckpt_dir).resolve()))
     t0 = time.perf_counter()
     res, stats = run_grid_lane(ds.X, ds.y, args.engine, args.model, args.data,
                                args.backend, device, **kw)
     total = time.perf_counter() - t0
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     m, n = ds.X.shape
+    ck = res.extras.get("checkpoint")
+    if ck is not None and ck["resumed_at"] > 1:
+        print(f"resumed at step {ck['resumed_at']} from {ck['dir']}")
     print(f"device={name} m={m} n={n} seed={args.seed} engine={args.engine} "
           f"grid={args.model}x{args.data} backend={res.extras['backend']} "
           f"rules={args.rules} dynamic={args.dynamic} "
@@ -486,6 +499,7 @@ def _main_grid(args, device) -> int:
         print(f"rank {r} wall={st['wall_s']:.3f}s allreduce_calls={st['calls']} "
               f"allreduce_bytes={st['bytes']}")
     print(f"path wall {total:.3f}s")
+    _write_rows([res])
     return 0
 
 

@@ -48,7 +48,10 @@ seam).
 ``stats`` counts the transfers: ``puts``, ``csr_puts``, ``chunks_streamed``,
 ``chunks_skipped``, ``bytes_put``, ``max_put_rows`` (the largest row block
 ever put on the device) and ``stage_s`` (host seconds spent filling the
-staging buffers, the waits for their previous copies included).
+staging buffers, the waits for their previous copies included). Every
+increment is mirrored into the process metrics registry
+(``repro_torch.obs.metrics``) as the counter ``stream.<key>``, and
+``max_put_rows`` as the gauge ``stream.max_put_rows``.
 """
 
 from __future__ import annotations
@@ -62,6 +65,8 @@ from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from ..obs import metrics as obs_metrics
 
 __all__ = ["CsrChunk", "CsrParts", "FeatureChunked", "CSR_DENSITY_THRESHOLD",
            "StoreError", "StoreMissingError", "StoreCorruptError",
@@ -345,6 +350,12 @@ class FeatureChunked:
         self._dense_bufs: dict = {}  # device -> the CSR chunks' dense buffer
         self._col_sq: dict = {}    # device -> memoized col_sq
 
+    def _bump(self, key: str, n=1):
+        """Increment a ``stats`` counter and mirror it into the metrics
+        registry under ``stream.<key>``."""
+        self.stats[key] += n
+        obs_metrics.counter("stream." + key).inc(n)
+
     # -- constructors ------------------------------------------------------
 
     @classmethod
@@ -465,19 +476,20 @@ class FeatureChunked:
         s, e = self.chunk_bounds(i)
         self._verify_rows(s, e)
         arrays = self._host_form(i)
-        self.stats["puts"] += 1
-        self.stats["chunks_streamed"] += 1
+        self._bump("puts")
+        self._bump("chunks_streamed")
         self.stats["max_put_rows"] = max(self.stats["max_put_rows"], e - s)
-        self.stats["bytes_put"] += sum(a.nbytes for a in arrays)
+        obs_metrics.gauge("stream.max_put_rows").set_max(e - s)
+        self._bump("bytes_put", sum(a.nbytes for a in arrays))
         block = ev = None
         if device.type == "cuda":
             t0 = time.perf_counter()
             outs, block, ev = self._stager(device).put(arrays)
-            self.stats["stage_s"] += time.perf_counter() - t0
+            self._bump("stage_s", time.perf_counter() - t0)
         else:
             outs = [torch.from_numpy(np.array(a)) for a in arrays]
         if len(outs) == 3:
-            self.stats["csr_puts"] += 1
+            self._bump("csr_puts")
             buf = self._dense_bufs.get(device)
             if buf is None:
                 buf = self._dense_bufs[device] = torch.empty(
@@ -517,7 +529,7 @@ class FeatureChunked:
         are never transferred (counted in ``chunks_skipped``)."""
         device = torch.device(device)
         order = self.live_order(live_chunks)
-        self.stats["chunks_skipped"] += self.n_chunks - len(order)
+        self._bump("chunks_skipped", self.n_chunks - len(order))
         if not order:
             return
         nxt = self._put(order[0], device)

@@ -34,6 +34,7 @@ chunk, so the two give the same bits.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -51,6 +52,7 @@ from ..core.screening import (
     shared_scalars,
 )
 from ..kernels.screen import pack_shared, screen_bounds_from_shared
+from ..obs import trace as obs_trace
 from .chunked import FeatureChunked, chunk_mv, dense_rows
 
 __all__ = [
@@ -312,7 +314,8 @@ def screen_step_stream(
     ``stack_bounds`` from the streamed anchors; a stack that carries
     history (``dvi``) streams every chunk every step, since an anchor whose
     dead-chunk entries are stale would be invalid as the next step's old
-    anchor."""
+    anchor. With tracing on, the call is a ``stream.screen`` span."""
+    t_start = time.perf_counter()
     d_one, d_y, d_sq = fixed_reductions(fc, y)
     fixed = fixed_stats(y, d_one, d_y, d_sq)
     if cache is None:
@@ -360,6 +363,10 @@ def screen_step_stream(
     if live_arg is not None:
         dead = torch.from_numpy(np.repeat(~live, np.diff(fc.offsets))).to(y.device)
         bounds = torch.where(dead, stale.to(bounds.dtype), bounds)
+    if obs_trace.enabled():
+        obs_trace.complete("stream.screen", t_start, time.perf_counter(),
+                           live=int(np.count_nonzero(live)),
+                           chunks=int(fc.n_chunks), skip=bool(skip))
     return ~(bounds < tau), bounds, anchor, live
 
 

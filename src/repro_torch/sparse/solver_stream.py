@@ -28,6 +28,7 @@ hold a live feature; every later sweep streams only those.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -45,6 +46,7 @@ from ..core.solver import (
     FistaResult,
     soft_threshold,
 )
+from ..obs import trace as obs_trace
 from .chunked import FeatureChunked, chunk_mv
 from .screen_stream import fixed_reductions
 
@@ -122,7 +124,10 @@ def fista_solve_chunked(
     the solve stops after :data:`~repro_torch.core.solver.MAX_GUARD_TRIPS`.
     ``iteration_hook`` (fault-injection seam) is called as ``hook(k, w, b,
     u, obj) -> None | (w, b, u, obj)`` on each candidate before the guard.
+    With tracing on, the solve is a ``stream.solve`` span and each segment
+    screen a ``stream.solve.screen`` instant.
     """
+    t_start = time.perf_counter()
     m, n = fc.shape
     dev, dtype = y.device, y.dtype
     lam = _F32(float(lam))
@@ -263,6 +268,8 @@ def fista_solve_chunked(
                         ).cpu().numpy()
                 new_fmask = fmask & keep
                 n_screens += 1
+                obs_trace.instant("stream.solve.screen", iter=k,
+                                  kept=int(new_fmask.sum()))
                 if new_fmask.sum() < fmask.sum():
                     fmask = new_fmask
                     masked = True
@@ -276,6 +283,10 @@ def fista_solve_chunked(
                     w_prev, b_prev, u_prev, t = w, b, u, _F32(1.0)
                     rel_prev = rel_prev2 = inf
 
+    if obs_trace.enabled():
+        obs_trace.complete("stream.solve", t_start, time.perf_counter(),
+                           iters=k, converged=bool(converged),
+                           screens=n_screens, kept=int(fmask.sum()))
     if report is not None:
         report.update(screens=n_screens, kept=int(fmask.sum()),
                       live_chunks=int(live.sum()) if live is not None else fc.n_chunks)

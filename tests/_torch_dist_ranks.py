@@ -12,9 +12,10 @@ import torch
 
 from repro_torch.core import distributed as D
 from repro_torch.core.dual import lambda_max_sharded, theta_at_lambda_max_sharded
+from repro_torch.core.path import PathDriver
 from repro_torch.core.path_scan import svm_path_scan_sharded
+from repro_torch.core.rules import AutoRule
 from repro_torch.core.solver import lipschitz_estimate
-from repro_torch.launch.train_svm import run_path
 
 
 def _np(t):
@@ -67,10 +68,60 @@ def suite(grid, arrays, cfg):
                                p.extras["engine"], p.extras["grid"])
     out["host_lanes"] = {}
     for name, kw in cfg.get("host_lanes", {}).items():
-        p = run_path(grid, X, y, L=cfg["L"], device="cpu", **kw)
+        p, decisions = host_lane(grid, X, y, cfg["L"], kw)
         out["host_lanes"][name] = (p.objectives, p.kept, p.kept_samples, p.weights,
                                    p.biases, p.extras["keep_masks"],
                                    p.extras.get("dynamic"),
-                                   p.extras.get("dynamic_keep_masks"))
+                                   p.extras.get("dynamic_keep_masks"), decisions)
     out["allreduce"] = dict(D.ALLREDUCE)
     return out
+
+
+def host_lane(grid, X, y, L, kw, device="cpu", **driver_kw):
+    """The launcher's host lane on this rank: ``PathDriver(grid=grid,
+    reduce="mask")`` with ``kw`` (rules, solver options, the lambda grid;
+    ``exact_lipschitz`` drops the path's L). Returns the result and, for
+    ``auto``, the policy's decisions per step (extra sweep run, extra sweep
+    on next, extra features screened)."""
+    kw = dict(kw)
+    grid_kw = {k: kw.pop(k) for k in ("n_lambdas", "lam_min_ratio")}
+    if kw["rules"] == "auto":
+        kw["rules"] = AutoRule()
+    if not kw.get("exact_lipschitz"):
+        kw["L"] = L
+    drv = PathDriver(grid=grid, reduce="mask", device=device, **kw, **driver_kw)
+    res = drv.run(X, y, **grid_kw)
+    decisions = None
+    if isinstance(kw["rules"], AutoRule):
+        decisions = [(t["extra_swept"], t["use_extra"], t["extra_screened"])
+                     for t in kw["rules"].telemetry]
+    return res, decisions
+
+
+class Interrupted(RuntimeError):
+    """Raised by :func:`interrupted_path`'s injector."""
+
+
+def interrupted_path(grid, arrays, cfg):
+    """A host-lane path on this rank with a checkpoint directory, stopped by
+    an exception injected at step ``cfg["stop"]`` (after its solve, before
+    its certificate and checkpoint): rank 0 has saved every step before it.
+    Returns the step that stopped it."""
+    torch.set_num_threads(1)
+    X = torch.from_numpy(np.array(grid.block(arrays["X"])))
+    y = torch.from_numpy(np.array(grid.col_block(arrays["y"])))
+    drv = PathDriver(cfg["rules"], grid=grid, reduce="mask", L=cfg["L"],
+                     ckpt_dir=cfg["dir"], device="cpu", max_iters=cfg["max_iters"],
+                     tol=-1.0)
+
+    def stop(k, w, b):
+        if k == cfg["stop"]:
+            raise Interrupted(f"step {k}")
+        return w, b
+
+    drv._fault_injector = stop
+    try:
+        drv.run(X, y, n_lambdas=cfg["n_lambdas"], lam_min_ratio=cfg["lam_min_ratio"])
+    except Interrupted:
+        return cfg["stop"]
+    return None

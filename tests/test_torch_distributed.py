@@ -22,10 +22,12 @@ functions run once, in one subprocess with 8 host devices
   ``test_torch_path_scan.py``), a path's within 1e-3 (40 iterations a step
   leave it mid-solve, where a coordinate that enters the support an
   iteration apart differs by up to 1.3e-4);
-* the launcher's host lane against ``PathDriver(reduce="mask")``:
-  objectives within rel 1e-6 (composite on 2 x 2; ``edpp`` and ``dvi`` on
-  4 x 1; ``--dynamic`` with ``feature_vi`` on 2 x 2), step 1's keep mask
-  equal;
+* the launcher's host lane (``PathDriver(grid=..., reduce="mask")``)
+  against ``PathDriver(reduce="mask")`` on one device: objectives within
+  rel 1e-6 (composite on 2 x 2; ``edpp`` and ``dvi`` on 4 x 1, 2 x 2 and
+  1 x 4; ``auto`` and ``--exact-lipschitz`` on 2 x 2; ``--dynamic`` with
+  ``feature_vi`` on 2 x 2), step 1's keep mask equal; ``auto``'s decisions
+  the same on every rank;
 * the reference: screen bounds within 2e-4, sharded objectives within rel
   1e-5 (its body has no guard; its dynamic certificate runs the same 4
   rounds), and the dynamic solve's screened features safe: none is nonzero
@@ -63,10 +65,11 @@ from repro_torch.core.solver import (
     fista_solve,
     lipschitz_estimate,
 )
+from repro_torch.core.rules import FeatureVIRule
 from repro_torch.data import make_sparse_classification
 from repro_torch.kernels.screen import sample_surplus_plain, screen_bounds_plain
+from repro_torch.sparse import FeatureChunked
 from repro_torch.launch.train_svm import main as train_main
-from repro_torch.launch.train_svm import run_path
 
 ROOT = Path(__file__).resolve().parents[1]
 GRIDS = [(2, 2), (4, 1), (1, 4)]
@@ -82,8 +85,15 @@ SHALLOW = dict(n_lambdas=6, lam_min_ratio=0.3, max_iters=40, tol=-1.0)
 HOST_LANES = {
     (2, 2): {"composite": dict(rules="composite", **DEEP),
              "dynamic": dict(rules="feature_vi", dynamic=True,
-                             screen_every=SCREEN_EVERY, **SHALLOW)},
+                             screen_every=SCREEN_EVERY, **SHALLOW),
+             "edpp_2x2": dict(rules="edpp", **SHALLOW),
+             "dvi_2x2": dict(rules="dvi", **SHALLOW),
+             "auto_2x2": dict(rules="auto", **SHALLOW),
+             "exact_lipschitz_2x2": dict(rules="feature_vi", exact_lipschitz=True,
+                                         **SHALLOW)},
     (4, 1): {"edpp": dict(rules="edpp", **SHALLOW), "dvi": dict(rules="dvi", **SHALLOW)},
+    (1, 4): {"edpp_1x4": dict(rules="edpp", **SHALLOW),
+             "dvi_1x4": dict(rules="dvi", **SHALLOW)},
 }
 SPAWN_TIMEOUT = 240.0
 
@@ -190,7 +200,9 @@ def single(ds, cfg):
         for name, kw in lanes.items():
             kw = dict(kw)
             grid = {k: kw.pop(k) for k in ("n_lambdas", "lam_min_ratio")}
-            out["host_lanes"][name] = PathDriver(reduce="mask", L=cfg["L"], device="cpu",
+            if not kw.get("exact_lipschitz"):
+                kw["L"] = cfg["L"]
+            out["host_lanes"][name] = PathDriver(reduce="mask", device="cpu",
                                                  **kw).run(ds.X, ds.y, **grid)
     out["shallow_unscreened"] = svm_path_scan(
         ds.X, ds.y, screening=False, L=cfg["L"], device="cpu",
@@ -412,19 +424,26 @@ def test_host_lane_matches_svm_path(grids, single, ds):
     assert not np.any(screened & (margins < 1.0 - 1e-6))
 
 
-@pytest.mark.parametrize("name,grid", [("edpp", (4, 1)), ("dvi", (4, 1)),
-                                       ("dynamic", (2, 2))])
+@pytest.mark.parametrize("name,grid", [
+    ("edpp", (4, 1)), ("dvi", (4, 1)), ("dynamic", (2, 2)),
+    ("edpp_2x2", (2, 2)), ("dvi_2x2", (2, 2)), ("edpp_1x4", (1, 4)),
+    ("dvi_1x4", (1, 4)), ("auto_2x2", (2, 2)), ("exact_lipschitz_2x2", (2, 2))])
 def test_host_lane_feature_screens_match_path_driver(grids, single, name, grid):
-    """The host lane's other feature screens against ``PathDriver(reduce=
-    "mask")`` at fixed iterations: ``edpp`` and ``dvi`` through their own
-    bounds on a model-only grid, and the in-solver re-screen
-    (``--dynamic``, ``fista_sharded(screen_every=)``) on 2 x 2. Objectives
-    within rel 1e-6; step 1 (the closed-form anchor) keeps the same
-    features; features are screened, and none that the unscreened path
-    uses. Later steps may keep more than ``PathDriver``: the lane certifies
-    its anchors with ``gap_theta_delta``, ``PathDriver`` with the tighter
+    """The host lane's other feature screens (``PathDriver(grid=...)``)
+    against ``PathDriver(reduce="mask")`` on one device at fixed
+    iterations: ``edpp`` and ``dvi`` along the seam (the scan lane's
+    ``_stack_bounds``: a full launch on a model-only grid, the partial mode
+    and the finalize where samples are split), ``auto`` with rank 0's
+    policy, ``--exact-lipschitz`` (L estimated in every solve, sharded) and
+    the in-solver re-screen (``--dynamic``, ``fista_sharded(screen_every=)``)
+    on 2 x 2. Objectives within rel 1e-6; step 1 (the closed-form anchor)
+    keeps the same features; features are screened, and none that the
+    unscreened path uses; ``auto``'s decisions are the same on every rank.
+    Later steps may keep more than ``PathDriver``: the lane certifies its
+    anchors with ``gap_theta_delta``, ``PathDriver`` with the tighter
     ``safe_theta_and_delta``."""
-    obj, kept, _, _, _, masks, dyn, dyn_masks = _ranks_agree(
+    lanes = [r["host_lanes"][name] for r in grids[grid]]
+    obj, kept, _, _, _, masks, dyn, dyn_masks, decisions = _ranks_agree(
         grids[grid], "host_lanes")[name]
     want = single["host_lanes"][name]
     assert _rel(obj, want.objectives) <= 1e-6
@@ -436,15 +455,20 @@ def test_host_lane_feature_screens_match_path_driver(grids, single, name, grid):
     assert masks[1:].sum() < masks[1:].size  # features were screened
     support = np.abs(single["shallow_unscreened"].weights) > 1e-6
     assert not np.any(support & ~masks)
+    if name.startswith("auto"):
+        assert all(lane[8] == decisions for lane in lanes)
+        assert any(swept for swept, _, _ in decisions)  # a probe ran the sweep
 
 
 # -- what a grid rejects ------------------------------------------------------------------
 
 
-def test_rejected_configurations(ds):
+def test_rejected_configurations(ds, tmp_path, monkeypatch):
     """Uneven splits, the dynamic sharded scan, compact reduction, chunked
-    storage, ``auto`` and a non-VI feature rule over a split sample axis on
-    a grid raise."""
+    storage (the reference's own rejections), a gather on a grid and a rule
+    with no sharded route raise; ``auto`` and ``edpp`` over a split sample
+    axis are accepted."""
+    monkeypatch.chdir(tmp_path)
     g = D.SvmGrid(model=2, data=2, rank=3)
     with pytest.raises(ValueError, match="split evenly"):
         g.rows(129)
@@ -452,11 +476,20 @@ def test_rejected_configurations(ds):
         g.block(np.zeros((128, 63)))
     with pytest.raises(ValueError, match="dynamic"):
         svm_path_scan_sharded(D.svm_grid(1, 1), ds.X, ds.y, dynamic=True, device="cpu")
-    with pytest.raises(ValueError, match="auto"):
-        run_path(D.svm_grid(1, 1), ds.X, ds.y, rules="auto", device="cpu")
+    with pytest.raises(ValueError, match="mask"):
+        PathDriver(grid=g, device="cpu")
+    for rules in ("auto", "edpp"):
+        PathDriver(rules, grid=g, reduce="mask", device="cpu")
+
+    class NoProgram(FeatureVIRule):
+        program = None
+
     with pytest.raises(ValueError, match="no sharded route"):
-        run_path(D.SvmGrid(model=1, data=2, rank=0), ds.X[:, :32], ds.y[:32],
-                 rules="edpp", device="cpu")
+        PathDriver(NoProgram(), grid=g, reduce="mask", device="cpu").run(
+            ds.X[:64, :32], ds.y[:32])
+    with pytest.raises(ValueError, match="chunk"):
+        PathDriver(grid=g, reduce="mask", device="cpu").run(
+            FeatureChunked.from_dense(ds.X[:64, :32], chunk_m=16), ds.y[:32])
     for argv, what in ((["--engine", "scan", "--reduce", "compact"], "compact"),
                        (["--engine", "scan", "--dynamic"], "dynamic"),
                        (["--storage", "chunked"], "storage"),
@@ -467,9 +500,11 @@ def test_rejected_configurations(ds):
 
 
 @pytest.mark.parametrize("engine", ["host", "scan"])
-def test_launcher_grid_lanes(engine, capsys):
+def test_launcher_grid_lanes(engine, capsys, tmp_path, monkeypatch):
     """``--model 2 --data 2 --device cpu`` on both lanes: the ranks run the
-    lane and report their all-reduces."""
+    lane and report their all-reduces (in a directory of the test's own:
+    the host lane checkpoints under it)."""
+    monkeypatch.chdir(tmp_path)
     rc = train_main(["--m", "64", "--n", "32", "--n-lambdas", "4",
                      "--model", "2", "--data", "2", "--device", "cpu",
                      "--engine", engine, "--rules",

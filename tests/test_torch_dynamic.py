@@ -614,7 +614,8 @@ def test_dvi_bounds_match_reference_on_reference_anchors(inst):
 
 # -- the launcher -------------------------------------------------------------
 
-def test_launcher_dynamic_composite_mask(capsys):
+def test_launcher_dynamic_composite_mask(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the launcher writes artifacts/ here
     rc = train_main(["--m", "300", "--n", "120", "--dynamic", "--screen-every", "25",
                      "--rules", "composite", "--reduce", "mask",
                      "--lam-min-ratio", "0.02", "--device", "cpu"])
@@ -626,7 +627,8 @@ def test_launcher_dynamic_composite_mask(capsys):
     assert all("kept_per_segment=[" in ln for ln in steps[1:])
 
 
-def test_launcher_dvi(capsys):
+def test_launcher_dvi(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the launcher writes artifacts/ here
     assert train_main(["--m", "300", "--n", "120", "--rules", "dvi",
                        "--device", "cpu"]) == 0
     assert "rules=dvi" in capsys.readouterr().out

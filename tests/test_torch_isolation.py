@@ -30,6 +30,9 @@ print("repro_torch.core.path_scan" in mods)
 print(all(f"repro_torch.sparse.{m}" in mods
           for m in ("chunked", "screen_stream", "solver_stream")))
 print("repro_torch.core.distributed" in mods)
+print(all(m in mods for m in (
+    "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.path_trace",
+    "repro_torch.obs.log", "repro_torch.checkpoint.manager", "repro_torch.testing.faults")))
 """
 
 
@@ -39,11 +42,11 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     # every submodule was imported, core/rules/dvi.py, core/path_scan.py,
-    # the three modules of repro_torch.sparse and core/distributed.py among
-    # them
-    count, has_scan, has_sparse, has_dist = out.stdout.split()[-4:]
+    # the three modules of repro_torch.sparse, core/distributed.py and the
+    # obs, checkpoint and testing packages among them
+    count, has_scan, has_sparse, has_dist, has_14a = out.stdout.split()[-5:]
     assert int(count) >= 32 and has_scan == "True" and has_sparse == "True"
-    assert has_dist == "True"
+    assert has_dist == "True" and has_14a == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):

@@ -153,3 +153,24 @@ def test_kept_samples_match_reference(reduce):
     assert p.kept[0] == r.kept[0] == 300
     assert p.kept_samples[0] == r.kept_samples[0]
     np.testing.assert_allclose(p.objectives, r.objectives, rtol=REL)
+
+
+@pytest.mark.parametrize("reduce", ["gather", "mask"])
+@pytest.mark.parametrize("rules", ["feature_vi", "composite"])
+def test_exact_lipschitz_matches_reference(rules, reduce):
+    """``exact_lipschitz=True``: every solve estimates L on its own reduced or
+    masked X, in each package by its own power iteration (30 steps in the
+    reference, 100 here), so the iterates differ at fixed iterations; at the
+    default stop rule the objectives agree to rel 1e-5. Step 1 screens from
+    the closed-form anchor at lambda_max, the same in both, so its kept
+    count is the reference's (later ones follow each package's gap)."""
+    ds = make_sparse_classification(m=300, n=120, k_active=10, seed=41)
+    grid = dict(n_lambdas=8, lam_min_ratio=0.02)
+    r = RefDriver(rules, reduce=reduce, exact_lipschitz=True).run(ds.X, ds.y, **grid)
+    p = PathDriver(rules, reduce=reduce, exact_lipschitz=True, device="cpu").run(
+        ds.X, ds.y, **grid)
+    np.testing.assert_allclose(p.objectives, np.asarray(r.objectives), rtol=REL)
+    assert p.kept[1] == int(r.kept[1]) < 300
+    assert not np.any(p.extras["health"])
+    if rules == "composite":
+        assert p.kept_samples.min() < 120  # the sample rule screens on this grid

@@ -485,8 +485,11 @@ def test_svm_path_engine_dispatch(ds, scan_paths):
     assert all(x.extras["engine"] == "batched" for x in rs)
     with pytest.raises(ValueError, match="'host', 'scan', or 'batched'"):
         svm_path(ds.X, ds.y, engine="bogus", device="cpu")
-    with pytest.raises(ValueError, match="scan-engine option"):
-        svm_path(ds.X, ds.y, exact_lipschitz=True, device="cpu")
+    # the host engine takes exact_lipschitz too (PathDriver's, as the
+    # reference's svm_path passes it): every solve estimates its own L
+    rh = svm_path(ds.X, ds.y, exact_lipschitz=True, **kw)
+    want = PathDriver(exact_lipschitz=True, device="cpu", **FIXED).run(ds.X, ds.y, **GRID)
+    np.testing.assert_array_equal(rh.objectives, want.objectives)
     assert path_scan.engine_cache_info() == []  # no graph on the CPU
 
 
@@ -495,7 +498,8 @@ def test_svm_path_engine_dispatch(ds, scan_paths):
     ["--engine", "scan", "--rules", "dvi", "--exact-lipschitz"],
     ["--engine", "batched", "--reduce", "compact"],
 ])
-def test_launcher_engines(argv, capsys):
+def test_launcher_engines(argv, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the launcher writes artifacts/ here
     assert train_main(["--m", "120", "--n", "60", "--n-lambdas", "4", "--device", "cpu",
                        *argv]) == 0
     out = capsys.readouterr().out

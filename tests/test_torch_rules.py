@@ -472,7 +472,8 @@ def test_svm_path_takes_the_new_rules():
 
 
 @pytest.mark.parametrize("rules", ["edpp", "auto", "sifs"])
-def test_launcher_new_rules(capsys, rules):
+def test_launcher_new_rules(capsys, rules, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the launcher writes artifacts/ here
     assert train_main(["--m", "300", "--n", "120", "--rules", rules,
                        "--lam-min-ratio", "0.02", "--device", "cpu"]) == 0
     out = capsys.readouterr().out

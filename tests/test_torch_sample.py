@@ -285,7 +285,8 @@ def test_reduce_option_is_checked():
         PathDriver("composite", reduce="compact", device="cpu")
 
 
-def test_launcher_composite_mask_on_cpu(capsys):
+def test_launcher_composite_mask_on_cpu(capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the launcher writes artifacts/ here
     assert train_main(["--m", "300", "--n", "120", "--rules", "composite",
                        "--reduce", "mask", "--n-lambdas", "8",
                        "--lam-min-ratio", "0.02", "--device", "cpu"]) == 0

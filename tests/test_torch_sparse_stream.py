@@ -812,9 +812,10 @@ def test_sample_stats_and_slices(dense_inst):
 
 
 @pytest.mark.parametrize("storage", ["chunked", "csr", "mmap"])
-def test_launcher_storage(tmp_path, capsys, storage):
+def test_launcher_storage(tmp_path, capsys, storage, monkeypatch):
     """``--storage chunked|csr|mmap`` on the CPU: step lines with the live
     chunks, and a last line with the transfer counts."""
+    monkeypatch.chdir(tmp_path)  # the launcher writes artifacts/ here
     args = ["--m", "200", "--n", "80", "--n-lambdas", "4", "--chunk-m", "64",
             "--device", "cpu", "--storage", storage]
     if storage == "csr":
