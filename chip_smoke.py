@@ -66,6 +66,17 @@ n = 10,000 samples, fp32):
   (``host_lane_grid``: ``edpp`` and ``dvi`` on 2 x 2 and 1 x 4, ``auto``
   and exact Lipschitz on 2 x 2, each against one device); card ranks
   against CPU ranks; each partial mode timed on a 2 x 2 block;
+* the path server (``launch/path_server.py``): six tenants cut from the
+  full-width X (50,000 x 10,000 down to 33,000 x 9,000) drained through four
+  padded slots of the (65,536, 16,384) bucket, then three EDPP tenants of
+  ~20,000 x 4,000 on the same server's reallocated slots, the feature
+  screen's weighted EDPP mode under their sample masks (``serve``: every
+  job within rel 1e-5 of its own scan path, padded rows exactly 0, safety
+  against one tenant's unscreened path, the program cache warm with no
+  graph re-captured, jobs/s, latencies, occupancy and peak memory); a
+  server killed mid-drain and resumed from its snapshots bit for bit, a
+  quarantined tenant, a retried one and a deadline, at the bench size
+  (``serve_snapshot``, ``serve_faults``);
 * checkpoints, faults and tracing on the full-width feature path
   (``checkpoint_resume``: interrupted in step 4 and resumed, bit for bit
   the uninterrupted path, each save's seconds and bytes; ``faults``: a
@@ -82,9 +93,11 @@ margin, gradient or sample-surplus kernel ran its scalar variant there
 the bulk-copy variant). The kernel checks include shapes and views that
 reach both variants of all three kernels (``VARIANT_CASES``), the margin
 with no live row (``valid_m = 0``), the feature screen's dynamic
-variant (sample weights, the gap-sphere cap, a NaN theta) and its EDPP mode
+variant (sample weights, the gap-sphere cap, a NaN theta), its EDPP mode
 (exact, inexact and degenerate anchors, a NaN theta, never above the VI
-mode on the same anchor; timed in turns with the VI mode), and the feature
+mode on the same anchor; timed in turns with the VI mode) and its weighted
+EDPP mode (sample weights, never above the weighted VI launch; timed in
+turns with it), and the feature
 screen's optional ``d_theta`` output (against the plain ``d_theta``, with
 bounds equal bit for bit to a launch without it). Every phase
 prints one JSON line; any failed check raises and the script exits
@@ -226,14 +239,16 @@ def tolerance(k: int, scale: float) -> float:
 class Kernels:
     """Runs each kernel against its plain version and keeps the worst error."""
 
-    def __init__(self, hinge, screen, shared_scalars, stats, edpp_scalars, lam_max_fn,
-                 theta_fn):
+    def __init__(self, hinge, screen, shared_scalars, stats, edpp_scalars, edpp_stats,
+                 lam_max_fn, theta_fn):
         self.hinge, self.screen, self.shared_scalars = hinge, screen, shared_scalars
         self.stats = stats  # core/screening.shared_scalars_from_stats
         self.edpp_scalars = edpp_scalars  # core/screening.edpp_scalars
+        self.edpp_stats = edpp_stats  # core/screening.edpp_scalars_from_stats
         self.lam_max, self.theta_max = lam_max_fn, theta_fn  # core/dual.py
         self.max_err = {"margin_obj": 0.0, "hinge_grad": 0.0, "screen_bounds": 0.0,
                         "screen_bounds_dynamic": 0.0, "screen_bounds_edpp": 0.0,
+                        "screen_bounds_edpp_weighted": 0.0,
                         "sample_surplus": 0.0, "margin_partial": 0.0,
                         "screen_partial": 0.0, "sample_partial": 0.0}
         self.variants_seen = {"margin_obj": set(), "hinge_grad": set(),
@@ -327,12 +342,153 @@ class Kernels:
     def dynamic_shared(self, y, lam, theta, delta, weights):
         """The at-lambda region's scalars from the weighted statistics, as
         ``core/solver.py`` ``refresh_bounds`` builds them."""
+        return self.weighted_scalars(y, lam, lam, theta, delta, weights)[0]
+
+    def weighted_scalars(self, y, lam1, lam2, theta, delta, weights):
+        """The VI and EDPP scalars of the region anchored at ``theta`` over
+        the live samples ``weights`` (all without): ``one_y = y.s``,
+        ``n_tot = sum(s)``, as the scan engines' sample-masked steps build
+        them (``path_scan._region_stats``)."""
         s = torch.ones_like(y) if weights is None else weights
-        lam = torch.tensor(lam, device=y.device)
-        return self.stats(lam, lam, one_y=torch.sum(y * s),
-                          theta_dot_one=theta.sum(), theta_dot_y=theta @ y,
-                          theta_sq=theta @ theta, n_tot=s.sum(),
-                          delta=torch.tensor(delta, device=y.device))
+        kw = dict(lam1=torch.tensor(lam1, device=y.device),
+                  lam2=torch.tensor(lam2, device=y.device), one_y=torch.sum(y * s),
+                  theta_dot_one=theta.sum(), theta_dot_y=theta @ y,
+                  theta_sq=theta @ theta, n_tot=s.sum(),
+                  delta=torch.tensor(delta, device=y.device))
+        return self.stats(**kw), self.edpp_stats(**kw)
+
+    def edpp_weighted(self, X, y, gen, where):
+        """The feature screen's weighted EDPP mode (the path server's
+        sample-masked slots) against its plain version (the ``edpp`` rule
+        program over the weighted reductions), with a 0/1 mask of ~70% live
+        samples, on the exact anchor at the live problem's lam_max and an
+        inexact one (delta 0.02), the scalars from the weighted statistics.
+        On both the bound is at most the weighted VI launch's on the same
+        anchor, bit for bit; a NaN theta gives NaN bounds. Each launch must
+        count as ``screen_bounds_edpp_weighted``. The sums have k = n
+        terms."""
+        n = X.shape[1]
+        sc = self.screen
+        s = (torch.rand(n, generator=gen) < 0.7).float().cuda()
+        b = torch.sum(y * s) / torch.sum(s)  # the live problem's bias at lam_max
+        lmax = float(torch.max(torch.abs(torch.mv(X.float(), (y - b) * s))))
+        exact = (1.0 - y * b) / lmax * s
+        inexact = (torch.rand(n, generator=gen) / (0.7 * lmax)).cuda() * s
+        out = {}
+
+        def run(theta, lam1, delta, kind):
+            sh, e = self.weighted_scalars(y, lam1, 0.5 * lam1, theta, delta, s)
+            before = sc.LAUNCHES["screen_bounds_edpp_weighted"]
+            got = sc.screen_bounds_edpp(X, y, theta, sh, e, weights=s)
+            require(sc.LAUNCHES["screen_bounds_edpp_weighted"] == before + 1,
+                    f"screen_bounds_edpp_weighted {where} {kind}: not counted")
+            want = sc.screen_bounds_edpp_plain(X, y, theta, sh, e, s)
+            vi = sc.screen_bounds_from_shared(X, y, theta, sh, weights=s)
+            torch.cuda.synchronize()
+            return got, want, vi
+
+        for kind, theta, lam1, delta in (("exact", exact, lmax, 0.0),
+                                         ("inexact", inexact, 0.7 * lmax, 0.02)):
+            got, want, vi = run(theta, lam1, delta, kind)
+            res = self._check("screen_bounds_edpp_weighted", got, want, n, f"{where} {kind}")
+            require(bool((got <= vi).all()),
+                    f"screen_bounds_edpp_weighted {where} {kind}: above weighted VI")
+            res["below_vi"] = int((got < vi).sum())
+            out[kind] = res
+        bad = inexact.clone()
+        bad[int(torch.nonzero(s)[0])] = float("nan")
+        got, want, _ = run(bad, 0.7 * lmax, 0.01, "nan theta")
+        require(bool(torch.isnan(got).all()) and bool(torch.isnan(want).all()),
+                f"screen_bounds_edpp_weighted {where}: a NaN theta did not propagate")
+        out["nan_theta"] = "all NaN"
+        return out
+
+    def serve_slot(self, server, buffers, gen, where) -> dict:
+        """The path server's kernels at the shapes its steps gave them, on
+        what its last step left on the card: slot 0 of the group's padded
+        buffer (its last tenant's X, y and live-sample mask, and the anchor
+        its carry holds) through the margin and gradient kernels over every
+        row, as a mask-mode step runs them (the carried w and b), and
+        through the weighted VI and EDPP screens from that anchor; the
+        group's largest compact buffer (``buffers``: its last contents)
+        through the margin and gradient kernels with every row valid, as a
+        compact step runs them. Each is held against its plain version at
+        :func:`tolerance`, the weighted EDPP bound at most the weighted VI
+        one, and each is timed beside its plain version and the one library
+        call, with the bytes and operations of its bound. Returns
+        ``{"checks": ..., "timing": {kernel: [per shape]}}``."""
+        h, sc = self.hinge, self.screen
+        X, y, s = server._X[0], server._y[0], server._sm[0]
+        w_c, b_c, theta, delta, lam1 = (t[0] for t in server._carry[:5])
+        m, n = X.shape
+        require(bool(torch.isfinite(delta)), f"serve slot {where}: the anchor is refused")
+        checks, timing = {}, {}
+        reps = 20
+
+        def hinge_pair(Xk, w, vm, tag):
+            checks[f"margin_obj {tag}"] = self.margin(Xk, w, y, b_c, vm, f"{where} {tag}")
+            _, xi, _ = h.margin_obj_plain(Xk, w, y, b_c, vm)
+            checks[f"hinge_grad {tag}"] = self.grad(Xk, y, xi, vm, f"{where} {tag}")
+            rows, v = Xk.shape[0], y * xi
+            timing.setdefault("margin_obj", []).append({
+                "shape": [rows, n, vm], "step": tag,
+                "ms": timed_ms(lambda: h.margin_obj_op(Xk, w, y, b_c, vm), reps),
+                "plain_ms": timed_ms(lambda: h.margin_obj_plain(Xk, w, y, b_c, vm), reps),
+                "library_ms": timed_ms(lambda: torch.mv(Xk[:vm].t(), w[:vm]), reps),
+                "bytes": vm * n * 4 + vm * 4 + n * 4 + 4 + 2 * n * 4 + 4,
+                "flops": 2 * vm * n + 5 * n})
+            timing.setdefault("hinge_grad", []).append({
+                "shape": [rows, n, vm], "step": tag,
+                "ms": timed_ms(lambda: h.hinge_grad_op(Xk, y, xi, vm), reps),
+                "plain_ms": timed_ms(lambda: h.hinge_grad_plain(Xk, y, xi, vm), reps),
+                "library_ms": timed_ms(lambda: torch.mv(Xk[:vm], v), reps),
+                "bytes": vm * n * 4 + 2 * n * 4 + rows * 4,
+                "flops": 2 * vm * n + n})
+
+        hinge_pair(X, w_c, m, "mask-mode slot")
+        if buffers:
+            buf = max(buffers, key=lambda b: b.shape[0])
+            cap = buf.shape[0]
+            w = (torch.randn(cap, generator=gen) * 0.01).cuda()
+            hinge_pair(buf, w, cap, "compact buffer")
+        lam1 = float(lam1)
+        sh, e = self.weighted_scalars(y, lam1, 0.9 * lam1, theta, float(delta), s)
+
+        def vi():
+            return sc.screen_bounds_from_shared(X, y, theta, sh, weights=s)
+
+        def edpp():
+            return sc.screen_bounds_edpp(X, y, theta, sh, e, weights=s)
+
+        got_v, got_e = vi(), edpp()
+        want_v = sc.screen_bounds_plain(X, y, theta, sh, s)
+        want_e = sc.screen_bounds_edpp_plain(X, y, theta, sh, e, s)
+        torch.cuda.synchronize()
+        checks["screen weighted vi"] = self._check("screen_bounds_dynamic", got_v, want_v,
+                                                   n, f"{where} weighted vi")
+        checks["screen weighted edpp"] = self._check(
+            "screen_bounds_edpp_weighted", got_e, want_e, n, f"{where} weighted edpp")
+        require(bool((got_e <= got_v).all()),
+                f"serve slot {where}: weighted EDPP above weighted VI")
+        checks["screen weighted edpp"]["below_vi"] = int((got_e < got_v).sum())
+        turns = [timed_ms(f, reps) for f in (vi, edpp, edpp, vi)]
+        for name, plain, ms, extra in (
+                ("screen_bounds_dynamic",
+                 lambda: sc.screen_bounds_plain(X, y, theta, sh, s),
+                 0.5 * (turns[0] + turns[3]), 70),
+                ("screen_bounds_edpp_weighted",
+                 lambda: sc.screen_bounds_edpp_plain(X, y, theta, sh, e, s),
+                 0.5 * (turns[1] + turns[2]), 80)):
+            timing[name] = [{
+                "shape": [m, n, m], "step": "slot", "ms": ms,
+                "plain_ms": timed_ms(plain, reps), "library_ms": None,
+                "bytes": m * n * 4 + 3 * n * 4 + 64 + m * 4,
+                "flops": 8 * m * n + 2 * n + extra * m,
+                "live_samples": int(s.sum()), "order": "vi, edpp, edpp, vi"}]
+        for rows in timing.values():
+            for t in rows:
+                t.update(zip(("bound_ms", "bound_by"), bound_of(t)))
+        return {"checks": checks, "timing": timing}
 
     def _check_nonfinite(self, name, got, want, k, where):
         """Kernel vs plain where some outputs are NaN or inf: the same
@@ -440,7 +596,7 @@ class Kernels:
         terms, the screen's k = n, weighted too), and a partial launch then
         its finalize on the unsplit X bit for bit the full launch (the
         margin, the sample surplus, the screen's VI, dynamic and EDPP
-        modes)."""
+        modes, and its weighted VI and weighted EDPP launches)."""
         h, sc = self.hinge, self.screen
         m, n = X.shape
         theta = (torch.rand(n, generator=gen) / 5.0).cuda()
@@ -449,6 +605,7 @@ class Kernels:
         sh = self.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
         e = self.edpp_scalars(y, 5.0, 3.0, theta, delta=0.01)
         shd = self.dynamic_shared(y, 5.0, theta * s, 0.05, s)
+        shw, ew = self.weighted_scalars(y, 5.0, 3.0, theta * s, 0.01, s)
         cap = torch.tensor(0.05, device="cuda")
         u_part, pair = h.margin_partial_op(X, w), sc.sample_partial_op(X, w)
         sums, sums_w = sc.screen_partial_op(X, y, theta), sc.screen_partial_op(
@@ -477,9 +634,15 @@ class Kernels:
                                      sc.screen_finalize_op(sums, sh)),
             "screen_dynamic": torch.equal(
                 sc.screen_bounds_from_shared(X, y, theta * s, shd, s, cap),
-                sc.screen_finalize_op(sums_w, shd, cap_delta=cap, weighted=True)),
+                sc.screen_finalize_op(sums_w, shd, cap_delta=cap)),
             "screen_edpp": torch.equal(sc.screen_bounds_edpp(X, y, theta, sh, e),
                                        sc.screen_finalize_op(sums, sh, edpp=e)),
+            "screen_weighted_vi": torch.equal(
+                sc.screen_bounds_from_shared(X, y, theta * s, shw, s),
+                sc.screen_finalize_op(sums_w, shw)),
+            "screen_edpp_weighted": torch.equal(
+                sc.screen_bounds_edpp(X, y, theta * s, shw, ew, weights=s),
+                sc.screen_finalize_op(sums_w, shw, edpp=ew)),
         }
         require(all(bits.values()), f"partial modes {where}: finalize != full launch {bits}")
         out["bitwise_vs_full"] = bits
@@ -555,6 +718,7 @@ def phase_kernels_ragged(K, gen) -> None:
             res["screen"] = K.bounds(X, y, theta, sh, f"{m}x{n} {dtype}")
             res["screen_dynamic"] = K.dynamic(X, y, gen, f"{m}x{n} {dtype}")
             res["screen_edpp"] = K.edpp(X, y, gen, f"{m}x{n} {dtype}")
+            res["screen_edpp_weighted"] = K.edpp_weighted(X, y, gen, f"{m}x{n} {dtype}")
             res["screen_d_theta"] = K.d_theta(X, y, gen, f"{m}x{n} {dtype}")
             res["sample_surplus"] = K.surplus(X, w, y, gen, f"{m}x{n} {dtype}")
             res["partial_modes"] = K.partial(X, w, y, gen, f"{m}x{n} {dtype}")
@@ -583,6 +747,7 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         res["screen"] = K.bounds(Xd, y, theta, sh, f"full {dtype}")
         res["screen_dynamic"] = K.dynamic(Xd, y, gen, f"full {dtype}")
         res["screen_edpp"] = K.edpp(Xd, y, gen, f"full {dtype}")
+        res["screen_edpp_weighted"] = K.edpp_weighted(Xd, y, gen, f"full {dtype}")
         res["screen_d_theta"] = K.d_theta(Xd, y, gen, f"full {dtype}")
         res["sample_surplus"] = K.surplus(Xd, w, y, gen, f"full {dtype}")
         res["partial_modes"] = K.partial(Xd, w, y, gen, f"full {dtype}")
@@ -598,6 +763,7 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         sh_d = K.dynamic_shared(y, lmax, theta * s, 1e-3, s)
         cap = torch.tensor(1e-3, device="cuda")
         e = K.edpp_scalars(y, lmax, 0.5 * lmax, theta, delta=1e-3)
+        sh_w, e_w = K.weighted_scalars(y, lmax, 0.5 * lmax, theta * s, 1e-3, s)
         for name, call in (
                 ("margin_obj", lambda: K.hinge.margin_obj_op(Xd, w, y, b, vm)),
                 ("hinge_grad", lambda: (K.hinge.hinge_grad_op(Xd, y, xi, vm),)),
@@ -608,6 +774,9 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
                      Xd, y, theta * s, sh_d, s, cap),)),
                 ("screen_bounds_edpp",
                  lambda: (K.screen.screen_bounds_edpp(Xd, y, theta, sh, e),)),
+                ("screen_bounds_edpp_weighted",
+                 lambda: (K.screen.screen_bounds_edpp(Xd, y, theta * s, sh_w, e_w,
+                                                      weights=s),)),
                 ("sample_surplus", lambda: K.screen.sample_surplus_op(
                     Xd, w, y, 0.13, 0.37, 0.05, u_prev))):
             first, again = call(), call()
@@ -619,10 +788,12 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
         del Xd
 
 
-def require_bulk(ops, launches, names, where) -> dict:
+def require_bulk(ops, launches, names, where, variants=None) -> dict:
     """Every launch of each redesigned kernel in a full-width path took the
-    bulk variant (the path's X, gather buffers and masks are aligned)."""
-    variants = ops.variant_counts()
+    bulk variant (the path's X, gather buffers and masks are aligned).
+    ``variants``: the variant counts of the run (default: the current
+    ones)."""
+    variants = ops.variant_counts() if variants is None else variants
     for name in names:
         v = variants[name]
         require(v["bulk"] > 0 and v["bulk"] == launches[name],
@@ -1388,6 +1559,298 @@ def phase_batched_path(svm_path_batched, svm_path_scan, compact_caps_batched,
     emit(out)
     require(not failures, "; ".join(failures))
     return grid_launches
+
+
+#: the path server's full-width tenants, cut from the bench X (rows, columns):
+#: every one in the (65,536, 16,384) bucket, 4.29 GB a padded slot
+SERVE_TENANTS = [(50_000, 10_000), (45_000, 9_000), (40_000, 10_000), (36_000, 8_500),
+                 (50_000, 9_500), (33_000, 9_000)]
+SERVE_SLOTS = 4
+#: the second group: three tenants of ~20,000 x 4,000 with EDPP (``auto``
+#: resolves to it), the weighted EDPP mode under the slots' sample masks
+SERVE_EDPP_TENANTS = [(20_000, 4_000, "edpp"), (19_000, 3_900, "auto"),
+                      (18_500, 4_000, "edpp")]
+SERVE_SEED = 5
+SERVE_LIVE = 9_000  # live samples of the weighted modes' timing mask
+
+
+def _quiet(*a, **k) -> None:
+    """A serve log that prints nothing (each phase prints its JSON line)."""
+
+
+def serve_jobs(PathJob, X, y, tenants, seed, first_jid=0) -> list:
+    """Jobs over views of the bench X: tenant ``(m, n[, rules])`` is its
+    first m rows and n columns, with a ragged grid drawn as ``demo_jobs``
+    draws them (T from 4 to 9, lam_min_ratio from 0.1 to 0.3)."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for i, t in enumerate(tenants):
+        m, n = t[:2]
+        jobs.append(PathJob(jid=first_jid + i, X=X[:m, :n], y=y[:n],
+                            n_lambdas=int(rng.integers(4, 10)),
+                            lam_min_ratio=float(rng.uniform(0.1, 0.3)),
+                            rules=t[2] if len(t) > 2 else "feature_vi"))
+    return jobs
+
+
+def merge_counts(parts) -> tuple:
+    """The launch, variant and skipped counts of several counted runs,
+    summed: ``parts`` holds each run's ``(launches, variants, skipped)``."""
+    launches, variants, skipped = {}, {}, {}
+    for lc, vc, sk in parts:
+        for k, v in lc.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in sk.items():
+            skipped[k] = skipped.get(k, 0) + v
+        for k, per in vc.items():
+            into = variants.setdefault(k, {})
+            for var, c in per.items():
+                into[var] = into.get(var, 0) + c
+    return launches, variants, skipped
+
+
+def serve_breakdown(PathServer, server_mod, lipschitz_estimate, jobs) -> dict:
+    """Where a serve's wall goes: the tenants served again on a fresh
+    server with the card synchronized around each part, the refill
+    (``_insert``: the slot zeroed and filled, the anchor, the Lipschitz
+    estimate on the padded slot), the batched step on the card
+    (``_batched_path_step``: screens, solves, certificates) and the rest of
+    the step on the host (the outputs fetched, the finiteness check, the
+    streams). Beside them, one Lipschitz estimate's device time on the
+    padded slot and on the true X it holds (zero padding leaves
+    sigma_max as it is)."""
+    srv = PathServer(slots=SERVE_SLOTS, reduce="compact", device="cuda")
+    secs = {"refill_s": 0.0, "step_s": 0.0, "batched_step_s": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    srv._insert = timed("refill_s", srv._insert)
+    srv.step = timed("step_s", srv.step)
+    batched = server_mod._batched_path_step
+    server_mod._batched_path_step = timed("batched_step_s", batched)
+    try:
+        srv.serve(jobs, log=_quiet)
+    finally:
+        server_mod._batched_path_step = batched
+        del srv._insert, srv.step  # the wrappers hold srv: no cycle outlives it
+    m, n = jobs[0].X.shape
+    out = {"wall_s": srv.last_serve["wall_s"], "inserts": len(jobs),
+           "steps": srv.last_serve["steps"], **secs,
+           "host_check_s": secs["step_s"] - secs["batched_step_s"],
+           "lipschitz_ms_padded_slot": timed_ms(lambda: lipschitz_estimate(srv._X[0]), 2),
+           "lipschitz_ms_true_x": timed_ms(
+               lambda: lipschitz_estimate(srv._X[0][:m, :n]), 2),
+           "true_shape_of_slot0": [m, n]}
+    out["other_s"] = out["wall_s"] - secs["refill_s"] - secs["step_s"]
+    del srv
+    return out
+
+
+def phase_serve(PathServer, PathJob, server_mod, svm_path, clear_engine_cache,
+                lipschitz_estimate, path_scan, K, gen, ops, X, y) -> tuple:
+    """The path server at full width: 6 tenants cut from the bench X through
+    4 slots (one group of the (65,536, 16,384) bucket, ``feature_vi``,
+    compact), then, on the same server, 3 EDPP tenants of ~20,000 x 4,000
+    (the group's slots reallocated; the feature screen's weighted EDPP
+    mode; the fourth slot stays empty and is not screened). The launch
+    counts are set to 0 just before each serve and read just after it.
+    After each serve, what its steps left on the card (a slot, the largest
+    compact buffer) goes through each of its kernels against the plain
+    version (:meth:`Kernels.serve_slot`), timed. Checked: the margin,
+    gradient, weighted VI and weighted EDPP screen kernels launched (bulk
+    variants), every job within rel 1e-5 of the port's own
+    ``svm_path(engine="scan", reduce="compact")`` on its true X and grid, a
+    padded row's weight exactly 0 and never kept, caps and kept counts at
+    most the true m, no feature that the unscreened path of one tenant of
+    each group makes nonzero screened, the program cache warm (one program
+    a miss, more hits than misses, no graph re-captured). Prints jobs/s,
+    latencies, occupancy, steps, graph captures and replays, peak device
+    memory, the solve seconds an iteration of the padded mask-mode steps
+    beside the unpadded scan path's, and where the first group's wall goes
+    (:func:`serve_breakdown`). Returns the serve's launch counts and the
+    kernels' checks and times at the serve's shapes, by group."""
+    clear_engine_cache()
+    torch.cuda.empty_cache()
+    groups = [serve_jobs(PathJob, X, y, SERVE_TENANTS, SERVE_SEED),
+              serve_jobs(PathJob, X, y, SERVE_EDPP_TENANTS, SERVE_SEED + 1, 10)]
+    torch.cuda.synchronize()
+    server = PathServer(slots=SERVE_SLOTS, reduce="compact", device="cuda")
+    summaries, results, parts, at_shapes = [], [], [], {}
+    peak = 0
+    for label, jobs in zip(("full_width", "edpp"), groups):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        results.append(server.serve(jobs, log=_quiet))
+        torch.cuda.synchronize()
+        parts.append((ops.launch_counts(), ops.variant_counts(), ops.skipped_counts()))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        summaries.append(dict(server.last_serve))
+        n_b = jobs[0].group_key()[1]
+        bufs = [b for b in path_scan._COMPACT_BUFFERS.values()
+                if b.is_cuda and b.shape[1] == n_b]
+        at_shapes[label] = K.serve_slot(server, bufs, gen, f"serve {label}")
+        del bufs
+    launches, variants, skipped = merge_counts(parts)
+    cache = server.cache_stats()
+    require_bulk(ops, launches, ("margin_obj", "hinge_grad"), "serve", variants)
+    require(all(launches[k] > 0 for k in ("margin_obj", "hinge_grad",
+                                          "screen_bounds_dynamic",
+                                          "screen_bounds_edpp_weighted")),
+            f"serve: a kernel of the server was never launched: {launches}")
+    require(cache["programs"] == cache["misses"] and cache["hits"] > cache["misses"]
+            and cache["retraces"] == 0, f"serve: program cache {cache}")
+    del server
+    clear_engine_cache()
+    torch.cuda.empty_cache()
+    breakdown = serve_breakdown(PathServer, server_mod, lipschitz_estimate,
+                                serve_jobs(PathJob, X, y, SERVE_TENANTS, SERVE_SEED))
+    jobs_out, failures = [], []
+    mask_rate = {"serve_s_per_iter": [], "scan_s_per_iter": []}
+    for jobs, res in zip(groups, results):
+        for job, r in zip(jobs, res):
+            m, n = job.X.shape
+            Xt = job.X.contiguous()
+            seq = svm_path(Xt, job.y, lambdas=job.lambdas, engine="scan",
+                           reduce="compact", rules=job.rules, device="cuda")
+            rel = float(np.max(np.abs(r.objectives - seq.objectives)
+                               / np.abs(seq.objectives)))
+            pad_w = max(float(np.abs(st["w"][m:]).max(initial=0.0)) for st in job.steps)
+            pad_kept = sum(int(st["fmask"][m:].sum()) for st in job.steps)
+            m_b = job.group_key()[0]
+            for k, st in enumerate(job.steps):
+                if int(st["cap"]) >= m_b and int(st["n_iters"]) > 0:
+                    mask_rate["serve_s_per_iter"].append(
+                        float(st["solve_s"]) / int(st["n_iters"]))
+            for k in range(len(seq.lambdas)):
+                if int(seq.extras["caps"][k]) >= m and seq.solver_iters[k]:
+                    mask_rate["scan_s_per_iter"].append(
+                        float(seq.extras["solve_seconds"][k]) / int(seq.solver_iters[k]))
+            jobs_out.append({"jid": job.jid, "shape": [m, n], "rules": job.rules,
+                             "T": len(job.lambdas), "kept": r.kept.tolist(),
+                             "caps": r.extras["caps"].tolist(),
+                             "iters": r.solver_iters.tolist(),
+                             "scan_iters": seq.solver_iters.tolist(),
+                             "max_rel_obj_vs_scan": rel,
+                             "latency_s": r.extras["latency_s"]})
+            if rel > 1e-5:
+                failures.append(f"job {job.jid}: rel {rel:.3e} against the scan path")
+            if pad_w != 0.0 or pad_kept:
+                failures.append(f"job {job.jid}: padded rows weight {pad_w}, kept {pad_kept}")
+            if np.any(r.extras["caps"] > m) or np.any(r.kept > m):
+                failures.append(f"job {job.jid}: caps or kept above m")
+            if np.any(r.extras["health"]) or not np.all(np.isfinite(r.objectives)):
+                failures.append(f"job {job.jid}: health {r.extras['health'].tolist()}")
+            del Xt
+    # safety: the smallest full-width tenant and the first EDPP tenant, each
+    # against its unscreened path
+    safety = []
+    for job, r in ((groups[0][-1], results[0][-1]), (groups[1][0], results[1][0])):
+        lams = job.lambdas[:SAFETY_STEPS]
+        full = svm_path(job.X.contiguous(), job.y, lambdas=lams, engine="scan",
+                        reduce="compact", screening=False, device="cuda")
+        for k in range(1, len(lams)):
+            support, missed = missed_features(full, k, r.extras["keep_masks"][k])
+            safety.append({"jid": job.jid, "rules": job.rules, "step": k,
+                           "support": support, "kept": int(r.kept[k]), "missed": missed})
+            if missed:
+                failures.append(f"serve safety, job {job.jid} step {k}: {missed} screened")
+    gib = 2.0 ** 30
+    emit({"phase": "serve", "slots": SERVE_SLOTS, "groups": [
+              {"tenants": [list(t) for t in tn], "bucket": list(g[0].group_key()[:2]),
+               "slot_gib": g[0].group_key()[0] * g[0].group_key()[1] * 4 / gib,
+               **summ} for tn, g, summ in zip((SERVE_TENANTS, SERVE_EDPP_TENANTS),
+                                              groups, summaries)],
+          "cache": cache, "peak_gib": peak / gib, "launches": launches,
+          "launches_by_group": [p[0] for p in parts],
+          "skipped": skipped, "variants": variants, "jobs": jobs_out, "safety": safety,
+          "mask_mode_s_per_iter": {k: (float(np.median(v)) if v else None)
+                                   for k, v in mask_rate.items()},
+          "padded_bytes_over_true": [
+              g[0].group_key()[0] * g[0].group_key()[1] / float(t[0] * t[1])
+              for g, t in ((groups[0], SERVE_TENANTS[0]),)],
+          "breakdown_full_width_group": breakdown})
+    emit({"phase": "serve_kernels", **at_shapes})
+    require(not failures, "; ".join(failures))
+    return dict(launches, **{f"skipped_{k}": v for k, v in skipped.items()}), at_shapes
+
+
+def phase_serve_snapshot(PathServer, demo_jobs, faults) -> None:
+    """The path server on the card at the bench size (4 tenants of 2,000 x
+    400, 2 slots, snapshots every step): killed after 4 steps
+    (``kill_server_after``) and served again from its snapshots, the
+    results equal an uninterrupted serve's bit for bit (weights,
+    objectives, health words)."""
+    def jobs():
+        return demo_jobs(4, m=2000, n=400, seed=0)
+
+    ref = PathServer(slots=2, device="cuda").serve(jobs(), log=_quiet)
+    with tempfile.TemporaryDirectory() as sd:
+        crashed = PathServer(slots=2, device="cuda")
+        crashed._step_hook = faults.kill_server_after(4)
+        try:
+            crashed.serve(jobs(), log=_quiet, snapshot_dir=sd, snapshot_every=1)
+            killed = False
+        except faults.ServerKilled:
+            killed = True
+        del crashed
+        t0 = time.perf_counter()
+        resumed = PathServer(slots=2, device="cuda").serve(
+            jobs(), log=_quiet, snapshot_dir=sd, snapshot_every=1)
+        wall = time.perf_counter() - t0
+    bits = [all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("objectives", "weights", "kept"))
+            and np.array_equal(a.extras["health"], b.extras["health"])
+            for a, b in zip(ref, resumed)]
+    emit({"phase": "serve_snapshot", "killed_after_steps": 4, "killed": killed,
+          "resumed_wall_s": wall, "bitwise": bits})
+    require(killed and all(bits), f"serve_snapshot: killed {killed}, bitwise {bits}")
+
+
+def phase_serve_faults(PathServer, demo_jobs, faults) -> None:
+    """The server's fault handling on the card at the bench size: a tenant
+    poisoned with no retry left is quarantined while the other three
+    finish; a transient poison is retried and every job ends within 1e-4
+    of the clean serve; a job past its deadline is evicted."""
+    def jobs():
+        return demo_jobs(4, m=2000, n=400, seed=0)
+
+    clean = PathServer(slots=2, device="cuda").serve(jobs(), log=_quiet)
+    out = {"phase": "serve_faults"}
+    q = jobs()
+    for j in q:
+        j.max_retries = 0
+    srv = PathServer(slots=2, device="cuda")
+    srv._fault_injector = faults.poison_server_slot(slot=0, at_step=2)
+    res = srv.serve(q, log=_quiet)
+    failed = [j.jid for j in q if j.status == "failed"]
+    out["quarantine"] = {"failed": failed, "errors": [j.error for j in q if j.error],
+                         "finished": sum(r is not None for r in res)}
+    require(len(failed) == 1 and sum(r is not None for r in res) == 3,
+            f"serve quarantine: {out['quarantine']}")
+    srv = PathServer(slots=2, device="cuda")
+    srv._fault_injector = faults.poison_server_slot(slot=0, at_step=3)
+    res = srv.serve(jobs(), log=_quiet)
+    diff = max(float(np.max(np.abs(a.objectives - b.objectives)))
+               for a, b in zip(res, clean))
+    out["retry"] = {"retries": srv.stats["retries"], "max_abs_obj_diff": diff}
+    require(srv.stats["retries"] >= 1 and diff < 1e-4, f"serve retry: {out['retry']}")
+    d = jobs()[:2]
+    d[0].deadline_s = 0.0
+    d[0].t_start = time.perf_counter() - 1.0
+    res = PathServer(slots=2, device="cuda").serve(d, log=_quiet)
+    out["deadline"] = {"status": d[0].status, "error": d[0].error,
+                       "other_done": res[1] is not None}
+    require(d[0].status == "failed" and res[0] is None and res[1] is not None,
+            f"serve deadline: {out['deadline']}")
+    emit(out)
 
 
 def phase_scan_dynamic(svm_path, ops, chunk_iters, X, y, res_scan, full) -> dict:
@@ -2450,25 +2913,30 @@ def phase_partial_timing(hinge, screen, shared_scalars, edpp_scalars, X, y) -> d
     return out
 
 
-def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
-    """One kernel's entry of the ``kernels`` line: its times, its bound (the
-    larger of bytes over the HBM rate and flops over the fp32 rate) and its
-    launches in the path that carries it."""
+def bound_of(t) -> tuple:
+    """``(bound_ms, bound_by)``: the larger of ``t``'s bytes over the HBM
+    rate and its flops over the fp32 rate."""
     t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = t["flops"] / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
+    """One kernel's entry of the ``kernels`` line: its times, its bound
+    (:func:`bound_of`) and its launches in the path that carries it."""
+    bound_ms, bound_by = bound_of(t)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": int(launches[name]), "max_abs_err": max_err[name],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": t["library_ms"],
         "shape_rows_cols_valid": shape, "path_step": step,
     }
 
 
 def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
-                 max_err, solver) -> list:
+                 max_err, solver, serve_launches, serve_shapes) -> list:
     """Each kernel, its plain version and the one library call at the shape
     its path gave it, with the least time the card could take. The hinge
     kernels and the feature screen take their shapes and launch counts from
@@ -2479,7 +2947,14 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
     with sample weights and the cap, as the composite dynamic path runs it,
     and one whole refresh beside it. The EDPP mode (``rule_launches``: the
     launch counts of the ``edpp``, ``auto`` and ``sifs`` paths) is timed in
-    turns with the VI mode on the same anchor: VI, EDPP, EDPP, VI."""
+    turns with the VI mode on the same anchor: VI, EDPP, EDPP, VI. Its
+    weighted instantiation (``serve_launches``: the path server's launch
+    counts) is timed in turns with the weighted VI launch, under a 0/1 mask
+    of 9,000 live samples; both are held against their plain versions. Its
+    row's own times are those at the EDPP group's padded slot, where the
+    server launched it (``serve_shapes``: :meth:`Kernels.serve_slot`'s
+    times by group); each row the server launches carries its times at the
+    serve's shapes too."""
     hinge, screen = K.hinge, K.screen
     m, n = X.shape
     # the hinge kernels: the step whose solve swept the most rows in total
@@ -2602,6 +3077,57 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
                      "src/repro/kernels/screen.py:142 _feature_kernel (dynamic variant)",
                      "src/repro_torch/kernels/csrc/screen.cu", dyn_t, [m, n, m],
                      dyn_launches, max_err, T - 1))
+    # the weighted EDPP mode: a server slot's 0/1 mask of live samples, in
+    # turns with the weighted VI launch on the same anchor
+    s9 = torch.zeros(n, device="cuda")
+    s9[torch.randperm(n, device="cuda")[:SERVE_LIVE]] = 1.0
+    theta_w = theta * s9
+    sh_w, e_w = K.weighted_scalars(y, lam1, lam2, theta_w, 1e-3, s9)
+
+    def weighted_vi():
+        return screen.screen_bounds_from_shared(X, y, theta_w, sh_w, weights=s9)
+
+    def weighted_edpp():
+        return screen.screen_bounds_edpp(X, y, theta_w, sh_w, e_w, weights=s9)
+
+    wturns = [timed_ms(f, 20) for f in (weighted_vi, weighted_edpp, weighted_edpp,
+                                        weighted_vi)]
+    got_e, got_v = weighted_edpp(), weighted_vi()
+    plain_e = screen.screen_bounds_edpp_plain(X, y, theta_w, sh_w, e_w, s9)
+    torch.cuda.synchronize()
+    K._check("screen_bounds_edpp_weighted", got_e, plain_e, n, "timing weighted edpp")
+    K._check("screen_bounds_dynamic", got_v,
+             screen.screen_bounds_plain(X, y, theta_w, sh_w, s9), n, "timing weighted vi")
+    require(bool((got_e <= got_v).all()), "timing: weighted EDPP above weighted VI")
+    edpp_w = {
+        "ms": 0.5 * (wturns[1] + wturns[2]),
+        "plain_ms": timed_ms(lambda: screen.screen_bounds_edpp_plain(
+            X, y, theta_w, sh_w, e_w, s9), 20),
+        "library_ms": None,
+        "bytes": m * n * 4 + 3 * n * 4 + 64 + m * 4,
+        "flops": 8 * m * n + 2 * n + 80 * m,
+    }
+    emit({"phase": "screen_weighted_modes_in_turns", "shape": [m, n], "live": SERVE_LIVE,
+          "order": "weighted vi, weighted edpp, weighted edpp, weighted vi", "ms": wturns,
+          "weighted_vi_plain_ms": timed_ms(lambda: screen.screen_bounds_plain(
+              X, y, theta_w, sh_w, s9), 20),
+          "below_vi": int((got_e < got_v).sum())})
+    at_slot = serve_shapes["edpp"]["timing"]["screen_bounds_edpp_weighted"][0]
+    rows.append(_row("screen_bounds_edpp_weighted",
+                     "src/repro/kernels/screen.py:142 _feature_kernel (weighted EDPP mode: "
+                     "src/repro/core/rules/programs.py:126 _edpp_bounds over the path "
+                     "server's sample-masked FixedStats)",
+                     "src/repro_torch/kernels/csrc/screen.cu", at_slot, at_slot["shape"],
+                     serve_launches, max_err, "serve edpp group, slot 0"))
+    rows[-1]["full_width_9000_live"] = {
+        "shape": [m, n, m], "ms": edpp_w["ms"], "plain_ms": edpp_w["plain_ms"],
+        "bound_ms": bound_of(edpp_w)[0]}
+    for row in rows:
+        row["at_serve_shapes"] = [
+            {"group": label, **{key: t[key] for key in (
+                "shape", "step", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+            for label, got in serve_shapes.items()
+            for t in got["timing"].get(row["name"], [])]
     for row in rows:
         row["launches_composite_path"] = int(launches_c[row["name"]])
         row["launches_dynamic_feature_path"] = int(dyn["feature"][row["name"]])
@@ -2672,12 +3198,16 @@ def main() -> int:
     from repro_torch.core.rules import AutoRule, SampleVIRule
     from repro_torch.core.screening import (
         edpp_scalars,
+        edpp_scalars_from_stats,
         screen_bounds,
         shared_scalars,
         shared_scalars_from_stats,
     )
     from repro_torch.data import make_sparse_classification
     from repro_torch.kernels import build, hinge, ops, screen
+    from repro_torch.core import path_scan
+    from repro_torch.launch import path_server
+    from repro_torch.launch.path_server import PathJob, PathServer, demo_jobs
     from repro_torch.launch.train_svm import main as train_main
     from repro_torch.obs import trace as obs_trace
     import repro_torch.sparse as sparse
@@ -2694,7 +3224,7 @@ def main() -> int:
     phase_build(build)
     gen = torch.Generator().manual_seed(1234)
     K = Kernels(hinge, screen, shared_scalars, shared_scalars_from_stats, edpp_scalars,
-                lambda_max, theta_at_lambda_max)
+                edpp_scalars_from_stats, lambda_max, theta_at_lambda_max)
     phase_kernels_ragged(K, gen)
 
     t0 = time.perf_counter()
@@ -2734,6 +3264,12 @@ def main() -> int:
     engine_launches["scan_dynamic"] = phase_scan_dynamic(
         svm_path, ops, solver.CHUNK_ITERS, X, y, res_scan, full)
     phase_engine_memory(clear_engine_cache, engine_cache_info, "scan_dynamic")
+    engine_launches["serve"], serve_shapes = phase_serve(
+        PathServer, PathJob, path_server, svm_path, clear_engine_cache,
+        lipschitz_estimate, path_scan, K, gen, ops, X, y)
+    phase_engine_memory(clear_engine_cache, engine_cache_info, "serve")
+    phase_serve_snapshot(PathServer, demo_jobs, faults)
+    phase_serve_faults(PathServer, demo_jobs, faults)
     phase_path_walls(svm_path, X, y)
     L_full = float(lipschitz_estimate(X))
     phase_checkpoint_resume(PathDriver, ops, X, y, L_full)
@@ -2770,7 +3306,8 @@ def main() -> int:
                                  make_sparse_classification)
     rows = phase_timing(K, res, launches, res_c, launches_c,
                         {"feature": launches_df, "composite": launches_dc},
-                        rule_launches, X, y, K.max_err, solver)
+                        rule_launches, X, y, K.max_err, solver, engine_launches["serve"],
+                        serve_shapes)
     for row in rows:  # the engines' paths: launches, and launches that did no work
         for label, counts in engine_launches.items():
             row[f"launches_{label}_path"] = int(counts[row["name"]])

@@ -10,15 +10,19 @@ directory, and called through its own C signature, with the scalars packed
 on every call as the current wrapper packs them: ``--old-kind split`` (the
 default) is the signature of commit 038c22d's kernel (no EDPP argument),
 ``--old-kind edpp`` that of commits 3d64315 and cbc492e (an EDPP argument,
-no ``d_theta`` output). The current kernel goes
-through its wrappers. With ``--old-kind edpp`` the EDPP mode is compared
-too, and the current VI mode with its ``d_theta`` output on: each case
-reports whether the two versions' bounds are equal bit for bit.
+no ``d_theta`` output), ``--old-kind d_theta`` that of commits 2a7b664 to
+abded6a (an EDPP argument and a ``d_theta`` output, EDPP in the unweighted
+instantiation only). The current kernel goes
+through its wrappers. With ``--old-kind edpp`` or ``d_theta`` the EDPP
+mode is compared too, and the current VI mode with its ``d_theta`` output
+on: each case reports whether the two versions' bounds are equal bit for
+bit.
 
 Timed in turns at X fp32 50,000 x 10,000 (2.0 GB), random from a seeded
 CUDA generator: the VI mode, then the dynamic variant with sample weights
-and the gap-sphere cap, then the current EDPP mode beside the current VI
-mode. Each time is the mean of ``--reps`` calls (CUDA events). The largest
+and the gap-sphere cap, then with sample weights alone (the path server's
+weighted VI launch), then the current EDPP mode beside the current VI mode
+and the current weighted EDPP mode beside the current weighted VI mode. Each time is the mean of ``--reps`` calls (CUDA events). The largest
 difference between the two versions' outputs is reported (the current VI
 finalizer rounds as its explicit intrinsics say, the earlier one as the
 compiler fused it, so the last bits may differ). Prints one JSON line with
@@ -37,6 +41,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.core.screening import (  # noqa: E402
     edpp_scalars,
+    edpp_scalars_from_stats,
     shared_scalars,
     shared_scalars_from_stats,
 )
@@ -46,7 +51,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the earlier screen_bounds_features: (X, x_bf16, y, theta, weights,
 # scalars, m, n, bounds, [edpp,] device, stream)
 OLD_SIGNATURES = {"split": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P],
-                  "edpp": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P]}
+                  "edpp": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+                  "d_theta": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P]}
 
 
 def old_library(old_dir: Path, kind: str) -> ctypes.CDLL:
@@ -110,7 +116,8 @@ def main() -> int:
         # packs the scalars on every call, as the current wrapper does
         scalars = screen.pack_shared(shared, cap_delta, edpp=edpp)
         out = torch.empty(m, device="cuda")
-        mode = () if args.old_kind == "split" else (int(edpp is not None),)
+        mode = {"split": (), "edpp": (int(edpp is not None),),
+                "d_theta": (None, int(edpp is not None))}[args.old_kind]
         err = old.screen_bounds_features(
             X.data_ptr(), 0, y.data_ptr(), th.data_ptr(),
             None if weights is None else weights.data_ptr(), scalars.data_ptr(),
@@ -125,8 +132,11 @@ def main() -> int:
         "dynamic_weighted_capped": (
             lambda: old_call(th_d, s, sh_d, cap),
             lambda: screen.screen_bounds_from_shared(X, y, th_d, sh_d, s, cap)),
+        "weighted": (
+            lambda: old_call(th_d, s, sh_d),
+            lambda: screen.screen_bounds_from_shared(X, y, th_d, sh_d, s)),
     }
-    if args.old_kind == "edpp":
+    if args.old_kind != "split":
         cases["edpp"] = (lambda: old_call(theta, None, sh, edpp=e),
                          lambda: screen.screen_bounds_edpp(X, y, theta, sh, e))
         cases["vi_new_with_d_theta"] = (
@@ -146,6 +156,16 @@ def main() -> int:
     res["edpp_vs_vi_new"] = {"order": "vi, edpp, edpp, vi",
                              "ms": [timed_ms(f, args.reps) for f in (vi, ed, ed, vi)],
                              "edpp_le_vi": bool((ed() <= vi()).all())}
+    e_d = edpp_scalars_from_stats(
+        lam, lam, one_y=torch.sum(y * s), theta_dot_one=torch.sum(th_d),
+        theta_dot_y=th_d @ y, theta_sq=th_d @ th_d, n_tot=s.sum(),
+        delta=torch.tensor(1e-3, device="cuda"))
+    wvi = lambda: screen.screen_bounds_from_shared(X, y, th_d, sh_d, s)  # noqa: E731
+    wed = lambda: screen.screen_bounds_edpp(X, y, th_d, sh_d, e_d, weights=s)  # noqa: E731
+    res["weighted_edpp_vs_weighted_vi_new"] = {
+        "order": "weighted vi, weighted edpp, weighted edpp, weighted vi",
+        "ms": [timed_ms(f, args.reps) for f in (wvi, wed, wed, wvi)],
+        "edpp_le_vi": bool((wed() <= wvi()).all())}
     print(json.dumps(res), flush=True)
     return 0
 

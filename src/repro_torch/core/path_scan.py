@@ -61,9 +61,10 @@ the device (ROADMAP queue 2).
 step screens every element, picks ONE shared compact capacity from the
 batch-max kept count over the live elements (one overflowing element
 demotes the step to mask mode), then solves and certifies the elements one
-after another (:func:`_batched_path_step`, which the path server will
-drive with a 0/1 sample mask). A sweep that reads a shared X once for B
-right-hand sides is later kernel work.
+after another (:func:`_batched_path_step`, which the path server,
+``launch/path_server.py``, drives with a 0/1 sample mask over its padded
+slots and one predicted capacity). A sweep that reads a shared X once for
+B right-hand sides is later kernel work.
 
 The Lipschitz constant is estimated once per path on the full X
 (``exact_lipschitz=True``: again on each step's reduced matrix). Rule
@@ -248,16 +249,12 @@ def _vi_bounds(X, y, sm, statics, lam2, anchor, col=LOCAL):
 
 def _edpp_bounds(X, y, sm, statics, lam2, anchor, col=LOCAL):
     """The EDPP bound of one anchor (min-composed with its VI bound): one
-    launch of the feature screen's EDPP mode (sharded over samples: the
-    partial mode and the EDPP finalize)."""
-    if sm is not None:
-        raise NotImplementedError(
-            "the edpp program under a sample mask needs a weighted EDPP mode "
-            "of the feature-screen kernel, which the port does not have yet; "
-            "use rules='feature_vi' or 'dvi' with a sample mask")
+    launch of the feature screen's EDPP mode (its weighted instantiation
+    under a sample mask; sharded over samples: the partial mode and the
+    EDPP finalize)."""
     kw = _region_stats(y, statics, lam2, anchor, col)
     return seam_screen_bounds(X, y, anchor[1], shared_scalars_from_stats(**kw), col,
-                              edpp=edpp_scalars_from_stats(**kw))
+                              weights=sm, edpp=edpp_scalars_from_stats(**kw))
 
 
 def _stack_bounds(progs, X, y, sm, statics, lam2, anchors, col=LOCAL):
@@ -395,17 +392,21 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
     compact capacity, solve and certify every element (the reference's
     ``_batched_path_step``; a single path is B = 1).
 
-    Shapes: ``lam``, ``act`` (live elements, bool) and ``inv_L`` are (B,)
-    tensors; the carry's leaves lead with B; ``X``, ``y``, ``sm`` and
-    ``statics`` (:func:`_batched_statics`) are shared (``shared_x``) or lead
-    with B. ``sm`` is None or a 0/1 live-sample mask: it reaches the
+    Shapes: ``lam`` and ``inv_L`` are (B,) tensors and ``act`` (the live
+    elements) B bools on the host; the carry's leaves lead with B; ``X``,
+    ``y``, ``sm`` and ``statics`` (:func:`_batched_statics`) are shared
+    (``shared_x``) or lead with B. ``sm`` is None or a 0/1 live-sample mask: it reaches the
     feature screen as its sample weights and the solver as its sample mask,
     so a padded element solves its unpadded problem. One host fetch: every
-    element's kept count (the shared capacity is the batch-max over the
-    live ones). ``telemetry`` (a dict) receives each element's solve
-    seconds under ``"solve_seconds"``. ``col`` (with ``cols``, the rank's
-    first column and the whole n): a sharded seam, X the rank's block, the
-    counts summed over the feature axis. Returns ``(carry', out)``, every
+    element's kept count (the shared capacity is the smallest of ``caps``,
+    ascending, holding the batch-max over the live ones: the whole
+    :func:`compact_caps` ladder for the engines, the one predicted capacity
+    for the path server; ``()`` is mask mode). An element that is not live
+    (an empty server slot) is neither screened, solved nor certified.
+    ``telemetry`` (a dict) receives each element's solve seconds under
+    ``"solve_seconds"``. ``col`` (with ``cols``, the rank's first column
+    and the whole n): a sharded seam, X the rank's block, the counts summed
+    over the feature axis. Returns ``(carry', out)``, every
     :class:`ScanPathOutputs` leaf leading with B."""
     m, n = X.shape[-2], X.shape[-1]
     B = lam.shape[0]
@@ -422,14 +423,15 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
             return X, y, sm, statics
         return X[e], y[e], None if sm is None else sm[e], (statics[0][e], statics[1][e])
 
-    # -- screen: every element from its carried anchor(s)
+    act_h = [bool(a) for a in act]
+    # -- screen: every live element from its carried anchor(s)
     keeps, oks = [], []
     for e in range(B):
         Xe, ye, sme, st = elem(e)
         ok = torch.isfinite(delta[e])
         if hist:
             ok = ok & torch.isfinite(delta_old[e])
-        if progs:
+        if progs and act_h[e]:
             anchors = ((lam_prev[e], theta[e], delta[e]),)
             if hist:
                 anchors = ((lam_old[e], theta_old[e], delta_old[e]),) + anchors
@@ -445,18 +447,26 @@ def _batched_path_step(X, y, sm, statics, inv_L, tau, tol, carry, lam, act, *,
     resurrected = col.psum_model(
         torch.sum(keep & (fmask_prev < 0.5), dim=1).to(torch.int32))
 
-    # -- one fetch: the kept counts pick the shared capacity
-    kept_h, act_h = host_fetch(torch.stack([kept_ct, act.to(torch.int32)]), "step")
-    cap = m
-    if caps:  # the ladder is compact_caps(m): overflow gives m, mask mode
-        cap = compact_caps_batched(m, [k for k, a in zip(kept_h, act_h) if a])
+    # -- one fetch: the kept counts pick the shared capacity, the smallest
+    # of ``caps`` (ascending) that holds the live elements' largest count;
+    # none does: m, mask mode
+    kept_h = host_fetch(kept_ct, "step")
+    k_max = max([k for k, a in zip(kept_h, act_h) if a], default=0)
+    cap = next((int(c) for c in caps if k_max <= c), m)
 
-    # -- solve and certify, one element after another
+    # -- solve and certify, one element after another (an element that is not
+    # live, an empty server slot, keeps its carry and reports zeros)
     o = dict(max_iters=max_iters, tol=tol, dynamic=dynamic,
              screen_every=screen_every, tau=tau, exact_lipschitz=exact_lipschitz,
              col=col, cols=cols)
     outs, secs = [], []
     for e in range(B):
+        if not act_h[e]:
+            zero = torch.zeros((), dtype=X.dtype, device=X.device)
+            outs.append((w[e], b[e], zero, zero.to(torch.int32), zero > 0, zero,
+                         delta[e], theta[e], zero.to(torch.int32)))
+            secs.append(0.0)
+            continue
         Xe, ye, sme, _ = elem(e)
         t0 = time.perf_counter()
         w2, res = _solve_element(Xe, ye, sme, lam[e], inv_L[e], w[e], b[e],
@@ -515,7 +525,7 @@ def _batched_path_scan_program(X, y, sm, lambdas, w0, b0, theta0, delta0, lam0,
     statics = _batched_statics(X, y, sm, shared_x)
     if col.psum_data is not _identity:
         statics = tuple(col.psum_data(torch.stack(statics)))
-    act = torch.ones((B,), dtype=torch.bool, device=dev)
+    act = [True] * B
 
     def bc(v, shape):
         return torch.broadcast_to(torch.as_tensor(v, dtype=dt, device=dev), shape).clone()

@@ -105,6 +105,7 @@ __all__ = [
     "host_fetch",
     "graph_cache_info",
     "clear_graph_cache",
+    "drop_graphs_reading",
     "CHUNK_ITERS",
     "FETCHES",
     "GRAPHS",
@@ -165,8 +166,10 @@ CHUNK_ITERS = 8
 #: restart flag.
 FETCHES = {"host_loop": 0, "chunk": 0, "segment": 0, "step": 0, "setup": 0,
            "result": 0, "sharded": 0}
-#: CUDA graphs of :func:`fista_run` chunks: captures and replays
-GRAPHS = {"captures": 0, "replays": 0}
+#: CUDA graphs of :func:`fista_run` chunks: captures, replays, and
+#: re-captures of a cache key already captured (its graph was evicted by the
+#: cache's size bound and captured again)
+GRAPHS = {"captures": 0, "replays": 0, "recaptures": 0}
 
 
 def host_fetch(t: torch.Tensor, kind: str):
@@ -546,16 +549,16 @@ def seam_screen_bounds(X, y, theta, sh, col: Collectives = LOCAL, *,
     """The feature screen's bounds of X's rows under the seam, from the
     region's global scalars ``sh`` (and ``edpp``'s, for the EDPP mode). With
     the sample axis whole, one launch on X's rows (``weights``: its weighted
-    instantiation; ``cap_delta``: the gap-sphere cap). Sharded over samples:
-    its partial mode, the all-reduce of the four sums, and its finalize."""
+    instantiation, in either mode; ``cap_delta``: the gap-sphere cap).
+    Sharded over samples: its partial mode, the all-reduce of the four sums,
+    and its finalize."""
     if col.psum_data is _identity:
         if edpp is not None:
-            return screen_bounds_edpp(X, y, theta, sh, edpp)
+            return screen_bounds_edpp(X, y, theta, sh, edpp, weights=weights)
         return screen_bounds_from_shared(X, y, theta, sh, weights=weights,
                                          cap_delta=cap_delta)
     sums = col.psum_data(screen_partial_op(X, y, theta, weights=weights))
-    return screen_finalize_op(sums, sh, cap_delta=cap_delta, edpp=edpp,
-                              weighted=weights is not None)
+    return screen_finalize_op(sums, sh, cap_delta=cap_delta, edpp=edpp)
 
 
 class DynamicFistaResult(NamedTuple):
@@ -942,8 +945,9 @@ class _GraphChunks(_Chunks):
     """:class:`_Chunks` on the card: one chunk is a captured CUDA graph. X
     is held only until the capture (the graph reads it by address)."""
 
-    def __init__(self, X, y, sm, fmask, valid_m):
+    def __init__(self, X, y, sm, fmask, valid_m, key=None):
         super().__init__(X, y, sm, fmask, valid_m)
+        self.key = key
         self.y = y.clone()
         self.sm = None if sm is None else sm.clone()
         self.fmask = None if fmask is None else fmask.clone()
@@ -994,6 +998,9 @@ class _GraphChunks(_Chunks):
         ops.add_counts(self.counts, -1)
         self.graph, self.X = graph, None
         GRAPHS["captures"] += 1
+        if self.key in _CAPTURED:
+            GRAPHS["recaptures"] += 1
+        _CAPTURED.add(self.key)
 
 
 #: captured chunks by their static inputs (X's address, shape, dtype and
@@ -1001,6 +1008,8 @@ class _GraphChunks(_Chunks):
 #: at most
 _GRAPH_CACHE: "OrderedDict[tuple, _GraphChunks]" = OrderedDict()
 GRAPH_CACHE_SIZE = 32
+#: every key captured since the cache was last cleared, evicted ones too
+_CAPTURED: set = set()
 
 
 def _chunks_for(X, y, sm, fmask, valid_m, col=LOCAL) -> _Chunks:
@@ -1010,7 +1019,7 @@ def _chunks_for(X, y, sm, fmask, valid_m, col=LOCAL) -> _Chunks:
            valid_m, sm is not None, fmask is not None)
     entry = _GRAPH_CACHE.get(key)
     if entry is None:
-        entry = _GRAPH_CACHE[key] = _GraphChunks(X, y, sm, fmask, valid_m)
+        entry = _GRAPH_CACHE[key] = _GraphChunks(X, y, sm, fmask, valid_m, key)
         if len(_GRAPH_CACHE) > GRAPH_CACHE_SIZE:
             _GRAPH_CACHE.popitem(last=False)
     else:
@@ -1027,6 +1036,21 @@ def graph_cache_addresses() -> set[int]:
 def clear_graph_cache() -> None:
     """Drops every cached chunk graph and its private memory pool."""
     _GRAPH_CACHE.clear()
+    _CAPTURED.clear()
+
+
+def drop_graphs_reading(t: torch.Tensor) -> int:
+    """Drops the cached chunk graphs whose matrix lies in ``t``'s memory
+    (a buffer about to be freed: a graph reads its matrix by address), and
+    forgets their keys, so capturing them again is no re-capture. Returns
+    how many were dropped."""
+    lo = t.data_ptr()
+    hi = lo + t.numel() * t.element_size()
+    gone = [k for k in _GRAPH_CACHE if k[0] == str(t.device) and lo <= k[1] < hi]
+    for k in gone:
+        del _GRAPH_CACHE[k]
+        _CAPTURED.discard(k)
+    return len(gone)
 
 
 def graph_cache_info() -> list[dict]:

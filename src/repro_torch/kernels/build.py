@@ -52,7 +52,7 @@ SIGNATURES = {
                        _P],
     "sample_finalize": [_P, _I, _P, _P, _P, _P, _P, _I, _P],
     "screen_partial_features": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P],
-    "screen_finalize_features": [_P, _P, _I, _I, _I, _P, _I, _P],
+    "screen_finalize_features": [_P, _P, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

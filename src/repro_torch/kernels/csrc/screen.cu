@@ -42,13 +42,19 @@
 // from three more packed scalars (mu, yc_e, r_h_sq_e: slots 12-14), and the
 // NaN-propagating min of the two. One read of X as in the VI mode: the ball
 // adds ~15 flops a feature row to the finalizer and nothing to the sweep.
-// The mode is a kernel argument of the unweighted instantiation, not an
+// The mode is a kernel argument of both instantiations, not an
 // instantiation of its own: the VI bound of both modes comes from the same
 // compiled instructions, then goes to the store (VI) or into the min with
 // the ball (EDPP), so edpp <= vi holds bit for bit against a VI-mode launch
-// on the same anchor. In two instantiations the compiler may fuse a
-// multiply and an add of the VI finalizer in one and not in the other, and
-// the two VI bounds then differ in their last bit.
+// of the same instantiation on the same anchor. In two instantiations the
+// compiler may fuse a multiply and an add of the VI finalizer in one and
+// not in the other, and the two VI bounds then differ in their last bit.
+//
+// Weighted EDPP mode (the path server's padded slots, whose 0/1 sample
+// weights mark the live columns): the weighted instantiation's four sums
+// f_j . (y theta1), f_j . (y s), f_j . s, f_j . (f_j s) enter the same
+// ball, with ysq = n_tot = sum(s) in the packed scalars, as the reference's
+// `_edpp_bounds` takes them from its sample-masked `FixedStats`.
 //
 // d_theta output (optional, any mode): with a non-null d_theta pointer the
 // finalizing lane also stores its row's d_theta = f_j . (y theta1), the sum
@@ -68,11 +74,10 @@
 // thread a feature) applies feature_bound and edpp_bound, the same device
 // functions, to the reduced sums. The flag is a template argument, so the
 // full launches are compiled from the source they had before it. The
-// finalize has two instantiations, one a launch instantiation's: with the
-// EDPP branch for the unweighted sums, without it for the weighted ones.
-// A finalize with the EDPP branch fused the weighted VI finalizer's
-// multiplies and adds otherwise than the weighted launch (last-bit
-// differences on an H100); mirroring the launch's code gives its bits.
+// finalize holds the EDPP branch as both launch instantiations now do:
+// its code around the VI finalizer is theirs, and the compiler fuses that
+// finalizer's multiplies and adds as it does there (a finalize whose code
+// differed from its launch's gave last-bit differences on an H100).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,8 +191,8 @@ __device__ __forceinline__ float edpp_bound(float d_theta, float d_one,
 }
 
 // kWeighted: the reductions are weighted by w (n,); otherwise all ones.
-// edpp (unweighted only): the EDPP mode. kPartial: bounds is the (4, m)
-// output of the four sums, and nothing is finalized
+// edpp: the EDPP mode. kPartial: bounds is the (4, m) output of the four
+// sums, and nothing is finalized
 template <typename T, bool kWeighted, bool kPartial = false>
 __global__ void __launch_bounds__(kThreads)
 screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
@@ -261,7 +266,7 @@ screen_features_kernel(const T* __restrict__ X, const float* __restrict__ y,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     if (lane == r && r < live) {
       const float vi = feature_bound(a_t[r], a_o[r], a_y[r], a_s[r], s);
-      if (!kWeighted && edpp) {
+      if (edpp) {
         bounds[row0 + r] = edpp_bound(a_t[r], a_o[r], a_y[r], a_s[r], vi, s,
                                       load_edpp(sc));
       } else {
@@ -278,7 +283,7 @@ void launch(const T* X, const float* y, const float* theta, const float* w,
             int edpp, int blocks, cudaStream_t s) {
   if (w != nullptr) {
     screen_features_kernel<T, true><<<blocks, kThreads, 0, s>>>(
-        X, y, theta, w, sc, m, n, false, bounds, d_theta);
+        X, y, theta, w, sc, m, n, edpp != 0, bounds, d_theta);
   } else {
     screen_features_kernel<T, false><<<blocks, kThreads, 0, s>>>(
         X, y, theta, w, sc, m, n, edpp != 0, bounds, d_theta);
@@ -286,12 +291,10 @@ void launch(const T* X, const float* y, const float* theta, const float* w,
 }
 
 // bounds[j] from the all-reduced sums (4, m) of the partial mode: the
-// finalize of screen_features_kernel, one thread a feature. kEdppPath
-// mirrors the instantiation whose sums it finalizes: the unweighted one
-// holds the EDPP branch (a launch argument), the weighted one does not,
-// and the compiler fuses the VI finalizer's multiplies and adds as it does
-// in that instantiation only when the code around them is the same
-template <bool kEdppPath>
+// finalize of screen_features_kernel, one thread a feature, for the sums of
+// either instantiation: both hold the EDPP branch (a launch argument), and
+// the compiler fuses the VI finalizer's multiplies and adds as it does in a
+// launch only when the code around them is the same
 __global__ void __launch_bounds__(kThreads)
 screen_finalize_kernel(const float* __restrict__ sums,
                        const float* __restrict__ sc, int m, bool edpp,
@@ -303,7 +306,7 @@ screen_finalize_kernel(const float* __restrict__ sums,
               d_s = sums[3 * lm + j];
   const Shared s = load_shared(sc);
   const float vi = feature_bound(d_t, d_o, d_y, d_s, s);
-  if (kEdppPath && edpp) {
+  if (edpp) {
     bounds[j] = edpp_bound(d_t, d_o, d_y, d_s, vi, s, load_edpp(sc));
   } else {
     bounds[j] = vi;
@@ -330,8 +333,9 @@ extern "C" {
 // bounds[j] for every feature row of X. weights: (n,) sample weights, or
 // null for all ones. scalars: the packed fp32 values of kernels/screen.py
 // pack_shared, 12 (slots 10-11: the gap-sphere cap), or 16 with edpp != 0
-// (slots 12-14: the EDPP scalars; weights must then be null). d_theta:
-// (m,) output of each row's f_j . (y theta1), or null for none.
+// (slots 12-14: the EDPP scalars, from the statistics weighted as the
+// sums are). d_theta: (m,) output of each row's f_j . (y theta1), or null
+// for none.
 // Returns cudaGetLastError().
 int screen_bounds_features(const void* X, int x_bf16, const float* y,
                            const float* theta, const float* weights,
@@ -344,7 +348,6 @@ int screen_bounds_features(const void* X, int x_bf16, const float* y,
   const int rows_per_block = (kThreads / 32) * kRowsPerWarp;
   const int blocks = (m + rows_per_block - 1) / rows_per_block;
   if (blocks == 0) return cudaSuccess;
-  if (edpp && weights != nullptr) return cudaErrorInvalidValue;
   if (x_bf16) {
     launch(static_cast<const __nv_bfloat16*>(X), y, theta, weights, scalars,
            m, n, bounds, d_theta, edpp, blocks, s);
@@ -377,26 +380,19 @@ int screen_partial_features(const void* X, int x_bf16, const float* y,
   return cudaGetLastError();
 }
 
-// bounds (m,) from all-reduced sums (4, m) and the packed scalars of
-// screen_bounds_features (the cap in slots 10-11; with edpp != 0 the EDPP
-// scalars in slots 12-14). weighted: the sums came from the weighted
-// instantiation (edpp must then be 0). Returns cudaGetLastError().
+// bounds (m,) from all-reduced sums (4, m) of either instantiation and the
+// packed scalars of screen_bounds_features (the cap in slots 10-11; with
+// edpp != 0 the EDPP scalars in slots 12-14). Returns cudaGetLastError().
 int screen_finalize_features(const float* sums, const float* scalars, int m,
-                             int edpp, int weighted, float* bounds,
-                             int device, void* stream) {
+                             int edpp, float* bounds, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (m + kThreads - 1) / kThreads;
   if (blocks == 0) return cudaSuccess;
-  if (edpp && weighted) return cudaErrorInvalidValue;
-  if (weighted) {
-    screen_finalize_kernel<false><<<blocks, kThreads, 0, s>>>(sums, scalars, m,
-                                                              false, bounds);
-  } else {
-    screen_finalize_kernel<true><<<blocks, kThreads, 0, s>>>(sums, scalars, m,
-                                                             edpp != 0, bounds);
-  }
+  screen_finalize_kernel<<<blocks, kThreads, 0, s>>>(sums, scalars, m,
+                                                     edpp != 0, bounds);
   return cudaGetLastError();
 }
 

@@ -29,7 +29,10 @@ reductions and VI bound, then the EDPP projection ball from three more
 packed scalars (:class:`~repro_torch.core.screening.EDPPShared`) and the
 min of the two, in the same read of X. Its plain version is the ``edpp``
 rule program over the four reductions (``core/rules/programs.py``).
-Counted apart as ``screen_bounds_edpp``.
+Counted apart as ``screen_bounds_edpp``. With sample weights (the path
+server's 0/1 mask of a padded slot's live columns) it is the weighted
+instantiation's EDPP mode, over the weighted reductions, counted as
+``screen_bounds_edpp_weighted``.
 
 Partial modes (a sharded run, ``core/distributed.py``): the feature
 screen's (:func:`screen_partial_op`, its four sums in either instantiation)
@@ -62,8 +65,9 @@ from .hinge import bulk_aligned, column_sweep_plan, sm_count
 #: launches of the kernel in this process (reset by ``ops.reset_launch_counts``);
 #: ``*_partial`` and ``*_finalize`` are the partial modes (a sharded run)
 LAUNCHES = {"screen_bounds": 0, "screen_bounds_dynamic": 0,
-            "screen_bounds_edpp": 0, "sample_surplus": 0, "screen_partial": 0,
-            "screen_finalize": 0, "sample_partial": 0, "sample_finalize": 0}
+            "screen_bounds_edpp": 0, "screen_bounds_edpp_weighted": 0,
+            "sample_surplus": 0, "screen_partial": 0, "screen_finalize": 0,
+            "sample_partial": 0, "sample_finalize": 0}
 #: launches of each variant of the redesigned sample-surplus kernel
 VARIANTS = {"sample_surplus": {"bulk": 0, "scalar": 0},
             "sample_partial": {"bulk": 0, "scalar": 0}}
@@ -103,9 +107,8 @@ def screen_partial_plain(X, y, theta1, weights=None) -> torch.Tensor:
 
 
 def screen_finalize_plain(sums, sh: ScreenShared, cap_delta=None,
-                          edpp: EDPPShared = None, weighted: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of :func:`screen_finalize_op` (one finalize for
-    both instantiations' sums: ``weighted`` changes nothing here)."""
+                          edpp: EDPPShared = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`screen_finalize_op`."""
     red = FeatureReductions(*sums)
     if edpp is not None:
         return edpp_bounds_from_reductions(red, sh, edpp)
@@ -178,26 +181,31 @@ def screen_bounds_from_shared(X, y, theta1, sh: ScreenShared, weights=None,
                             want_d_theta)
 
 
-def screen_bounds_edpp_plain(X, y, theta1, sh: ScreenShared,
-                             edpp: EDPPShared) -> torch.Tensor:
+def screen_bounds_edpp_plain(X, y, theta1, sh: ScreenShared, edpp: EDPPShared,
+                             weights=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`screen_bounds_edpp`: the ``edpp``
     rule program (``stack_bounds(("edpp",), ...)``) over the four
-    reductions, fp32."""
-    return screen_finalize_plain(screen_partial_plain(X, y, theta1), sh, edpp=edpp)
+    reductions (weighted by ``weights``), fp32."""
+    return screen_finalize_plain(screen_partial_plain(X, y, theta1, weights), sh,
+                                 edpp=edpp)
 
 
-def screen_bounds_edpp(X, y, theta1, sh: ScreenShared,
-                       edpp: EDPPShared) -> torch.Tensor:
+def screen_bounds_edpp(X, y, theta1, sh: ScreenShared, edpp: EDPPShared,
+                       weights=None) -> torch.Tensor:
     """Per-feature EDPP bounds ``(m,)`` fp32 from one sweep of X: the EDPP
     projection ball on the hyperplane, min-composed with the VI bound of
     the same anchor. ``sh`` are the anchor's VI scalars
     (``core/screening.shared_scalars``) and ``edpp`` its EDPP scalars
     (``core/screening.edpp_scalars``), both from the same anchor, in its
-    dtype and on its device."""
+    dtype and on its device. ``weights`` (n,): the 0/1 live samples of a
+    sample-masked problem; the reductions are then weighted as the dynamic
+    variant weights them, and ``sh`` and ``edpp`` must come from the same
+    weighted statistics (``one_y = y.s``, ``n_tot = sum(s)``)."""
     if not build.on_card(X):
-        return screen_bounds_edpp_plain(X, y, theta1, sh, edpp)
+        return screen_bounds_edpp_plain(X, y, theta1, sh, edpp, weights)
+    name = "screen_bounds_edpp" if weights is None else "screen_bounds_edpp_weighted"
     return _launch_features(X, y, theta1, pack_shared(sh, edpp=edpp).to(X.device),
-                            None, True, "screen_bounds_edpp")
+                            weights, True, name)
 
 
 def screen_bounds_op(X, y, lam1, lam2, theta1, delta=0.0) -> torch.Tensor:
@@ -329,13 +337,12 @@ def screen_partial_op(X, y, theta1, weights=None) -> torch.Tensor:
 
 
 def screen_finalize_op(sums, sh: ScreenShared, cap_delta=None,
-                       edpp: EDPPShared = None, weighted: bool = False) -> torch.Tensor:
-    """Bounds (m,) from all-reduced partial sums (4, m): the feature screen's
-    finalize (``csrc/screen.cu`` ``feature_bound``, with the gap-sphere cap
+                       edpp: EDPPShared = None) -> torch.Tensor:
+    """Bounds (m,) from all-reduced partial sums (4, m) of either
+    instantiation (weighted or not): the feature screen's finalize
+    (``csrc/screen.cu`` ``feature_bound``, with the gap-sphere cap
     ``cap_delta`` or the EDPP ball ``edpp``, as the full launches apply
-    them) on the reduced sums, one thread a feature. ``weighted``: the sums
-    came from the weighted instantiation (sample weights); its finalize is
-    compiled as that instantiation's is (no EDPP)."""
+    them) on the reduced sums, one thread a feature."""
     if not build.on_card(sums):
         return screen_finalize_plain(sums, sh, cap_delta, edpp)
     if sums.dim() != 2 or sums.shape[0] != 4 or sums.dtype != torch.float32 \
@@ -348,7 +355,7 @@ def screen_finalize_op(sums, sh: ScreenShared, cap_delta=None,
     dev, stream = build.stream_and_device(sums)
     err = build.library().screen_finalize_features(
         sums.data_ptr(), scalars.data_ptr(), m, int(edpp is not None),
-        int(weighted), bounds.data_ptr(), dev, stream)
+        bounds.data_ptr(), dev, stream)
     build.check(err, "screen_finalize")
     LAUNCHES["screen_finalize"] += 1
     return bounds

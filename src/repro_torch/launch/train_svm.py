@@ -49,6 +49,13 @@ exit code 2. Step lines then show the live chunks; ``--no-chunk-skip``
 streams every chunk (the full-stream twin) and the last line the transfer
 counts.
 
+Serving: ``--serve`` drains ``--serve-jobs`` synthetic tenants' paths
+(``launch/path_server.py`` ``demo_jobs`` at ``--m`` x ``--n``) through a
+path server of ``--serve-slots`` slots (``--reduce mask|compact``, default
+compact) and writes ``artifacts/svm_serve.json`` and
+``artifacts/svm_serve_metrics.json``; ``--engine`` and ``--storage`` do not
+apply.
+
 Observability: ``--trace FILE`` records the ``repro_torch.obs`` spans of the
 run (the grid's ranks' too) and writes them as Chrome trace-event JSON
 (``REPRO_TRACE=1`` records without a file); ``--profile DIR`` captures a
@@ -86,6 +93,8 @@ regions named as the host path's spans, into ``DIR/profile.json``.
         --rules auto --exact-lipschitz --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train_svm --model 2 --data 2 \
         --engine scan --backend gloo --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.train_svm --serve --m 300 \
+        --n 120 --serve-jobs 6 --device cpu
 """
 
 from __future__ import annotations
@@ -108,6 +117,7 @@ from ..obs import trace as obs_trace
 from ..obs.log import get_logger
 from ..obs.log import setup as log_setup
 from ..sparse import FeatureChunked, StoreError
+from .path_server import PathServer, demo_jobs, write_artifacts
 
 _LOG = get_logger("launch.train_svm")
 DEFAULT_CKPT_DIR = "artifacts/svm_ckpt"
@@ -161,6 +171,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", choices=("auto", "nccl", "gloo"), default="auto",
                     help="the grid's process-group backend: nccl needs a GPU per "
                          "rank; gloo runs ranks that share one GPU, or CPU ranks")
+    ap.add_argument("--serve", action="store_true",
+                    help="multi-tenant mode: drain --serve-jobs synthetic paths "
+                         "through the path server (launch/path_server.py, "
+                         "continuous batching of the batched scan step) "
+                         "instead of solving one path")
+    ap.add_argument("--serve-jobs", type=int, default=8)
+    ap.add_argument("--serve-slots", type=int, default=4)
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR, metavar="DIR",
                     help="host engine: checkpoint the path after every step here "
                          "and resume from the latest checkpoint there")
@@ -353,6 +370,52 @@ def _check_grid_args(args, ap, reduce) -> None:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
+    reduce = _check_serve_args(args, ap) if args.serve else _check_path_args(args, ap)
+    device = resolve_device(args.device)  # before anything is written
+    log_setup()
+    if args.trace:
+        obs_trace.enable()
+    try:
+        if args.serve:
+            return _main_serve(args, reduce, device)
+        if args.model * args.data > 1:
+            return _main_grid(args, device)
+        try:
+            return _run(args, ap, reduce, device)
+        except StoreError as e:
+            # a missing store, a checksum mismatch or exhausted read retries:
+            # one line and exit code 2, not a traceback
+            _LOG.error("%s: %s", type(e).__name__, e)
+            raise SystemExit(2)
+    finally:
+        if args.trace:
+            _LOG.info("chrome trace written to %s (load in Perfetto)",
+                      obs_trace.export_chrome(args.trace))
+
+
+def _check_serve_args(args, ap) -> str:
+    """``--serve``: the reduction of the server's steps (default compact);
+    the options of one path's lanes do not apply."""
+    if (args.engine != ap.get_default("engine") or args.storage != "dense"
+            or args.model * args.data > 1):
+        raise SystemExit("--serve runs the batched scan step through the path "
+                         "server; --engine/--storage do not apply")
+    return args.reduce or "compact"
+
+
+def _main_serve(args, reduce, device) -> int:
+    """``--serve``: ``--serve-jobs`` synthetic tenants (``demo_jobs`` at
+    ``--m`` x ``--n``) drained through a ``--serve-slots`` path server; the
+    summary and the metrics go to ``artifacts/``."""
+    server = PathServer(slots=args.serve_slots, reduce=reduce, device=device)
+    server.serve(demo_jobs(args.serve_jobs, m=args.m, n=args.n))
+    write_artifacts(server)
+    return 0
+
+
+def _check_path_args(args, ap) -> str:
+    """One path's lanes: the reduction (host: gather, scan engines: mask by
+    default), with the combinations that do not run refused."""
     host = args.engine == "host"
     reduce = args.reduce or ("gather" if host else "mask")
     if reduce == ("compact" if host else "gather"):
@@ -371,24 +434,7 @@ def main(argv=None) -> int:
     _check_grid_args(args, ap, reduce)
     if args.profile and args.model * args.data > 1:
         ap.error("--profile captures this process; the grid's ranks are others")
-    device = resolve_device(args.device)  # before anything is written
-    log_setup()
-    if args.trace:
-        obs_trace.enable()
-    try:
-        if args.model * args.data > 1:
-            return _main_grid(args, device)
-        try:
-            return _run(args, ap, reduce, device)
-        except StoreError as e:
-            # a missing store, a checksum mismatch or exhausted read retries:
-            # one line and exit code 2, not a traceback
-            _LOG.error("%s: %s", type(e).__name__, e)
-            raise SystemExit(2)
-    finally:
-        if args.trace:
-            _LOG.info("chrome trace written to %s (load in Perfetto)",
-                      obs_trace.export_chrome(args.trace))
+    return reduce
 
 
 @contextlib.contextmanager

@@ -2,19 +2,25 @@
 ``testing``)."""
 
 from .faults import (
+    ServerKilled,
     corrupt_store_bytes,
     dead_reads,
     flaky_reads,
+    kill_server_after,
     poison_path_step,
+    poison_server_slot,
     poison_stream_iterate,
     truncate_store_file,
 )
 
 __all__ = [
+    "ServerKilled",
     "corrupt_store_bytes",
     "dead_reads",
     "flaky_reads",
+    "kill_server_after",
     "poison_path_step",
+    "poison_server_slot",
     "poison_stream_iterate",
     "truncate_store_file",
 ]

@@ -1,6 +1,5 @@
 """Fault injection for the robustness tests (port of the reference
-``testing/faults.py``, its path-server injector left out until the port has
-a server).
+``testing/faults.py``).
 
 Each injector targets one seam the production code exposes on purpose:
 
@@ -20,6 +19,14 @@ Each injector targets one seam the production code exposes on purpose:
   ``repro_torch.sparse.chunked._read_fault_hook`` so guarded store reads
   fail transiently (absorbed by the retry) or persistently (a typed
   ``StoreError``).
+* :func:`kill_server_after` — ``PathServer._step_hook``: raise
+  :class:`ServerKilled` after N serve-loop steps, a crash mid-drain (the
+  snapshots taken before it stay valid: each is published atomically).
+* :func:`poison_server_slot` — ``PathServer._fault_injector``: make a
+  slot's step outputs non-finite before the server's host check. The
+  reference poisons a slot's carried bias instead, with its solver guard
+  switched off; the port's guard is always on and heals such a carry inside
+  the next solve, so the poison goes where the host check reads it.
 
 Nothing here is imported by production code; the seams default to off
 (``None`` hooks).
@@ -34,8 +41,13 @@ import torch
 
 from ..sparse import chunked as _chunked
 
-__all__ = ["poison_path_step", "poison_stream_iterate", "corrupt_store_bytes",
-           "truncate_store_file", "flaky_reads", "dead_reads"]
+__all__ = ["ServerKilled", "poison_path_step", "poison_stream_iterate",
+           "corrupt_store_bytes", "truncate_store_file", "flaky_reads",
+           "dead_reads", "kill_server_after", "poison_server_slot"]
+
+
+class ServerKilled(RuntimeError):
+    """Raised by :func:`kill_server_after` to simulate a server crash."""
 
 
 # -- solver / path poison ----------------------------------------------------
@@ -129,3 +141,33 @@ def dead_reads():
         yield
     finally:
         _chunked._read_fault_hook = prev
+
+
+# -- the path server -----------------------------------------------------------
+
+def kill_server_after(n_steps: int):
+    """A ``PathServer._step_hook`` raising :class:`ServerKilled` once the
+    serve loop has run ``n_steps`` batched steps."""
+
+    def hook(step_count):
+        if step_count >= n_steps:
+            raise ServerKilled(f"injected crash after {step_count} steps")
+
+    return hook
+
+
+def poison_server_slot(slot: int = 0, at_step: int = 1, times: int = 1,
+                       value: float = np.nan):
+    """A ``PathServer._fault_injector`` that replaces slot ``slot``'s step
+    objective and weights with ``value`` in the first ``times`` serve steps
+    from step ``at_step`` on (counted from 1) in which the slot is live."""
+    state = {"fired": 0}
+
+    def injector(step, s, out):
+        if s == slot and step >= at_step and state["fired"] < times:
+            state["fired"] += 1
+            out = dict(out, obj=np.float32(value), w=np.full_like(out["w"], value))
+        return out
+
+    injector.state = state
+    return injector

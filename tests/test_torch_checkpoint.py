@@ -354,3 +354,75 @@ def test_launcher_refuses_another_rules_checkpoint(tmp_path, monkeypatch, capsys
     with pytest.raises(ValueError, match="another run"):
         train_main([*argv, "--rules", "auto"])
     assert "step" not in capsys.readouterr().out
+
+
+# -- the path server's snapshots ----------------------------------------------------
+
+
+def _mixed_bucket_jobs():
+    """Jobs spanning two bucket groups, so the serve loop drains one group,
+    reallocates its slots and drains the other."""
+    from repro_torch.launch.path_server import demo_jobs
+
+    small = demo_jobs(2, m=64, n=32, seed=0)
+    big = demo_jobs(2, m=96, n=48, seed=10)
+    for i, j in enumerate(big):
+        j.jid = 2 + i
+    return small + big
+
+
+def _serve(jobs, **kw):
+    from repro_torch.launch.path_server import PathServer
+
+    return PathServer(slots=2, device="cpu").serve(jobs, log=lambda *a: None, **kw)
+
+
+@pytest.mark.parametrize("when", ["late", "early"])
+def test_server_snapshot_resume_mixed_buckets(tmp_path, when):
+    """A server killed mid-drain on a two-bucket workload and served again
+    from its snapshots: killed after the first (small) group drained and
+    the slots were reallocated (the snapshot carries the finished jobs of
+    the group whose slots are gone), or early, while the first group is
+    live. The resumed results are the uninterrupted run's bit for bit."""
+    from repro_torch.testing import ServerKilled, kill_server_after
+
+    ref = _serve(_mixed_bucket_jobs())
+    assert all(r is not None for r in ref)
+    sd = str(tmp_path / "snap")
+    total_small = sum(j.n_lambdas for j in _mixed_bucket_jobs()[:2])
+    from repro_torch.launch.path_server import PathServer
+
+    crashed = PathServer(slots=2, device="cpu")
+    crashed._step_hook = kill_server_after(total_small + 1 if when == "late" else 2)
+    with pytest.raises(ServerKilled):
+        crashed.serve(_mixed_bucket_jobs(), log=lambda *a: None, snapshot_dir=sd,
+                      snapshot_every=1)
+    if when == "late":
+        assert crashed._group[:2] == (128, 64)  # the second group was live
+    resumed = _serve(_mixed_bucket_jobs(), snapshot_dir=sd, snapshot_every=1)
+    assert all(r is not None for r in resumed)
+    for ra, rb in zip(ref, resumed):
+        for name in ("lambdas", "objectives", "weights", "kept"):
+            np.testing.assert_array_equal(getattr(ra, name), getattr(rb, name))
+
+
+def test_reference_reads_a_server_snapshot(tmp_path):
+    """The reference's ``restore_raw`` reads the port server's snapshot: the
+    slot buffers and every job's stream bit for bit, the manifest's group,
+    slots and queue."""
+    from repro_torch.launch.path_server import PathServer
+    from repro_torch.testing import ServerKilled, kill_server_after
+
+    sd = tmp_path / "snap"
+    srv = PathServer(slots=2, device="cpu")
+    srv._step_hook = kill_server_after(3)
+    with pytest.raises(ServerKilled):
+        srv.serve(_mixed_bucket_jobs(), log=lambda *a: None, snapshot_dir=str(sd),
+                  snapshot_every=1)
+    mine, man = CheckpointManager(sd).restore_raw(3)
+    theirs, ref_man = RefManager(sd).restore_raw(3)
+    assert set(mine) == set(theirs) and man["extra"] == ref_man["extra"]
+    for k in mine:
+        np.testing.assert_array_equal(mine[k], theirs[k])
+    np.testing.assert_array_equal(mine["X"], srv._X.numpy())
+    assert man["extra"]["group"][:2] == [64, 32] and len(man["extra"]["slots"]) == 2

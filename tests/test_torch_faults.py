@@ -298,3 +298,106 @@ def test_launcher_store_failure_has_no_traceback(tmp_path, ds):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "live_chunks=" in out.stdout
+
+
+# -- the path server: kill and resume, quarantine, retry, deadline ------------------
+
+
+def _serve_jobs():
+    from repro_torch.launch.path_server import demo_jobs
+
+    return demo_jobs(4, m=96, n=48)
+
+
+def _server(**kw):
+    from repro_torch.launch.path_server import PathServer
+
+    return PathServer(slots=2, device="cpu", **kw)
+
+
+def test_server_kill_resume_equals_uninterrupted(tmp_path):
+    """A server killed after 4 steps (``kill_server_after``) and served again
+    from its snapshots gives the uninterrupted run's results bit for bit."""
+    ref = _server().serve(_serve_jobs(), log=lambda *a: None)
+    sd = str(tmp_path / "snap")
+    crashed = _server()
+    crashed._step_hook = faults.kill_server_after(4)
+    with pytest.raises(faults.ServerKilled):
+        crashed.serve(_serve_jobs(), log=lambda *a: None, snapshot_dir=sd,
+                      snapshot_every=1)
+    resumed = _server().serve(_serve_jobs(), log=lambda *a: None, snapshot_dir=sd,
+                              snapshot_every=1)
+    assert all(r is not None for r in resumed)
+    for ra, rb in zip(ref, resumed):
+        assert np.array_equal(ra.objectives, rb.objectives)
+        assert np.array_equal(ra.weights, rb.weights)
+        assert np.array_equal(ra.extras["health"], rb.extras["health"])
+
+
+def test_server_quarantine_isolates_tenant():
+    """A tenant whose slot 0 step is poisoned with no retries left is evicted
+    with ``status="failed"``; the other three finish within 1e-4 of the
+    clean run (the failed slot's zeroed carry reaches no other slot; the
+    shared compact capacity may differ once it is gone)."""
+    clean = _server().serve(_serve_jobs(), log=lambda *a: None)
+    jobs = _serve_jobs()
+    for j in jobs:
+        j.max_retries = 0
+    srv = _server()
+    srv._fault_injector = faults.poison_server_slot(slot=0, at_step=2)
+    res = srv.serve(jobs, log=lambda *a: None)
+    failed = [j for j in jobs if j.status == "failed"]
+    assert len(failed) == 1 and "non-finite" in failed[0].error
+    assert srv.stats["jobs_failed"] == 1
+    assert sum(r is None for r in res) == 1 and sum(r is not None for r in res) == 3
+    for r, c in zip(res, clean):
+        if r is not None:
+            assert np.max(np.abs(r.objectives - c.objectives)) < 1e-4
+
+
+def test_server_retry_recovers_transient_poison():
+    """A poison that hits one step once is rolled back and retried: every
+    job finishes, within 1e-4 of the clean run."""
+    ref = _server().serve(_serve_jobs(), log=lambda *a: None)
+    srv = _server()
+    srv._fault_injector = faults.poison_server_slot(slot=0, at_step=3)
+    res = srv.serve(_serve_jobs(), log=lambda *a: None)
+    assert srv._fault_injector.state["fired"] == 1
+    assert srv.stats["retries"] >= 1 and srv.stats["jobs_failed"] == 0
+    assert all(r is not None for r in res)
+    for ra, rb in zip(ref, res):
+        assert np.max(np.abs(ra.objectives - rb.objectives)) < 1e-4
+
+
+def test_server_poisoned_carry_heals_in_the_solver():
+    """The reference's poison (a NaN bias in a slot's carry, its guard
+    switched off) needs no retry here: the port's guard is always on, the
+    next solve sanitizes the warm start (one trip in its health word) and
+    the step's outputs are finite, which is why the server tests poison the
+    outputs through ``_fault_injector`` instead."""
+    srv = _server()
+    state = {"hit": False}
+
+    def poison_bias(step):
+        if step == 2 and not state["hit"] and srv._act[0]:
+            state["hit"] = True
+            b = srv._carry[1].clone()
+            b[0] = float("nan")
+            srv._carry = (srv._carry[0], b) + srv._carry[2:]
+
+    srv._step_hook = poison_bias
+    res = srv.serve(_serve_jobs(), log=lambda *a: None)
+    assert state["hit"] and srv.stats["retries"] == 0
+    assert all(r is not None for r in res)
+    assert any(int(r.extras["health"][2]) & 0xFFFF for r in res)
+
+
+def test_server_deadline_evicts():
+    import time
+
+    jobs = _serve_jobs()[:2]
+    jobs[0].deadline_s = 0.0
+    jobs[0].t_start = time.perf_counter() - 1.0
+    res = _server().serve(jobs, log=lambda *a: None)
+    assert jobs[0].status == "failed" and "deadline" in jobs[0].error
+    assert res[0] is None and res[1] is not None

@@ -33,6 +33,7 @@ print("repro_torch.core.distributed" in mods)
 print(all(m in mods for m in (
     "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.path_trace",
     "repro_torch.obs.log", "repro_torch.checkpoint.manager", "repro_torch.testing.faults")))
+print("repro_torch.launch.path_server" in mods)
 """
 
 
@@ -42,16 +43,17 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     # every submodule was imported, core/rules/dvi.py, core/path_scan.py,
-    # the three modules of repro_torch.sparse, core/distributed.py and the
-    # obs, checkpoint and testing packages among them
-    count, has_scan, has_sparse, has_dist, has_14a = out.stdout.split()[-5:]
-    assert int(count) >= 32 and has_scan == "True" and has_sparse == "True"
-    assert has_dist == "True" and has_14a == "True"
+    # the three modules of repro_torch.sparse, core/distributed.py, the
+    # obs, checkpoint and testing packages and the path server among them
+    count, has_scan, has_sparse, has_dist, has_14a, has_server = out.stdout.split()[-6:]
+    assert int(count) >= 33 and has_scan == "True" and has_sparse == "True"
+    assert has_dist == "True" and has_14a == "True" and has_server == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):
     from repro_torch.core.path import PathDriver, svm_path
     from repro_torch.data import make_sparse_classification
+    from repro_torch.launch import path_server
     from repro_torch.launch.train_svm import main
     from repro_torch.sparse import FeatureChunked
 
@@ -90,6 +92,12 @@ def test_cuda_request_raises_without_gpu(monkeypatch):
         PathDriver(chunk_skip=False).run(fc, ds.y)
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--m", "20", "--n", "10", "--storage", "chunked", "--chunk-m", "8"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        path_server.PathServer()  # the server runs on the GPU by default
+    with pytest.raises(RuntimeError, match="cuda"):
+        path_server.main(["--jobs", "2", "--m", "20", "--n", "10"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--serve", "--serve-jobs", "2", "--m", "20", "--n", "10"])
 
 
 def test_unknown_rule_and_engine_fail_early():

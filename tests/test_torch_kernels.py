@@ -2,8 +2,8 @@
 (on a GPU only) each CUDA kernel against its plain version: the margin and
 gradient sweeps, the feature screen (its dynamic variant, whose plain
 version is held against the reference in test_torch_dynamic.py, and its
-EDPP mode, whose plain version is held against the reference in
-test_torch_rules.py) and the sample-surplus sweep.
+EDPP mode, unweighted and weighted, whose plain versions are held against
+the reference in test_torch_rules.py) and the sample-surplus sweep.
 
 The reference kernels run as ``tests/test_kernels.py`` runs them on the
 CPU: ``interpret=True``. Inputs are identical bits in both packages (bf16
@@ -25,6 +25,7 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.core.dual import lambda_max, theta_at_lambda_max
 from repro_torch.core.screening import (
     edpp_scalars,
+    edpp_scalars_from_stats,
     feature_reductions,
     shared_scalars,
     shared_scalars_from_stats,
@@ -520,6 +521,55 @@ def test_cuda_edpp_screen_matches_plain(shape, dtype):
     assert bool(torch.isnan(screen.screen_bounds_edpp(X, y, bad, sh, e)).all())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cuda_weighted_edpp_screen_matches_plain(shape, dtype):
+    """Card only: the feature screen's weighted EDPP mode (the path server's
+    sample-masked slots) against its plain version on an inexact anchor and
+    on the exact anchor at the live problem's lam_max, each launch counted
+    as ``screen_bounds_edpp_weighted``; the bound is at most the weighted
+    VI launch's on the same anchor, bit for bit, and a partial launch and
+    the EDPP finalize give its bits; a NaN theta gives NaN bounds.
+    Tolerance rtol 1e-5 (fp32 sums in different orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    m, n = shape
+    X, _, y, _ = _inputs(m, n, dtype, m, seed=33)
+    X, y = X.cuda(), y.cuda()
+    rng = np.random.default_rng(34)
+    s = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).cuda()
+    live = s > 0
+    lmax = float(lambda_max(X[:, live].float(), y[live]))
+    exact = torch.zeros(n, device="cuda")
+    exact[live] = theta_at_lambda_max(y[live], lmax)
+    inexact = torch.from_numpy((rng.random(n) / (0.7 * lmax)).astype(np.float32)).cuda()
+    for theta, lam1, delta in ((exact, lmax, 0.0), (inexact * s, 0.7 * lmax, 0.02),
+                               (inexact * s, 0.7 * lmax, float("nan"))):
+        if delta != delta:  # the NaN case: a NaN theta
+            theta = theta.clone()
+            theta[int(torch.nonzero(live)[0])] = float("nan")
+            delta = 0.01
+        kw = dict(lam1=torch.tensor(lam1, device="cuda"),
+                  lam2=torch.tensor(0.5 * lam1, device="cuda"), one_y=y @ s,
+                  theta_dot_one=torch.sum(theta), theta_dot_y=theta @ y,
+                  theta_sq=theta @ theta, n_tot=torch.sum(s),
+                  delta=torch.tensor(delta, device="cuda"))
+        sh, e = shared_scalars_from_stats(**kw), edpp_scalars_from_stats(**kw)
+        before = screen.LAUNCHES["screen_bounds_edpp_weighted"]
+        got = screen.screen_bounds_edpp(X, y, theta, sh, e, weights=s)
+        assert screen.LAUNCHES["screen_bounds_edpp_weighted"] == before + 1
+        if bool(torch.isnan(theta).any()):
+            assert bool(torch.isnan(got).all())
+            continue
+        _close(got.cpu(), screen.screen_bounds_edpp_plain(X, y, theta, sh, e, s).cpu())
+        vi = screen.screen_bounds_from_shared(X, y, theta, sh, weights=s)
+        assert bool((got <= vi).all())
+        sums = screen.screen_partial_op(X, y, theta, weights=s)
+        assert torch.equal(screen.screen_finalize_op(sums, sh, edpp=e), got)
+        assert torch.equal(screen.screen_finalize_op(sums, sh), vi)
+
+
 def _d_theta_cases(X, y, n, seed):
     """The feature screen's calls with the optional d_theta output: the VI
     mode on an inexact anchor, and the dynamic variant (sample weights and
@@ -688,6 +738,7 @@ def _partial_calls(X, w, y, theta, s, u_prev, wrap):
     sh = shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
     e = edpp_scalars(y, 5.0, 3.0, theta, delta=0.01)
     shd = shared_scalars(y, 4.0, 4.0, theta * s, delta=0.05)
+    e_w = edpp_scalars(y, 4.0, 3.0, theta * s, delta=0.05)
     cap = torch.tensor(0.05, device=y.device)
     b = torch.tensor(0.2, device=y.device)
     sums = ops.screen_partial(X, y, theta, None)
@@ -703,7 +754,11 @@ def _partial_calls(X, w, y, theta, s, u_prev, wrap):
         "screen_edpp": ((ops.screen_edpp(X, y, theta, sh, e),),
                         (ops.screen_finalize(sums, sh, None, e),)),
         "screen_dynamic": ((ops.screen_full(X, y, theta * s, shd, s, cap),),
-                           (ops.screen_finalize(sums_w, shd, cap, None, True),)),
+                           (ops.screen_finalize(sums_w, shd, cap, None),)),
+        "screen_weighted": ((ops.screen_full(X, y, theta * s, shd, s, None),),
+                            (ops.screen_finalize(sums_w, shd, None, None),)),
+        "screen_edpp_weighted": ((ops.screen_edpp(X, y, theta * s, shd, e_w, s),),
+                                 (ops.screen_finalize(sums_w, shd, None, e_w),)),
     }
     return pairs, sums, sums_w
 
@@ -798,7 +853,7 @@ def test_cuda_partial_modes(shape, dtype, offset):
     after = {**hinge.LAUNCHES, **screen.LAUNCHES}
     for name, count in (("margin_partial", 1), ("margin_finalize", 1),
                         ("sample_partial", 1), ("sample_finalize", 1),
-                        ("screen_partial", 2), ("screen_finalize", 3)):
+                        ("screen_partial", 2), ("screen_finalize", 5)):
         assert after[name] - before[name] == count, name
     _close(sums.cpu(), screen.screen_partial_plain(X, y, theta).cpu())
     _close(sums_w.cpu(), screen.screen_partial_plain(X, y, theta * s, s).cpu())

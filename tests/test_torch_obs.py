@@ -359,3 +359,58 @@ def test_launcher_trace_and_profile(tmp_path, monkeypatch):
     prof = (tmp_path / "prof" / "profile.json").read_text()
     for span in PATH_SPANS:
         assert f'"{span}"' in prof, span
+
+
+# -- the path server ------------------------------------------------------------------
+
+
+def test_registry_mirrors_server_stats_bitwise():
+    """Every ``serve.*`` counter equals the server's ``stats`` after a drain,
+    and ``metrics()`` returns the snapshot with the cache's state absorbed;
+    the ``path.*`` counters fold in the assembled per-job traces."""
+    from repro_torch.launch.path_server import PathServer, demo_jobs
+
+    server = PathServer(slots=2, device="cpu", **SOLVE)
+    jobs = demo_jobs(3, m=60, n=40, seed=1)
+    results = server.serve(jobs, log=lambda *a, **k: None)
+    assert all(r is not None for r in results)
+    snap = server.metrics()
+    for key, val in server.stats.items():
+        # counters register lazily; never-incremented ones read 0
+        assert snap.get(f"serve.{key}", 0) == val, key
+    for key, val in server.cache_stats().items():
+        assert snap[f"serve.cache.{key}"] == val, key
+    assert snap["serve.latency_s"]["count"] == len(jobs)
+    assert snap["serve.slot_occupancy"] == server.last_serve["slot_occupancy"]
+    assert snap["path.steps"] == sum(len(j.lambdas) for j in jobs)
+
+
+def test_serve_path_trace_and_spans_match_reference(ds, traced):
+    """A served job attaches the PathTrace layout of the host and scan
+    engines (one record per lambda, ``engine="serve"``, synthesized walls,
+    its latency in ``total_s``, ``jid`` in ``meta``), and the server records
+    the reference's span names on the same job: ``serve.refill``,
+    ``serve.step`` and the synthesized per-step spans (the port adds a
+    ``serve.solve`` span a step from its solve seconds, as its scan engine
+    adds ``scan.solve``)."""
+    from repro.launch.path_server import PathJob as RefJob
+    from repro.launch.path_server import PathServer as RefServer
+    from repro_torch.launch.path_server import PathJob, PathServer
+
+    T = 4
+    host = svm_path(ds.X, ds.y, n_lambdas=T, device="cpu", **SOLVE)
+    (served,) = PathServer(slots=1, device="cpu", **SOLVE).serve(
+        [PathJob(jid=7, X=ds.X, y=ds.y, lambdas=host.lambdas)], log=lambda *a: None)
+    RefServer(slots=1, **SOLVE).serve(
+        [RefJob(jid=7, X=ds.X, y=ds.y, lambdas=host.lambdas)], log=lambda *a: None)
+    pt = served.extras["path_trace"]
+    assert pt.engine == "serve" and not pt.walls_observed
+    _assert_schema(pt, T)
+    np.testing.assert_allclose([s.lam for s in pt.steps], host.lambdas)
+    assert pt.total_s == pytest.approx(served.extras["latency_s"])
+    assert pt.meta["jid"] == 7 and served.extras["jid"] == 7
+    assert all(np.isfinite(s.solve_s) and np.isfinite(s.gap) for s in pt.steps)
+    port = {n for n in _names(obs_trace) if n.startswith("serve.")}
+    ref = {n for n in _names(ref_trace) if n.startswith("serve.")}
+    assert {"serve.refill", "serve.step"} <= ref
+    assert port == ref | {"serve.solve"}

@@ -54,6 +54,7 @@ from repro_torch.core.solver import (
     fista_solve,
     lipschitz_estimate,
 )
+from repro_torch.core.rules.programs import resolve_programs
 from repro_torch.data import make_sparse_classification
 from repro_torch.kernels import hinge, ops
 from repro_torch.launch.train_svm import main as train_main
@@ -441,6 +442,79 @@ def test_batched_step_with_sample_mask_solves_the_unpadded_problem(ds, L):
         assert int(g.cap[0]) == int(w.cap[0]) < 300
         assert _rel(g.obj.numpy(), w.obj.numpy()) <= 1e-6
         np.testing.assert_allclose(g.w.numpy(), w.w.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("rules", ["edpp", "auto"])
+def test_batched_problems_with_sample_mask_run_edpp(rules):
+    """B = 2 problems padded to one width under a 0/1 sample mask (the path
+    server's slots) with ``edpp`` (and ``auto``, which resolves to it): the
+    screen takes the feature screen's weighted EDPP mode, and each element
+    is its unpadded problem's single path at fixed iterations (objectives
+    rel 1e-6, the same keep masks). Before the weighted mode this raised."""
+    sets = [make_sparse_classification(m=200, n=n, k_active=8, seed=s)
+            for s, n in ((61, 90), (62, 70))]
+    B, m, n_b = 2, 200, 96
+    X = torch.zeros((B, m, n_b))
+    y, sm, theta0 = torch.zeros((B, n_b)), torch.zeros((B, n_b)), torch.zeros((B, n_b))
+    Ls, lmaxs, grids = [], [], []
+    for e, d in enumerate(sets):
+        n = d.X.shape[1]
+        X[e, :, :n], y[e, :n], sm[e, :n] = torch.from_numpy(d.X), torch.from_numpy(d.y), 1.0
+        lmax = float(ref_lambda_max(jnp.asarray(d.X), jnp.asarray(d.y)))
+        theta0[e, :n] = (1.0 - y[e, :n] * torch.mean(y[e, :n])) / lmax
+        Ls.append(float(lipschitz_estimate(torch.from_numpy(d.X))))
+        lmaxs.append(lmax)
+        grids.append(np.geomspace(lmax, 0.25 * lmax, 5))
+    before = ops.launch_counts()["screen_bounds_edpp_weighted"]
+    outs = path_scan._batched_path_scan_program(
+        X, y, sm, torch.as_tensor(np.stack(grids), dtype=torch.float32),
+        torch.zeros(m), torch.stack([torch.mean(y[e, :d.X.shape[1]])
+                                     for e, d in enumerate(sets)]),
+        theta0, torch.zeros(()), torch.tensor(lmaxs), torch.tensor(Ls), TAU,
+        -1.0, max_iters=300, screening=True, dynamic=False, screen_every=50,
+        exact_lipschitz=False, reduce="compact", rules=resolve_programs(rules))
+    assert ops.launch_counts()["screen_bounds_edpp_weighted"] == before  # plain on the CPU
+    for e, d in enumerate(sets):
+        single = svm_path_scan(d.X, d.y, lambdas=grids[e], rules=rules, reduce="compact",
+                               L=Ls[e], tau=TAU, device="cpu", **FIXED)
+        assert _rel(outs.obj[e].numpy(), single.objectives) <= 1e-6, e
+        np.testing.assert_array_equal(outs.fmask[e].numpy(), single.extras["keep_masks"])
+
+
+def test_batched_step_skips_elements_not_live(ds, L, monkeypatch):
+    """An element marked not live (an empty server slot) is neither
+    screened, solved nor certified: it reports zeros
+    and keeps every feature, and the live element's outputs are bit for bit
+    those of the step with both elements live."""
+    X, y = torch.from_numpy(ds.X), torch.from_numpy(ds.y)
+    Xb, yb = torch.stack([X, X]), torch.stack([y, y])
+    lmax = float(ref_lambda_max(jnp.asarray(ds.X), jnp.asarray(ds.y)))
+    theta = ((1.0 - y * torch.mean(y)) / lmax).expand(2, -1).clone()
+    carry = (torch.zeros((2, 300)), torch.mean(y).expand(2).clone(), theta,
+             torch.zeros((2,)), torch.full((2,), lmax), torch.ones((2, 300)))
+    screens = []
+    stack_bounds = path_scan._stack_bounds
+    monkeypatch.setattr(path_scan, "_stack_bounds",
+                        lambda *a, **k: screens.append(1) or stack_bounds(*a, **k))
+
+    def step(act):
+        _, out = _batched_path_step(
+            Xb, yb, None, _batched_statics(Xb, yb, None, False),
+            torch.full((2,), _inv_L(L)), TAU, 1e-9, carry,
+            torch.full((2,), 0.5 * lmax), act, caps=compact_caps(300),
+            shared_x=False, max_iters=200, screening=True, dynamic=False,
+            screen_every=50, exact_lipschitz=False)
+        return out
+
+    both = step([True, True])
+    assert len(screens) == 2
+    one = step([True, False])
+    assert len(screens) == 3
+    for f in ("w", "obj", "fmask", "kept", "n_iters", "gap", "delta"):
+        np.testing.assert_array_equal(getattr(one, f)[0].numpy(),
+                                      getattr(both, f)[0].numpy(), err_msg=f)
+    assert bool(one.fmask[1].all()) and int(one.n_iters[1]) == 0
+    assert float(one.obj[1]) == 0.0 and int(one.cap[0]) == int(both.cap[0])
 
 
 def test_batched_validation_errors(ds):

@@ -258,6 +258,74 @@ def test_edpp_bounds_match_reference_on_reference_anchors(kind):
         _close(got, vi, rtol=1e-6)
 
 
+def _masked_anchor(kind, m, seed):
+    """(X, y, s, lam1, lam2, theta1, delta) for a problem whose live samples
+    are the 0/1 mask ``s`` (about 70% of 90 columns; the masked columns of
+    X keep their values, so only the weights remove them), the anchor taken
+    on the live columns and zero on the others, as a certificate under a
+    sample mask gives it: 'lam_max' the exact anchor, 'solved' a certified
+    one from an approximate solve, 'random' a positive theta1 with delta
+    0.03."""
+    ds = make_sparse_classification(m=m, n=90, seed=seed)
+    X, y = ds.X, ds.y
+    rng = np.random.default_rng(seed + 200)
+    live = rng.random(90) < 0.7
+    Xl, yl = jnp.asarray(X[:, live]), jnp.asarray(y[live])
+    lmax = float(ref_lambda_max(Xl, yl))
+    if kind == "lam_max":
+        lam1, delta = lmax, 0.0
+        th = np.asarray(ref_theta_max(yl, jnp.asarray(lmax)))
+    elif kind == "solved":
+        lam1 = 0.6 * lmax
+        res = ref_fista(Xl, yl, lam1, max_iters=300)
+        th, delta = ref_certify(Xl, yl, res.w, res.b, jnp.asarray(lam1))
+        th, delta = np.asarray(th), float(delta)
+    else:
+        lam1, delta = 0.7 * lmax, 0.03
+        th = np.abs(rng.standard_normal(int(live.sum()))) / lam1
+    theta1 = np.zeros(90, np.float32)
+    theta1[live] = th
+    return X, y, live.astype(np.float32), lam1, 0.6 * lam1, theta1, delta
+
+
+@pytest.mark.parametrize("m", [240, 243], ids=["dense", "ragged"])
+@pytest.mark.parametrize("kind,seed", [("lam_max", 0), ("solved", 1), ("random", 2),
+                                       ("random", 3)])
+def test_weighted_edpp_plain_matches_reference(kind, seed, m):
+    """The weighted EDPP mode's plain version (the path server's sample-masked
+    slots) against the reference's ``stack_bounds(("edpp",), ...)`` on
+    ``FixedStats`` from the masked reductions ``X (y s)``, ``X s``,
+    ``(X * X) s``, ``y.s`` and ``sum(s)``, at the unweighted EDPP test's
+    tolerance; it is the unweighted bound of the problem with the masked
+    columns removed (rtol 1e-5), and never above the weighted VI bound on
+    the same anchor, exactly."""
+    from repro.core.rules.programs import stack_bounds as ref_stack_bounds
+    from repro.core.screening import FixedStats as RefFixedStats
+
+    X, y, s, lam1, lam2, theta1, delta = _masked_anchor(kind, m, seed)
+    Xj, yj, sj, thj = (jnp.asarray(a) for a in (X, y, s, theta1))
+    anchor = ref_anchor_stats(yj, lam1, thj, delta, Xj @ (yj * thj))
+    fixed = RefFixedStats(d_one=Xj @ (yj * sj), d_y=Xj @ sj, d_sq=(Xj * Xj) @ sj,
+                          one_y=yj @ sj, n_tot=jnp.sum(sj))
+    want = ref_stack_bounds((REF_PROGRAMS["edpp"],), jnp.asarray(lam2, jnp.float32),
+                            (anchor,), fixed)
+
+    Xt, yt, st, tht = (torch.from_numpy(a) for a in (X, y, s, theta1))
+    kw = dict(lam1=torch.tensor(lam1), lam2=torch.tensor(lam2), one_y=yt @ st,
+              theta_dot_one=torch.sum(tht), theta_dot_y=tht @ yt, theta_sq=tht @ tht,
+              n_tot=torch.sum(st), delta=torch.tensor(delta))
+    sh, e = ts.shared_scalars_from_stats(**kw), ts.edpp_scalars_from_stats(**kw)
+    got = screen.screen_bounds_edpp_plain(Xt, yt, tht, sh, e, weights=st)
+    _close(got, want)
+    assert torch.equal(got, screen.screen_bounds_edpp(Xt, yt, tht, sh, e, weights=st))
+    vi = screen.screen_bounds_plain(Xt, yt, tht, sh, weights=st)
+    assert bool((got <= vi).all())
+    live = st > 0
+    reduced = screen.screen_bounds_edpp_plain(
+        Xt[:, live].contiguous(), yt[live], tht[live], sh, e)
+    _close(got, reduced, rtol=1e-5)
+
+
 def test_edpp_nan_theta_gives_nan_bounds_that_are_kept():
     X, y, lam1, lam2, theta1, delta = _anchor("nan")
     a_r, f_r = _ref_region(X, y, lam1, theta1, delta)
