@@ -84,7 +84,21 @@ n = 10,000 samples, fp32):
   any screen and the launcher's exit code 2 on it; ``trace``: tracing off
   and on in turns, every step's spans against its walls, and the
   launcher's ``--profile`` captures with the kernels' names and the card's
-  busy share).
+  busy share);
+* the LM scaffold's serving path (``repro_torch.models``,
+  ``launch/serve.py``), after the kernels' times; its products and
+  softmaxes are plain PyTorch, no kernel of this repository, so it adds no
+  row to the kernels line: the four dense archs' reduced configs in float32,
+  card against CPU (prefill logits, the bf16 K/V caches, 4 decode steps, a
+  ``BatchedServer``'s greedy tokens) and qwen2.5-3b at full width on 2
+  layers (``lm_card_vs_cpu``); then qwen2.5-3b's full configuration (36
+  layers, bf16 over float32 masters from a seeded generator on the card)
+  serving 8 requests of 64 to 1,024 prompt tokens on 4 slots of 2,048
+  positions, 32 new tokens each (``lm_serve``: every logit finite, two
+  requests' decode steps against teacher-forced prefills and their first
+  decode against the request served alone; prefill and decode-step times
+  beside their bounds, tokens/s, peak memory, the card's busy share over
+  three decode steps).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -127,9 +141,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 on the tensor cores, dense
 EPS32 = float(np.finfo(np.float32).eps)
 FULL = dict(m=50_000, n=10_000, density=1.0, seed=0)
 N_LAMBDAS, LAM_MIN_RATIO, SAFETY_STEPS = 8, 0.1, 4
@@ -3176,6 +3192,294 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the LM scaffold's serving path (repro_torch.models, launch/serve.py): plain
+# PyTorch products and softmaxes, no kernel of this repository on its path
+# ---------------------------------------------------------------------------
+
+LM_DENSE = ("qwen2.5-3b", "granite-8b", "internlm2-20b", "stablelm-12b")
+LM_ARCH = "qwen2.5-3b"   # the serve launcher's default architecture
+LM_F32_REL = 1e-5        # card vs CPU, float32 with TF32 off: one model's float32
+                         # steps summed in other orders (max |d| / max |ref|)
+# the same, each device decoding from its own prefill's bf16 cache (see
+# phase_lm_card_vs_cpu): 2.1e-5 the largest reading (stablelm-12b), 5x that
+LM_OWN_CACHE_REL = 1e-4
+LM_CARD_DEPTH = 2        # lm_card_vs_cpu's full-width model: 2 of its 36 layers
+LM_CARD_PROMPT = 32
+LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_NEW = 4, 2048, 8, 32
+LM_PROMPTS = (64, 1025)  # numpy integers(low, high): prompts of 64 to 1,024 tokens
+LM_PREFILL_LENS = (64, 256, 1024)
+LM_CHECKED = (0, 1)      # requests whose every decode step meets a teacher-forced prefill
+LM_ALONE = (0, 4)        # requests served again alone (4 waited for a slot)
+# bf16 decode against a bf16 teacher-forced prefill of the same tokens: the
+# two run other GEMM shapes (4 rows against the prompt's), so every product
+# may round to the other bf16 neighbour (2**-8) in each of 36 layers; the
+# CPU tests measure 5e-3 to 1.1e-2 across 2 layers against the reference.
+LM_BF16_REL = 5e-2
+LM_SEED = 0
+
+
+def lm_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def lm_bound(flops: float, nbytes: float) -> tuple:
+    """``(bound_ms, bound_by)``: the larger of ``nbytes`` over the HBM rate
+    and ``flops`` over the bf16 tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float64 on the host."""
+    a = got.detach().double().cpu()
+    b = want.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def lm_requests(serve, cfg, n, new, lengths, seed) -> list:
+    """The serve launcher's requests: each prompt's length drawn, then its
+    tokens, from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [serve.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                     rng.integers(*lengths)).astype(np.int32),
+                          max_new=new) for i in range(n)]
+
+
+def bf16_flips(got, want) -> tuple:
+    """``(elements that differ, all explained by rounding)`` of two bf16
+    caches whose float32 sources agree within ``LM_F32_REL`` of their
+    scale: a value may round to the other bf16 neighbour, so each element
+    may differ by its own bf16 ulp plus that float32 difference (a sum that
+    cancels to near 0 differs by more than its own ulp)."""
+    a, b = got.float().cpu(), want.float().cpu()
+    diff = (a - b).abs()
+    ulp = torch.ldexp(torch.ones_like(a), torch.frexp(torch.maximum(a.abs(), b.abs()))[1] - 8)
+    return int((diff > 0).sum()), bool((diff <= ulp + LM_F32_REL * b.abs().max()).all())
+
+
+def phase_lm_card_vs_cpu(configs, tr, serve) -> None:
+    """The four dense archs' SMOKE configs in float32, the same seeded
+    weights on the card and the CPU: prefill logits; the bf16 K/V caches
+    the prefills leave, equal but for values that round to the other bf16
+    neighbour (:func:`bf16_flips`); 4 decode steps from the same
+    cache (the CPU's, copied to the card) and from each device's own; a
+    ``BatchedServer``'s greedy tokens (6 requests on 3 slots). Then
+    qwen2.5-3b at full width, 2 layers: a 32-token prompt's logits.
+
+    One K/V value rounded to the other bf16 neighbour moves a float32
+    model's decode logits by ~1e-5 of their scale (the decode reads the
+    bf16 cache, the prefill its float32 K/V); so the decode is held to
+    ``LM_F32_REL`` from the same cache, and from each device's own cache to
+    ``LM_OWN_CACHE_REL``."""
+    t0 = time.perf_counter()
+    report = {}
+    B, S, T = 2, 20, 4
+    for i, arch in enumerate(LM_DENSE):
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        cpu = tr.init_params(cfg, torch.Generator().manual_seed(10 + i), "cpu")
+        on_card = tr._map(lambda t: t.cuda(), cpu)
+        toks = torch.from_numpy(np.random.default_rng(10 + i).integers(
+            0, cfg.vocab_size, (B, S + T)))
+        (lc, cache_c), (lg, cache_g) = [
+            tr.prefill(p, cfg, {"tokens": toks[:, :S].to(d)}, max_seq=S + T + 4)
+            for p, d in ((cpu, "cpu"), (on_card, "cuda"))]
+        errs = {"prefill": rel_err(lg, lc), "decode_same_cache": [], "decode_own_cache": []}
+        flips, one_ulp = 0, True
+        for seg_g, seg_c in zip(cache_g["segments"], cache_c["segments"]):
+            for slot, leaves in seg_g.items():
+                for name, t in leaves.items():
+                    n, ok = bf16_flips(t, seg_c[slot][name])
+                    flips, one_ulp = flips + n, one_ulp and ok
+        require(one_ulp, f"lm {arch}: a prefill cache value off by more than a bf16 "
+                         "rounding of float32 values within LM_F32_REL")
+        caches = {"decode_same_cache": tr._map(lambda t: t.cuda(), cache_c),
+                  "decode_own_cache": cache_g}
+        for t in range(T):
+            tok, pos = toks[:, S + t:S + t + 1], torch.full((B,), S + t)
+            lc, cache_c = tr.decode_step(cpu, cfg, tok, pos, cache_c)
+            for label, cache in caches.items():
+                lg, caches[label] = tr.decode_step(on_card, cfg, tok.cuda(), pos.cuda(), cache)
+                errs[label].append(rel_err(lg, lc))
+        require(max(errs["prefill"], *errs["decode_same_cache"]) <= LM_F32_REL,
+                f"lm {arch}: card vs CPU {errs}")
+        require(max(errs["decode_own_cache"]) <= LM_OWN_CACHE_REL,
+                f"lm {arch}: card vs CPU from their own caches {errs}")
+        tokens = []
+        for p, d in ((cpu, "cpu"), (on_card, "cuda")):
+            reqs = lm_requests(serve, cfg, 6, 8, (4, 24), seed=10 + i)
+            serve.BatchedServer(cfg, p, batch_slots=3, max_seq=128, device=d).serve(
+                reqs, log=_quiet)
+            tokens.append([r.out for r in reqs])
+        require(tokens[0] == tokens[1], f"lm {arch}: the card's greedy tokens differ")
+        report[arch] = {**errs, "prefill_cache_bf16_flips": flips,
+                        "served_tokens_equal": True}
+    cfg = configs.get_config(LM_ARCH).replace(num_layers=LM_CARD_DEPTH, dtype="float32")
+    on_card = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(20), "cuda")
+    cpu = tr._map(lambda t: t.cpu(), on_card)
+    toks = torch.from_numpy(np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (1, LM_CARD_PROMPT)))
+    lg, _ = tr.prefill(on_card, cfg, {"tokens": toks.cuda()})
+    lc, _ = tr.prefill(cpu, cfg, {"tokens": toks})
+    err = rel_err(lg, lc)
+    require(bool(torch.isfinite(lg).all()) and err <= LM_F32_REL,
+            f"lm full width: card vs CPU rel {err}")
+    report["full_width"] = {"arch": LM_ARCH, "layers": LM_CARD_DEPTH, "d_model": cfg.d_model,
+                            "vocab": cfg.padded_vocab, "prompt": LM_CARD_PROMPT,
+                            "param_bytes": lm_bytes(on_card), "prefill_rel": err}
+    del on_card, cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_card_vs_cpu", "tolerance_rel": LM_F32_REL,
+          "tolerance_own_cache_rel": LM_OWN_CACHE_REL, **report,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_lm_serve(configs, tr, serve) -> dict:
+    """qwen2.5-3b's CONFIG at full width and depth, bf16 compute over
+    float32 masters drawn from a seeded generator on the card:
+    ``BatchedServer(batch_slots=4, max_seq=2048)`` serves 8 requests of
+    64 to 1,024 prompt tokens, 32 new tokens each. Checks: every logit
+    finite; each decode step of two requests against a teacher-forced
+    prefill of the prompt plus the tokens generated so far, and two
+    requests' first decode against the same request served alone (within
+    ``LM_BF16_REL``). Times the prefill at 64, 256 and 1,024 tokens and the
+    decode step at B = 4 (CUDA events over back-to-back calls: the host's
+    work and launches are in the wall, as the card waits on them) beside
+    their bounds, the whole serve's tokens/s, and profiles three decode
+    steps (the card's busy share)."""
+    from repro_torch.testing.lm import StepRecorder
+
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    masters = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = lm_bytes(masters)
+    server = serve.BatchedServer(cfg, masters, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                                 device="cuda")
+    del masters  # the server holds its compute-dtype copy
+    weights = server.params
+
+    reqs = lm_requests(serve, cfg, LM_REQUESTS, LM_NEW, LM_PROMPTS, seed=0)
+    server.serve([serve.Request(rid=-1, prompt=reqs[0].prompt[:64], max_new=2)],
+                 log=_quiet)  # warm-up: the libraries' handles and workspaces
+    rec = StepRecorder(server)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    server.serve(reqs, log=_quiet)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    n_steps = len(rec.steps)
+    n_tokens = sum(len(r.out) for r in reqs)
+    require(all(len(r.out) == LM_NEW for r in reqs), "lm_serve: a request stopped early")
+    finite = all(bool(torch.isfinite(lg).all()) for lg, _ in rec.steps) and \
+        all(bool(torch.isfinite(lg).all()) for lg in rec.prefills)
+    require(finite, "lm_serve: a non-finite logit")
+
+    worst, agree, n_checked = 0.0, 0, 0
+    for rid in LM_CHECKED:
+        req = reqs[rid]
+        for k, logits in rec.decodes(rid):
+            toks = np.concatenate([req.prompt, np.asarray(req.out[:k], np.int32)])
+            tf, _ = tr.prefill(weights, cfg, {"tokens": torch.from_numpy(toks[None]).cuda()},
+                               max_seq=LM_MAX_SEQ)
+            worst = max(worst, rel_err(logits, tf[0]))
+            agree += int(torch.argmax(logits) == torch.argmax(tf[0]))
+            n_checked += 1
+    require(n_checked == len(LM_CHECKED) * (LM_NEW - 1),
+            f"lm_serve: {n_checked} decode steps checked")
+    require(worst <= LM_BF16_REL, f"lm_serve: decode vs teacher-forced prefill rel {worst}")
+
+    alone = {}
+    for rid in LM_ALONE:
+        single = serve.BatchedServer(cfg, weights, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                                     device="cuda")
+        rec1 = StepRecorder(single)
+        single.serve([serve.Request(rid=rid, prompt=reqs[rid].prompt, max_new=2)], log=_quiet)
+        a, b = dict(rec.decodes(rid))[1], dict(rec1.decodes(rid))[1]
+        alone[rid] = {"rel": rel_err(a, b), "bitwise": bool(torch.equal(a, b))}
+        require(alone[rid]["rel"] <= LM_BF16_REL, f"lm_serve: request {rid} alone {alone[rid]}")
+        del single
+
+    rng = np.random.default_rng(1)
+    prefill_ms = {}
+    for n in LM_PREFILL_LENS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).cuda()
+        prefill_ms[n] = timed_ms(lambda: tr.prefill(weights, cfg, {"tokens": toks},
+                                                    max_seq=LM_MAX_SEQ), 5)
+    toks = torch.from_numpy(server.last_tok[:, None].astype(np.int64)).cuda()
+    pos = torch.from_numpy(server.positions.astype(np.int64)).cuda()
+
+    def decode():  # the server's step, without the recorder's copies
+        rec.step_fn(server.params, server.cache, toks, pos)
+    step_ms = timed_ms(decode, 20)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/decode.json"
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function("path"):
+                for _ in range(3):
+                    decode()
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        share, names, _ = busy_share(trace)
+        n_kernels = sum(1 for e in json.loads(Path(trace).read_text())["traceEvents"]
+                        if e.get("cat") == "kernel")
+
+    # The least work of a prefill of n tokens and of the decode step: every
+    # weight read once but the embedding table (n or B rows of it), the K/V
+    # of the positions each one reads or writes (the decode step reads each
+    # slot's written positions, slot <= position, and writes one), the
+    # products of every layer, causal attention's scores and PV, one token's
+    # head a row.
+    ring_bytes = lm_bytes(server.cache)
+    kv_pos_bytes = ring_bytes // (LM_SLOTS * LM_MAX_SEQ)  # one slot's position, all layers
+    row_bytes = cfg.d_model * weights["embed"]["tok"].element_size()
+    weight_bytes = lm_bytes(weights) - lm_bytes(weights["embed"])
+    layer_params = cfg.param_count() - 2 * cfg.padded_vocab * cfg.d_model
+    attn_flops = 4 * cfg.num_heads * cfg.resolved_head_dim * cfg.num_layers
+    live = [min(int(p) + 1, LM_MAX_SEQ) for p in server.positions]
+    step_kv_bytes = kv_pos_bytes * sum(live)
+    step_bytes = weight_bytes + LM_SLOTS * row_bytes + step_kv_bytes
+    step_flops = (LM_SLOTS * (2 * layer_params + 2 * cfg.d_model * cfg.padded_vocab)
+                  + attn_flops * sum(live))
+    step_bound_ms, step_bound_by = lm_bound(step_flops, step_bytes)
+    prefill_bound = {n: lm_bound(2 * n * layer_params + 2 * cfg.d_model * cfg.padded_vocab
+                                 + attn_flops * (n * (n + 1) // 2),
+                                 weight_bytes + n * (row_bytes + kv_pos_bytes))
+                     for n in LM_PREFILL_LENS}
+    out = {
+        "phase": "lm_serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "vocab": cfg.padded_vocab, "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "param_bytes": param_bytes,
+        "serving_weight_bytes": lm_bytes(weights), "init_s": init_s,
+        "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ, "requests": LM_REQUESTS,
+        "new_tokens": LM_NEW, "prompt_lens": [len(r.prompt) for r in reqs],
+        "serve_s": serve_s, "tokens": n_tokens, "tokens_per_s": n_tokens / serve_s,
+        "decode_steps": n_steps,
+        "decode_step_ms_b4": step_ms, "decode_step_bound_ms": step_bound_ms,
+        "decode_step_bound_by": step_bound_by, "decode_step_bytes": step_bytes,
+        "decode_step_kv_bytes": step_kv_bytes, "decode_step_live_positions": live,
+        "kv_ring_bytes": ring_bytes,
+        "prefill_ms": {str(n): v for n, v in prefill_ms.items()},
+        "prefill_bound_ms": {str(n): b[0] for n, b in prefill_bound.items()},
+        "prefill_bound_by": {str(n): b[1] for n, b in prefill_bound.items()},
+        "teacher_forced_rel_max": worst, "teacher_forced_steps": n_checked,
+        "teacher_forced_argmax_equal": agree, "tolerance_rel": LM_BF16_REL,
+        "alone_first_decode": {str(k): v for k, v in alone.items()},
+        "decode_profile": {"busy_share": share, "kernels_a_step": n_kernels / 3,
+                           "kernel_names": len(names)},
+        "peak_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(out)
+    del server, weights, rec
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3209,6 +3513,9 @@ def main() -> int:
     from repro_torch.launch import path_server
     from repro_torch.launch.path_server import PathJob, PathServer, demo_jobs
     from repro_torch.launch.train_svm import main as train_main
+    from repro_torch import configs
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import transformer as tr
     from repro_torch.obs import trace as obs_trace
     import repro_torch.sparse as sparse
     from repro_torch.testing import faults
@@ -3330,6 +3637,13 @@ def main() -> int:
                                              for nm in names}
                for run in ("path", "host")}}
         row["launches_sharded_unit_grid"] = int(launches_unit[row["name"]])
+
+    # the LM scaffold's serving path, after the kernels' times: no kernel of
+    # this repository on it, so it adds no row to the kernels line
+    clear_engine_cache()
+    torch.cuda.empty_cache()
+    phase_lm_card_vs_cpu(configs, tr, lm_serve)
+    phase_lm_serve(configs, tr, lm_serve)
 
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)

@@ -4,7 +4,9 @@
 port's tensors with checked dtypes and shapes, so both packages can be fed
 one anchor and one Lipschitz bound. :func:`path_arrays` is the numpy view
 of a :class:`~repro_torch.core.path.PathResult` (or of the reference's,
-which has the same per-step fields).
+which has the same per-step fields). :func:`lm_params_from_jax` carries the
+LM scaffold's parameter tree across, :func:`cache_arrays` is the numpy view
+of the port's K/V cache.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["STATE_NDIM", "state_from_numpy", "path_arrays", "PATH_FIELDS"]
+from .device import resolve_device
+
+__all__ = ["STATE_NDIM", "state_from_numpy", "path_arrays", "PATH_FIELDS",
+           "lm_params_from_jax", "cache_arrays"]
 
 #: the state the port takes from the reference, by name: its rank
 STATE_NDIM = {"X": 2, "y": 1, "w": 1, "b": 0, "theta": 1, "delta": 0, "L": 0,
@@ -60,3 +65,49 @@ def state_from_numpy(arrays: dict, device) -> dict[str, torch.Tensor]:
 def path_arrays(result) -> dict[str, np.ndarray]:
     """Numpy copies of a PathResult's per-step arrays (:data:`PATH_FIELDS`)."""
     return {name: np.asarray(getattr(result, name)) for name in PATH_FIELDS}
+
+
+def lm_params_from_jax(tree, cfg, device="cuda"):
+    """The reference's ``init_params`` tree (its leaves as numpy arrays,
+    e.g. ``jax.tree_util.tree_map(np.asarray, params)``) as the port's
+    parameter tree on ``device``. Keys, list lengths, shapes and dtypes must
+    be those of the port's own tree for ``cfg``
+    (``models.transformer.param_shapes``; each segment's slots stacked on
+    their leading ``n_units`` axis in both packages), every leaf in
+    ``cfg.param_dtype``; raises ``ValueError``/``TypeError`` otherwise, and
+    ``NotImplementedError`` for a family the port does not run.
+    """
+    from .models.transformer import param_shapes  # lazy: the SVM side needs no LM
+
+    dev = resolve_device(device)
+    if cfg.param_dtype != "float32":
+        raise TypeError(f"param_dtype {cfg.param_dtype!r}: numpy carries float32 only")
+
+    def conv(got, want, path):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or set(got) != set(want):
+                raise ValueError(f"{path or 'params'}: keys "
+                                 f"{sorted(got) if isinstance(got, dict) else type(got)}, "
+                                 f"expected {sorted(want)}")
+            return {k: conv(got[k], want[k], f"{path}/{k}") for k in want}
+        if isinstance(want, list):
+            if not isinstance(got, (list, tuple)) or len(got) != len(want):
+                raise ValueError(f"{path}: expected a list of {len(want)}")
+            return [conv(g, w, f"{path}/{i}") for i, (g, w) in enumerate(zip(got, want))]
+        a = np.asarray(got)
+        if a.dtype != np.float32:
+            raise TypeError(f"{path} must be float32, got {a.dtype}")
+        if a.shape != tuple(want):
+            raise ValueError(f"{path} has shape {a.shape}, expected {tuple(want)}")
+        return torch.tensor(a, device=dev)  # a copy: a may be read-only
+
+    return conv(tree, param_shapes(cfg), "")
+
+
+def cache_arrays(cache) -> dict[str, np.ndarray]:
+    """Float32 numpy copies of a K/V cache's leaves (bf16 has no numpy
+    dtype), keyed ``"segments/<g>/<slot>/<k|v>"``; the reference's cache
+    flattens to the same keys."""
+    return {f"segments/{gi}/{slot}/{name}": t.detach().float().cpu().numpy()
+            for gi, seg in enumerate(cache["segments"])
+            for slot, leaves in seg.items() for name, t in leaves.items()}

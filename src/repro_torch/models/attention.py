@@ -1,0 +1,183 @@
+"""Attention: GQA/MQA with RoPE, blockwise (flash-style) prefill, windowed
+local attention, and single-token decode against a KV cache.
+
+The reference (``repro.models.attention``) chooses its layout from the
+device mesh; on one device (no model axis) it takes the grouped
+``(G, rep)`` layout whenever H != G, and the H-space one, the same
+arithmetic, when H == G. The port has that one layout: query head h reads
+KV group ``h // rep``. Prefill is the reference's online softmax over
+query chunks x key chunks (``blockwise_q`` x ``blockwise_kv``), padded to
+chunk multiples with query positions -1 and key positions 2**30; scores,
+softmax and the PV product are float32, masked with -1e30 (not -inf, so a
+chunk that a row sees none of leaves no NaN), as the reference's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def init_attention(generator, cfg, dtype, device, lead=()):
+    D = cfg.d_model
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(generator, D, H * hd, dtype, device, lead=lead),
+        "wk": dense_init(generator, D, G * hd, dtype, device, lead=lead),
+        "wv": dense_init(generator, D, G * hd, dtype, device, lead=lead),
+        "wo": dense_init(generator, H * hd, D, dtype, device, lead=lead),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", G * hd), ("bv", G * hd)):
+            p[name] = torch.zeros((*lead, width), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(params, x, cfg, positions, act_dtype):
+    B, S, D = x.shape
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ params["wq"].to(act_dtype)
+    k = x @ params["wk"].to(act_dtype)
+    v = x @ params["wv"].to(act_dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(act_dtype)
+        k = k + params["bk"].to(act_dtype)
+        v = v + params["bv"].to(act_dtype)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, G, hd)
+    v = v.reshape(B, S, G, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _inv_sqrt(hd: int) -> float:
+    """1 / sqrt(hd) rounded as the reference rounds it: both steps in float32."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk):
+    """Online-softmax attention. q: (B,Sq,H,dk); k: (B,Sk,G,dk); v: (B,Sk,G,dv).
+
+    Returns (B, Sq, H, dv) in q's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    _, Sk, G, _ = k.shape
+    dv = v.shape[-1]
+    rep = H // G
+    scale = _inv_sqrt(hd)
+
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Sk)
+    nq = (Sq + q_chunk - 1) // q_chunk
+    nk = (Sk + kv_chunk - 1) // kv_chunk
+    q = _pad_axis(q, nq * q_chunk, 1)
+    k = _pad_axis(k, nk * kv_chunk, 1)
+    v = _pad_axis(v, nk * kv_chunk, 1)
+    q_pos = _pad_axis(q_pos, nq * q_chunk, 1, fill=-1)        # (B, Sq)
+    k_pos = _pad_axis(k_pos, nk * kv_chunk, 1, fill=2**30)    # (B, Sk)
+
+    qc = q.reshape(B, nq, q_chunk, H, hd).permute(1, 0, 3, 2, 4)   # (nq,B,H,qc,hd)
+    kc = k.reshape(B, nk, kv_chunk, G, hd).permute(1, 0, 3, 2, 4)  # (nk,B,G,kc,hd)
+    vc = v.reshape(B, nk, kv_chunk, G, dv).permute(1, 0, 3, 2, 4)
+    qpc = q_pos.reshape(B, nq, q_chunk).permute(1, 0, 2)
+    kpc = k_pos.reshape(B, nk, kv_chunk).permute(1, 0, 2)
+
+    outs = []
+    for i in range(nq):
+        qg = (qc[i].float() * scale).reshape(B, G, rep, q_chunk, hd)
+        dq = qpc[i][:, None, None, :, None]
+        m = torch.full((B, G, rep, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, G, rep, q_chunk, dv), dtype=torch.float32, device=q.device)
+        for j in range(nk):
+            s = torch.einsum("bgrqd,bgkd->bgrqk", qg, kc[j].float())
+            dk = kpc[j][:, None, None, None, :]
+            mask = torch.ones((B, 1, 1, q_chunk, kv_chunk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask = mask & (dk <= dq)
+            if window:
+                mask = mask & (dq - dk < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p, vc[j].float())
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.reshape(B, H, q_chunk, dv).to(q.dtype))
+    out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, nq * q_chunk, H, dv)
+    return out[:, :Sq]
+
+
+def _pad_axis(x, size, axis, fill=0):
+    if x.shape[axis] == size:
+        return x
+    shape = list(x.shape)
+    shape[axis] = size - x.shape[axis]
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=axis)
+
+
+def attention_forward(params, x, cfg, positions, *, act_dtype=torch.bfloat16):
+    """Full-sequence causal attention (prefill).
+
+    Returns (out, (k, v)), k and v (B, S, G, hd) for the cache.
+    """
+    if cfg.attn_probs_bf16:
+        raise NotImplementedError("attn_probs_bf16 is not ported (ROADMAP item 16b)")
+    q, k, v = _project_qkv(params, x, cfg, positions, act_dtype)
+    out = _sdpa_chunked(q, k, v, positions, positions, causal=True,
+                        window=cfg.attn_window, q_chunk=cfg.blockwise_q,
+                        kv_chunk=cfg.blockwise_kv)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, -1) @ params["wo"].to(act_dtype)
+    return out, (k, v)
+
+
+def attention_decode(params, x, cfg, positions, k_cache, v_cache, cache_pos, *,
+                     act_dtype=torch.bfloat16):
+    """One-token decode. x: (B,1,D); k/v_cache: (B,W,G,hd) ring buffers.
+
+    ``positions`` (B,) absolute positions; ``cache_pos`` (B,) write slot
+    (== positions for a full cache, positions % window for ring buffers).
+    The new K/V are written into the caches in place, at the dtype the
+    reference's one-hot blend gives (the caches' and the compute dtype's
+    promotion: a float32 model's bf16 cache is promoted first, into new
+    tensors). Returns (out, k_cache, v_cache).
+    """
+    B = x.shape[0]
+    H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(params, x, cfg, positions[:, None], act_dtype)
+
+    dt = torch.promote_types(k_cache.dtype, k.dtype)
+    if k_cache.dtype != dt:
+        k_cache, v_cache = k_cache.to(dt), v_cache.to(dt)
+    W = k_cache.shape[1]
+    # a slot outside [0, W) is written nowhere, as the one-hot blend's all-zero row
+    rows = torch.arange(B, device=x.device)
+    inside = ((cache_pos >= 0) & (cache_pos < W))[:, None, None]
+    at = cache_pos.clamp(0, W - 1)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache[rows, at] = torch.where(inside, new[:, 0].to(dt), cache[rows, at])
+
+    rep = H // G
+    kf = k_cache.float()
+    vf = v_cache.float()
+    slot = torch.arange(W, device=x.device)[None, :]              # (1, W)
+    if cfg.attn_window:
+        written = slot < torch.clamp_max(positions[:, None] + 1, W)
+    else:
+        written = slot <= positions[:, None]
+
+    qg = (q.float() / float(np.sqrt(np.float32(hd))))[:, 0].reshape(B, G, rep, hd)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, kf)
+    s = torch.where(written[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrk,bkgd->bgrd", p, vf).reshape(B, H, hd)
+    out = out.reshape(B, 1, H * hd).to(act_dtype) @ params["wo"].to(act_dtype)
+    return out, k_cache, v_cache

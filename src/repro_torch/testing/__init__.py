@@ -1,5 +1,5 @@
 """Test-support utilities (fault injection; port of the reference
-``testing``)."""
+``testing``; ``lm.StepRecorder`` for the LM server's checks)."""
 
 from .faults import (
     ServerKilled,

@@ -34,6 +34,9 @@ print(all(m in mods for m in (
     "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.path_trace",
     "repro_torch.obs.log", "repro_torch.checkpoint.manager", "repro_torch.testing.faults")))
 print("repro_torch.launch.path_server" in mods)
+print(all(m in mods for m in (
+    "repro_torch.configs", "repro_torch.models.transformer", "repro_torch.launch.serve",
+    "repro_torch.core.paper_reference")))
 """
 
 
@@ -44,10 +47,14 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stdout + out.stderr
     # every submodule was imported, core/rules/dvi.py, core/path_scan.py,
     # the three modules of repro_torch.sparse, core/distributed.py, the
-    # obs, checkpoint and testing packages and the path server among them
-    count, has_scan, has_sparse, has_dist, has_14a, has_server = out.stdout.split()[-6:]
-    assert int(count) >= 33 and has_scan == "True" and has_sparse == "True"
+    # obs, checkpoint and testing packages, the path server, and the LM
+    # scaffold (configs, models, the serving loop) and the paper's closed
+    # forms among them
+    count, has_scan, has_sparse, has_dist, has_14a, has_server, has_lm = \
+        out.stdout.split()[-7:]
+    assert int(count) >= 62 and has_scan == "True" and has_sparse == "True"
     assert has_dist == "True" and has_14a == "True" and has_server == "True"
+    assert has_lm == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):
