@@ -89,16 +89,24 @@ n = 10,000 samples, fp32):
   ``launch/serve.py``), after the kernels' times; its products and
   softmaxes are plain PyTorch, no kernel of this repository, so it adds no
   row to the kernels line: the four dense archs' reduced configs in float32,
-  card against CPU (prefill logits, the bf16 K/V caches, 4 decode steps, a
+  card against CPU (prefill logits, every cache leaf, 4 decode steps, a
   ``BatchedServer``'s greedy tokens) and qwen2.5-3b at full width on 2
-  layers (``lm_card_vs_cpu``); then qwen2.5-3b's full configuration (36
-  layers, bf16 over float32 masters from a seeded generator on the card)
-  serving 8 requests of 64 to 1,024 prompt tokens on 4 slots of 2,048
-  positions, 32 new tokens each (``lm_serve``: every logit finite, two
-  requests' decode steps against teacher-forced prefills and their first
-  decode against the request served alone; prefill and decode-step times
-  beside their bounds, tokens/s, peak memory, the card's busy share over
-  three decode steps).
+  layers (``lm_card_vs_cpu``); the same for the six other families'
+  reduced configs (MLA and MoE, Mamba-2, the RG-LRU hybrid, enc-dec without
+  the server, the VLM with prefix embeddings) and whisper-base whole, 1,500
+  encoder frames (``lm_families_card_vs_cpu``); then four configurations at
+  their published widths, bf16 over float32 masters from a seeded generator
+  on the card, each serving 8 requests on 4 slots, 32 new tokens each
+  (every logit finite, two requests' decode steps against teacher-forced
+  prefills and their first decode against the request served alone;
+  prefill and decode-step times beside their bounds, tokens/s, peak memory,
+  the card's busy share over three decode steps): qwen2.5-3b whole, prompts
+  of 64 to 1,024 tokens on 2,048 positions (``lm_serve``); deepseek-v2-236b
+  on 2 of its 60 layers, its routed experts read and (token, choice) pairs
+  dropped (``lm_serve_moe``); mamba2-130m whole, prompts of 64 to 1,024
+  tokens below its chunk or multiples of it (``lm_serve_ssm``);
+  recurrentgemma-9b on 5 of its 38 layers, one prompt of 2,560 tokens past
+  its 2,048 window, on 4,096 positions (``lm_serve_hybrid``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -128,6 +136,7 @@ there would loosen delta.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -3198,37 +3207,80 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
 # ---------------------------------------------------------------------------
 
 LM_DENSE = ("qwen2.5-3b", "granite-8b", "internlm2-20b", "stablelm-12b")
-LM_ARCH = "qwen2.5-3b"   # the serve launcher's default architecture
+LM_FAMILIES = ("mamba2-130m", "deepseek-v2-236b", "arctic-480b", "internvl2-26b",
+               "whisper-base", "recurrentgemma-9b")
+# lm_families_card_vs_cpu's prompt (20 tokens for the others): 96 crosses
+# chunks, 3 of the SMOKE SSD's 32 (the state carried from chunk to chunk)
+# and 1.5 of the RG-LRU scan's 64 (and recurrentgemma's 16-slot window)
+LM_FAMILY_PROMPT = {"mamba2-130m": 96, "recurrentgemma-9b": 96}
 LM_F32_REL = 1e-5        # card vs CPU, float32 with TF32 off: one model's float32
                          # steps summed in other orders (max |d| / max |ref|)
 # the same, each device decoding from its own prefill's bf16 cache (see
-# phase_lm_card_vs_cpu): 2.1e-5 the largest reading (stablelm-12b), 5x that
+# lm_card_vs_cpu): 2.1e-5 the largest dense reading (stablelm-12b), 5x that
 LM_OWN_CACHE_REL = 1e-4
-LM_CARD_DEPTH = 2        # lm_card_vs_cpu's full-width model: 2 of its 36 layers
+LM_CARD_DEPTH = 2        # lm_card_vs_cpu's full-width qwen2.5-3b: 2 of its 36 layers
 LM_CARD_PROMPT = 32
-LM_SLOTS, LM_MAX_SEQ, LM_REQUESTS, LM_NEW = 4, 2048, 8, 32
-LM_PROMPTS = (64, 1025)  # numpy integers(low, high): prompts of 64 to 1,024 tokens
+LM_WHISPER = dict(B=2, S=64, T=4)  # whisper-base whole, card vs CPU
+LM_SLOTS, LM_REQUESTS, LM_NEW = 4, 8, 32
 LM_PREFILL_LENS = (64, 256, 1024)
-LM_CHECKED = (0, 1)      # requests whose every decode step meets a teacher-forced prefill
+LM_CHECKED = 2           # requests whose every decode step meets a teacher-forced prefill
 LM_ALONE = (0, 4)        # requests served again alone (4 waited for a slot)
+LM_TF_CAPACITY = 8.0     # an MoE's teacher-forced checks: no prefill drops a token
 # bf16 decode against a bf16 teacher-forced prefill of the same tokens: the
 # two run other GEMM shapes (4 rows against the prompt's), so every product
-# may round to the other bf16 neighbour (2**-8) in each of 36 layers; the
-# CPU tests measure 5e-3 to 1.1e-2 across 2 layers against the reference.
+# may round to the other bf16 neighbour (2**-8) in each layer; the CPU tests
+# measure 5e-3 to 1.1e-2 across 2 layers against the reference.
 LM_BF16_REL = 5e-2
+# decode steps whose token a near tie routed to other experts than its
+# teacher-forced prefill did (deepseek-v2-236b: 3 of 62 measured, each
+# within 0.070): at most 3x that many, each within 3x that
+LM_ROUTE_FLIPS_MAX = 9
+LM_FLIP_REL = 0.2
 LM_SEED = 0
+SSM_PROMPTS = (64, 128, 256, 512, 768, 1024)  # lengths below chunk 256 or multiples of it
+
+
+class ServeCell:
+    """One ``phase_lm_serve`` run: an architecture's published widths, its
+    depth (``layers``, 0 for the published one), the server's positions, how
+    each request's prompt length is drawn, ``(rng, i) -> int``."""
+
+    def __init__(self, phase, arch, prompt_len, layers=0, max_seq=2048):
+        self.phase, self.arch, self.prompt_len = phase, arch, prompt_len
+        self.layers, self.max_seq = layers, max_seq
+
+    def config(self, configs):
+        cfg = configs.get_config(self.arch)
+        return cfg.replace(num_layers=self.layers) if self.layers else cfg
+
+
+LM_CELLS = (
+    # qwen2.5-3b at full width and depth: prompts of 64 to 1,024 tokens
+    ServeCell("lm_serve", "qwen2.5-3b", lambda rng, i: rng.integers(64, 1025)),
+    # deepseek-v2-236b's widths (MLA, 160 experts top-6, 2 shared) on 2 of 60 layers
+    ServeCell("lm_serve_moe", "deepseek-v2-236b", lambda rng, i: rng.integers(64, 1025),
+              layers=2),
+    # mamba2-130m whole: each of the six lengths, then 64 and 128 (the SSD takes a
+    # prompt below its chunk or a multiple of it)
+    ServeCell("lm_serve_ssm", "mamba2-130m", lambda rng, i: SSM_PROMPTS[i % len(SSM_PROMPTS)]),
+    # recurrentgemma-9b's widths on 5 of 38 layers, one (rec, rec, attn) unit
+    # and the (rec, rec) remainder; request 1's prompt passes the 2,048 window
+    ServeCell("lm_serve_hybrid", "recurrentgemma-9b",
+              lambda rng, i: 2560 if i == 1 else rng.integers(64, 1025), layers=5,
+              max_seq=4096),
+)
 
 
 def lm_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def lm_bound(flops: float, nbytes: float) -> tuple:
-    """``(bound_ms, bound_by)``: the larger of ``nbytes`` over the HBM rate
-    and ``flops`` over the bf16 tensor-core rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def lm_leaves(tree) -> list:
+    """``(path, tensor)`` of every leaf of a parameter or cache tree, the
+    path the tuple of ``convert.tree_keys``'s key."""
+    from repro_torch.convert import tree_keys
+
+    return [(tuple(key.split("/")), t) for key, t in tree_keys(tree).items()]
 
 
 def rel_err(got, want) -> float:
@@ -3238,13 +3290,26 @@ def rel_err(got, want) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def lm_requests(serve, cfg, n, new, lengths, seed) -> list:
+def lm_requests(serve, cfg, n, new, prompt_len, seed) -> list:
     """The serve launcher's requests: each prompt's length drawn, then its
     tokens, from ``numpy.random.default_rng(seed)``."""
     rng = np.random.default_rng(seed)
     return [serve.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                     rng.integers(*lengths)).astype(np.int32),
+                                                     int(prompt_len(rng, i))).astype(np.int32),
                           max_new=new) for i in range(n)]
+
+
+def lm_extras(cfg, B, seed) -> dict:
+    """A batch's inputs besides its tokens, on the host, as the reference's
+    tests make them: an enc-dec model's frame embeddings, a VLM's prefix
+    embeddings (0.1 x a standard normal)."""
+    rng = np.random.default_rng(seed)
+    shape = {"encdec": ("enc_embeds", cfg.enc_seq),
+             "vlm": ("prefix_embeds", cfg.num_prefix_tokens)}.get(cfg.family)
+    if shape is None:
+        return {}
+    return {shape[0]: torch.from_numpy(
+        (0.1 * rng.standard_normal((B, shape[1], cfg.d_model))).astype(np.float32))}
 
 
 def bf16_flips(got, want) -> tuple:
@@ -3259,63 +3324,82 @@ def bf16_flips(got, want) -> tuple:
     return int((diff > 0).sum()), bool((diff <= ulp + LM_F32_REL * b.abs().max()).all())
 
 
-def phase_lm_card_vs_cpu(configs, tr, serve) -> None:
-    """The four dense archs' SMOKE configs in float32, the same seeded
-    weights on the card and the CPU: prefill logits; the bf16 K/V caches
-    the prefills leave, equal but for values that round to the other bf16
-    neighbour (:func:`bf16_flips`); 4 decode steps from the same
-    cache (the CPU's, copied to the card) and from each device's own; a
-    ``BatchedServer``'s greedy tokens (6 requests on 3 slots). Then
-    qwen2.5-3b at full width, 2 layers: a 32-token prompt's logits.
+def cache_card_vs_cpu(on_card, cpu, where) -> int:
+    """Two caches leaf by leaf, each leaf in one dtype on both devices: a
+    bf16 leaf equal but for values rounded to the other neighbour
+    (:func:`bf16_flips`), a float32 leaf (the ssm and rec states, a float32
+    model's promoted K/V) within ``LM_F32_REL``. Returns the bf16 flips."""
+    want = dict(lm_leaves(cpu))
+    flips = 0
+    for path, t in lm_leaves(on_card):
+        require(t.dtype == want[path].dtype, f"{where}: cache leaf {path} {t.dtype}")
+        if t.dtype == torch.bfloat16:
+            n, ok = bf16_flips(t, want[path])
+            require(ok, f"{where}: cache leaf {path} off by more than a bf16 rounding "
+                        "of float32 values within LM_F32_REL")
+            flips += n
+        else:
+            err = rel_err(t, want[path])
+            require(err <= LM_F32_REL, f"{where}: cache leaf {path} card vs CPU rel {err}")
+    return flips
 
-    One K/V value rounded to the other bf16 neighbour moves a float32
-    model's decode logits by ~1e-5 of their scale (the decode reads the
-    bf16 cache, the prefill its float32 K/V); so the decode is held to
-    ``LM_F32_REL`` from the same cache, and from each device's own cache to
-    ``LM_OWN_CACHE_REL``."""
-    t0 = time.perf_counter()
-    report = {}
-    B, S, T = 2, 20, 4
-    for i, arch in enumerate(LM_DENSE):
-        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
-        cpu = tr.init_params(cfg, torch.Generator().manual_seed(10 + i), "cpu")
-        on_card = tr._map(lambda t: t.cuda(), cpu)
-        toks = torch.from_numpy(np.random.default_rng(10 + i).integers(
-            0, cfg.vocab_size, (B, S + T)))
-        (lc, cache_c), (lg, cache_g) = [
-            tr.prefill(p, cfg, {"tokens": toks[:, :S].to(d)}, max_seq=S + T + 4)
-            for p, d in ((cpu, "cpu"), (on_card, "cuda"))]
-        errs = {"prefill": rel_err(lg, lc), "decode_same_cache": [], "decode_own_cache": []}
-        flips, one_ulp = 0, True
-        for seg_g, seg_c in zip(cache_g["segments"], cache_c["segments"]):
-            for slot, leaves in seg_g.items():
-                for name, t in leaves.items():
-                    n, ok = bf16_flips(t, seg_c[slot][name])
-                    flips, one_ulp = flips + n, one_ulp and ok
-        require(one_ulp, f"lm {arch}: a prefill cache value off by more than a bf16 "
-                         "rounding of float32 values within LM_F32_REL")
-        caches = {"decode_same_cache": tr._map(lambda t: t.cuda(), cache_c),
-                  "decode_own_cache": cache_g}
-        for t in range(T):
-            tok, pos = toks[:, S + t:S + t + 1], torch.full((B,), S + t)
-            lc, cache_c = tr.decode_step(cpu, cfg, tok, pos, cache_c)
-            for label, cache in caches.items():
-                lg, caches[label] = tr.decode_step(on_card, cfg, tok.cuda(), pos.cuda(), cache)
-                errs[label].append(rel_err(lg, lc))
-        require(max(errs["prefill"], *errs["decode_same_cache"]) <= LM_F32_REL,
-                f"lm {arch}: card vs CPU {errs}")
-        require(max(errs["decode_own_cache"]) <= LM_OWN_CACHE_REL,
-                f"lm {arch}: card vs CPU from their own caches {errs}")
+
+def lm_card_vs_cpu(tr, serve, cfg, cpu, seed, B, S, T, serve_check=True) -> dict:
+    """One float32 model, the same weights on the card and the CPU: the
+    prefill logits (within ``LM_F32_REL``) and every cache leaf it leaves
+    (:func:`cache_card_vs_cpu`); T decode steps, each on the card from the
+    CPU's cache of that step (logits within ``LM_F32_REL``, the caches after
+    the last step leaf by leaf) and along each device's own caches (within
+    ``LM_OWN_CACHE_REL``: one K/V value rounded to the other bf16 neighbour
+    in the prefill moves a float32 model's logits by ~1e-5 of their scale);
+    then a ``BatchedServer``'s greedy tokens (6 requests on 3 slots)."""
+    on_card = tr._map(lambda t: t.cuda(), cpu)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                                 (B, S + T)))
+    extras = lm_extras(cfg, B, seed)
+    (lc, cache_c), (lg, own) = [
+        tr.prefill(p, cfg, {"tokens": toks[:, :S].to(d),
+                            **{k: v.to(d) for k, v in extras.items()}}, max_seq=S + T + 4)
+        for p, d in ((cpu, "cpu"), (on_card, "cuda"))]
+    errs = {"prefill": rel_err(lg, lc), "decode_same_cache": [], "decode_own_cache": []}
+    flips = cache_card_vs_cpu(own, cache_c, f"lm {cfg.name} prefill")
+    for t in range(T):
+        tok, pos = toks[:, S + t:S + t + 1], torch.full((B,), S + t)
+        same = tr._map(lambda x: x.cuda(), cache_c)   # decode writes its cache in place
+        lc, cache_c = tr.decode_step(cpu, cfg, tok, pos, cache_c)
+        lg, same = tr.decode_step(on_card, cfg, tok.cuda(), pos.cuda(), same)
+        errs["decode_same_cache"].append(rel_err(lg, lc))
+        lg, own = tr.decode_step(on_card, cfg, tok.cuda(), pos.cuda(), own)
+        errs["decode_own_cache"].append(rel_err(lg, lc))
+    decode_flips = cache_card_vs_cpu(same, cache_c, f"lm {cfg.name} decode")
+    require(max(errs["prefill"], *errs["decode_same_cache"]) <= LM_F32_REL,
+            f"lm {cfg.name}: card vs CPU {errs}")
+    require(max(errs["decode_own_cache"]) <= LM_OWN_CACHE_REL,
+            f"lm {cfg.name}: card vs CPU from their own caches {errs}")
+    report = {**errs, "prefill_cache_bf16_flips": flips,
+              "decode_cache_bf16_flips": decode_flips}
+    if serve_check:
         tokens = []
         for p, d in ((cpu, "cpu"), (on_card, "cuda")):
-            reqs = lm_requests(serve, cfg, 6, 8, (4, 24), seed=10 + i)
+            reqs = lm_requests(serve, cfg, 6, 8, lambda rng, i: rng.integers(4, 24), seed)
             serve.BatchedServer(cfg, p, batch_slots=3, max_seq=128, device=d).serve(
                 reqs, log=_quiet)
             tokens.append([r.out for r in reqs])
-        require(tokens[0] == tokens[1], f"lm {arch}: the card's greedy tokens differ")
-        report[arch] = {**errs, "prefill_cache_bf16_flips": flips,
-                        "served_tokens_equal": True}
-    cfg = configs.get_config(LM_ARCH).replace(num_layers=LM_CARD_DEPTH, dtype="float32")
+        require(tokens[0] == tokens[1], f"lm {cfg.name}: the card's greedy tokens differ")
+        report["served_tokens_equal"] = True
+    return report
+
+
+def phase_lm_card_vs_cpu(configs, tr, serve) -> None:
+    """The four dense archs' SMOKE configs in float32 (:func:`lm_card_vs_cpu`),
+    then qwen2.5-3b at full width on 2 layers: a 32-token prompt's logits."""
+    t0 = time.perf_counter()
+    report = {}
+    for i, arch in enumerate(LM_DENSE):
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        cpu = tr.init_params(cfg, torch.Generator().manual_seed(10 + i), "cpu")
+        report[arch] = lm_card_vs_cpu(tr, serve, cfg, cpu, 10 + i, B=2, S=20, T=4)
+    cfg = configs.get_config("qwen2.5-3b").replace(num_layers=LM_CARD_DEPTH, dtype="float32")
     on_card = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(20), "cuda")
     cpu = tr._map(lambda t: t.cpu(), on_card)
     toks = torch.from_numpy(np.random.default_rng(20).integers(
@@ -3325,7 +3409,7 @@ def phase_lm_card_vs_cpu(configs, tr, serve) -> None:
     err = rel_err(lg, lc)
     require(bool(torch.isfinite(lg).all()) and err <= LM_F32_REL,
             f"lm full width: card vs CPU rel {err}")
-    report["full_width"] = {"arch": LM_ARCH, "layers": LM_CARD_DEPTH, "d_model": cfg.d_model,
+    report["full_width"] = {"arch": cfg.name, "layers": LM_CARD_DEPTH, "d_model": cfg.d_model,
                             "vocab": cfg.padded_vocab, "prompt": LM_CARD_PROMPT,
                             "param_bytes": lm_bytes(on_card), "prefill_rel": err}
     del on_card, cpu
@@ -3335,22 +3419,195 @@ def phase_lm_card_vs_cpu(configs, tr, serve) -> None:
           "seconds": time.perf_counter() - t0})
 
 
-def phase_lm_serve(configs, tr, serve) -> dict:
-    """qwen2.5-3b's CONFIG at full width and depth, bf16 compute over
-    float32 masters drawn from a seeded generator on the card:
-    ``BatchedServer(batch_slots=4, max_seq=2048)`` serves 8 requests of
-    64 to 1,024 prompt tokens, 32 new tokens each. Checks: every logit
-    finite; each decode step of two requests against a teacher-forced
-    prefill of the prompt plus the tokens generated so far, and two
-    requests' first decode against the same request served alone (within
-    ``LM_BF16_REL``). Times the prefill at 64, 256 and 1,024 tokens and the
-    decode step at B = 4 (CUDA events over back-to-back calls: the host's
-    work and launches are in the wall, as the card waits on them) beside
-    their bounds, the whole serve's tokens/s, and profiles three decode
-    steps (the card's busy share)."""
-    from repro_torch.testing.lm import StepRecorder
+def phase_lm_families_card_vs_cpu(configs, tr, serve) -> None:
+    """The six other families' SMOKE configs in float32 as the dense ones
+    (:func:`lm_card_vs_cpu`; the SSM and the hybrid on prompts that cross
+    their scans' chunks, :data:`LM_FAMILY_PROMPT`; enc-dec with its frame embeddings and without
+    the server, which refuses it; the VLM with prefix embeddings), then
+    whisper-base whole (6 + 6 layers, d_model 512, 1,500 encoder frames) in
+    float32: B = 2, a 64-token prompt, 4 decode steps, card vs CPU."""
+    t0 = time.perf_counter()
+    report = {}
+    for i, arch in enumerate(LM_FAMILIES):
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        cpu = tr.init_params(cfg, torch.Generator().manual_seed(30 + i), "cpu")
+        S = LM_FAMILY_PROMPT.get(arch, 20)
+        report[arch] = {"prompt": S, **lm_card_vs_cpu(tr, serve, cfg, cpu, 30 + i, B=2, S=S, T=4,
+                                                      serve_check=cfg.family != "encdec")}
+    cfg = configs.get_config("whisper-base").replace(dtype="float32")
+    on_card = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(40), "cuda")
+    cpu = tr._map(lambda t: t.cpu(), on_card)
+    t1 = time.perf_counter()
+    report["whisper_full"] = {
+        "layers": cfg.num_layers, "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+        "enc_seq": cfg.enc_seq, "vocab": cfg.padded_vocab, **LM_WHISPER,
+        **lm_card_vs_cpu(tr, serve, cfg, cpu, 40, **LM_WHISPER, serve_check=False),
+        "param_bytes": lm_bytes(on_card), "seconds": time.perf_counter() - t1}
+    del on_card, cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_families_card_vs_cpu", "tolerance_rel": LM_F32_REL,
+          "tolerance_own_cache_rel": LM_OWN_CACHE_REL, **report,
+          "seconds": time.perf_counter() - t0})
 
-    cfg = configs.get_config(LM_ARCH)
+
+def lm_work(cfg, weights, cache) -> dict:
+    """What a serving copy of the weights and its cache cost, for the bounds:
+
+    * ``dense_bytes``: every weight but the embedding table (a row a token)
+      and the routed experts, the head included (the table itself when
+      tied); ``expert_bytes``: one routed expert of one layer;
+    * ``params_token``: the entries of the products one token applies (the
+      layers' products, k routed experts a layer), ``head``: the head's;
+    * ``pos_bytes``: one slot's position of the K/V or latent leaves, all
+      layers; ``state_bytes``: one slot's conv tails and ssm/rec states;
+    * ``pair_prefill``, ``pair_decode``: float32 operations of one (query,
+      key) pair over every attention layer (the port's scores and PV are
+      float32; MLA's absorbed decode scores against the latent);
+      ``ssd_layers`` and ``ssd`` (heads, head dim, state) for the SSD's
+      float32 contractions.
+    """
+    from repro_torch.models.transformer import PRODUCT_LEAVES
+
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    head = weights["head"] if "head" in weights else weights["embed"]["tok"]
+    dense_bytes = head.numel() * head.element_size()
+    params_token = expert_bytes = expert_params = 0
+    for path, t in lm_leaves(weights):
+        if path[0] in ("embed", "head"):
+            continue
+        if len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wi", "wg", "wo"):
+            n_experts = t.shape[0] * t.shape[1]              # units x E
+            expert_bytes += t.numel() * t.element_size() // n_experts
+            expert_params += t.numel()
+            continue
+        dense_bytes += t.numel() * t.element_size()
+        if path[-1] in PRODUCT_LEAVES:
+            params_token += t.numel()
+    if E:
+        params_token += expert_params * k // E
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    L, R = cfg.mla_kv_lora, cfg.mla_rope_dim
+    kinds = []  # each layer's kind, from the cache's slots
+    for seg in cache["segments"]:
+        for slot in seg.values():
+            kind = ("attn" if "k" in slot else "mla" if "c" in slot
+                    else "ssm" if "state" in slot else "rec")
+            kinds += [kind] * next(iter(slot.values())).shape[0]
+    pair_prefill = kinds.count("attn") * 4 * H * hd + kinds.count("mla") * 2 * H * (2 * hd + R)
+    pair_decode = kinds.count("attn") * 4 * H * hd + kinds.count("mla") * 2 * H * (2 * L + R)
+    pos_bytes = sum(t[:, 0, 0].numel() * t.element_size() for path, t in lm_leaves(cache)
+                    if path[-1] in ("k", "v", "c", "r"))
+    state_bytes = sum(t[:, 0].numel() * t.element_size() for path, t in lm_leaves(cache)
+                      if path[-1] in ("conv", "state", "h"))
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh, P, N = d_in // cfg.ssm_head_dim if cfg.ssm_state else 0, cfg.ssm_head_dim, cfg.ssm_state
+    return {"dense_bytes": dense_bytes, "expert_bytes": expert_bytes,
+            "params_token": params_token, "head": head.numel(),
+            "row_bytes": cfg.d_model * weights["embed"]["tok"].element_size(),
+            "pos_bytes": pos_bytes, "state_bytes": state_bytes,
+            "pair_prefill": pair_prefill, "pair_decode": pair_decode,
+            "ssd_layers": kinds.count("ssm"), "ssd": (nh, P, N)}
+
+
+def lm_bound(bf16_flops: float, f32_flops: float, nbytes: float) -> tuple:
+    """``(bound_ms, bound_by)``: the larger of ``nbytes`` over the HBM rate
+    and the operations, the products' at the bf16 tensor-core rate plus the
+    float32 contractions' (attention scores and PV, the SSD; TF32 is off)
+    at the float32 rate. Elementwise work is not counted."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (bf16_flops / BF16_FLOPS + f32_flops / FP32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def lm_step_bound(cfg, w, live, experts) -> tuple:
+    """The decode step's bound at B = len(live) slots reading ``live``
+    positions each, ``experts`` routed experts read over its MoE layers."""
+    B = len(live)
+    nbytes = (w["dense_bytes"] + experts * w["expert_bytes"] + B * w["row_bytes"]
+              + w["pos_bytes"] * (sum(live) + B) + 2 * B * w["state_bytes"])
+    nh, P, N = w["ssd"]
+    f32 = w["pair_decode"] * sum(live) + B * w["ssd_layers"] * 4 * nh * P * N
+    return lm_bound(2 * B * (w["params_token"] + w["head"]), f32, nbytes)
+
+
+def lm_prefill_bound(cfg, w, n, written, experts) -> tuple:
+    """A prefill of n tokens at batch 1: ``written`` positions of the cache
+    (the window's or ``max_seq``'s), ``experts`` routed experts read."""
+    W = cfg.attn_window or n
+    pairs = sum(min(t + 1, W) for t in range(n))
+    nh, P, N = w["ssd"]
+    Q = min(cfg.ssm_chunk, n)
+    f32 = w["pair_prefill"] * pairs + n * w["ssd_layers"] * (2 * Q * (N + nh * P) + 4 * nh * P * N)
+    nbytes = (w["dense_bytes"] + experts * w["expert_bytes"] + n * w["row_bytes"]
+              + written * w["pos_bytes"] + w["state_bytes"])
+    return lm_bound(2 * n * w["params_token"] + 2 * w["head"], f32, nbytes)
+
+
+def route_flip(dec_calls, tf_calls, slot):
+    """The MoE layers where a decode step's token (``slot`` of each decode
+    call) and its teacher-forced prefill's last token route to other
+    experts, or None if there is none: for each such layer, and each expert
+    the decode took alone, the ones the prefill took instead, with both
+    runs' router logits and probabilities. The router product rounds to
+    bf16 (2**-9 of a logit, the two runs' GEMMs summing in other orders),
+    so a swap is a near tie when each run's winner leads by at most 2**-7
+    of the larger logit; in every such layer each decode-only expert must
+    have such a partner (``near_tie``)."""
+    layers = []
+    for layer, (dc, pc) in enumerate(zip(dec_calls, tf_calls)):
+        a, b = set(dc["top_i"][slot, 0].tolist()), set(pc["top_i"][-1, -1].tolist())
+        if a == b:
+            continue
+        ld, lp = dc["logits"][slot, 0], pc["logits"][-1, -1]
+        pd, pp = torch.softmax(ld, -1), torch.softmax(lp, -1)
+        swaps, tie = [], True
+        for x in sorted(a - b):
+            pairs = []
+            for y in sorted(b - a):
+                margin = 2.0 ** -7 * float(torch.stack([ld[x], ld[y], lp[x], lp[y]]).abs().max())
+                pairs.append({"decode_expert": x, "prefill_expert": y,
+                              "decode_logits": [float(ld[x]), float(ld[y])],
+                              "prefill_logits": [float(lp[x]), float(lp[y])],
+                              "decode_probs": [float(pd[x]), float(pd[y])],
+                              "prefill_probs": [float(pp[x]), float(pp[y])],
+                              "near_tie": float(ld[x] - ld[y]) <= margin
+                              and float(lp[y] - lp[x]) <= margin})
+            tie = tie and any(q["near_tie"] for q in pairs)
+            swaps += pairs
+        layers.append({"layer": layer, "swaps": swaps, "near_tie": tie})
+    if not layers:
+        return None
+    return {"layers": layers, "near_tie": all(x["near_tie"] for x in layers)}
+
+
+def tf_lengths_ok(cfg, req) -> bool:
+    """Every teacher-forced prefill of ``req`` (its prompt plus 1 to 31
+    tokens) runs: an SSD takes a length below its chunk or a multiple of it."""
+    if cfg.family != "ssm":
+        return True
+    return all(n < cfg.ssm_chunk or n % cfg.ssm_chunk == 0
+               for n in range(len(req.prompt) + 1, len(req.prompt) + LM_NEW))
+
+
+def phase_lm_serve(configs, tr, serve, cell) -> dict:
+    """``cell``'s configuration at its published widths (and depth, or the
+    cut one), bf16 compute over float32 masters drawn from a seeded
+    generator on the card: ``BatchedServer(batch_slots=4)`` serves 8
+    requests, 32 new tokens each. Checks: every logit finite; each decode
+    step of two requests against a teacher-forced prefill of the prompt plus
+    the tokens generated so far (an MoE at capacity factor 8.0, in a second
+    serve of those two requests on the same weights, so that no prefill
+    drops a token), and two requests' first decode against the same request
+    served alone (within ``LM_BF16_REL``). Times the prefill at 64, 256 and
+    1,024 tokens and the decode step at B = 4 (CUDA events over back-to-back
+    calls: the host's work and launches are in the wall, as the card waits
+    on them) beside their bounds, the whole serve's tokens/s, an MoE's
+    routed experts read and (token, choice) pairs dropped, and profiles
+    three decode steps (the card's busy share)."""
+    from repro_torch.testing.lm import RouteRecorder, StepRecorder
+
+    cfg = cell.config(configs)
+    gc.collect()  # a StepRecorder and its server refer to each other: collect the last phase's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3358,63 +3615,103 @@ def phase_lm_serve(configs, tr, serve) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     param_bytes = lm_bytes(masters)
-    server = serve.BatchedServer(cfg, masters, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+    server = serve.BatchedServer(cfg, masters, batch_slots=LM_SLOTS, max_seq=cell.max_seq,
                                  device="cuda")
     del masters  # the server holds its compute-dtype copy
     weights = server.params
 
-    reqs = lm_requests(serve, cfg, LM_REQUESTS, LM_NEW, LM_PROMPTS, seed=0)
+    reqs = lm_requests(serve, cfg, LM_REQUESTS, LM_NEW, cell.prompt_len, seed=0)
     server.serve([serve.Request(rid=-1, prompt=reqs[0].prompt[:64], max_new=2)],
                  log=_quiet)  # warm-up: the libraries' handles and workspaces
     rec = StepRecorder(server)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    server.serve(reqs, log=_quiet)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t1
+    with RouteRecorder() as routes:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        server.serve(reqs, log=_quiet)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t1
     n_steps = len(rec.steps)
     n_tokens = sum(len(r.out) for r in reqs)
-    require(all(len(r.out) == LM_NEW for r in reqs), "lm_serve: a request stopped early")
+    require(all(len(r.out) == LM_NEW for r in reqs), f"{cell.phase}: a request stopped early")
     finite = all(bool(torch.isfinite(lg).all()) for lg, _ in rec.steps) and \
         all(bool(torch.isfinite(lg).all()) for lg in rec.prefills)
-    require(finite, "lm_serve: a non-finite logit")
+    require(finite, f"{cell.phase}: a non-finite logit")
 
-    worst, agree, n_checked = 0.0, 0, 0
-    for rid in LM_CHECKED:
-        req = reqs[rid]
-        for k, logits in rec.decodes(rid):
-            toks = np.concatenate([req.prompt, np.asarray(req.out[:k], np.int32)])
-            tf, _ = tr.prefill(weights, cfg, {"tokens": torch.from_numpy(toks[None]).cuda()},
-                               max_seq=LM_MAX_SEQ)
-            worst = max(worst, rel_err(logits, tf[0]))
-            agree += int(torch.argmax(logits) == torch.argmax(tf[0]))
+    checked = [r.rid for r in reqs if tf_lengths_ok(cfg, r)][:LM_CHECKED]
+    require(len(checked) == LM_CHECKED, f"{cell.phase}: checked requests {checked}")
+    tf_cfg = cfg.replace(moe_capacity_factor=LM_TF_CAPACITY) if cfg.moe_num_experts else cfg
+    tf_rec, tf_reqs, dec_calls = rec, {rid: reqs[rid] for rid in checked}, []
+    if tf_cfg is not cfg:
+        tf_server = serve.BatchedServer(tf_cfg, weights, batch_slots=LM_SLOTS,
+                                        max_seq=cell.max_seq, device="cuda")
+        tf_rec = StepRecorder(tf_server)
+        tf_reqs = {rid: serve.Request(rid=rid, prompt=reqs[rid].prompt, max_new=LM_NEW)
+                   for rid in checked}
+        with RouteRecorder(keep=True) as tf_routes:
+            tf_server.serve(list(tf_reqs.values()), log=_quiet)
+        dec_calls = [c for c in tf_routes.calls if c["group"] == 1]
+        del tf_server
+    n_moe = len(dec_calls) // len(tf_rec.steps)   # MoE calls a decode step
+    worst, agree, n_checked, flips = 0.0, 0, 0, []
+    for si, (logits, live) in enumerate(tf_rec.steps):
+        for s, entry in enumerate(live):
+            if entry is None or entry[0] not in tf_reqs:
+                continue
+            rid, k = entry
+            toks = np.concatenate([tf_reqs[rid].prompt, np.asarray(tf_reqs[rid].out[:k],
+                                                                  np.int32)])
+            with RouteRecorder(keep=True) as tf_routes:
+                tf, _ = tr.prefill(weights, tf_cfg,
+                                   {"tokens": torch.from_numpy(toks[None]).cuda()},
+                                   max_seq=cell.max_seq)
+            err = rel_err(logits[s], tf[0])
+            flip = route_flip(dec_calls[si * n_moe:(si + 1) * n_moe], tf_routes.calls, s)
+            if flip is None:
+                worst = max(worst, err)
+            else:  # the token's route moved on a near tie: named, held to LM_FLIP_REL
+                flips.append({"rid": rid, "position": len(toks) - 1, "rel": err, **flip})
+            agree += int(torch.argmax(logits[s]) == torch.argmax(tf[0]))
             n_checked += 1
-    require(n_checked == len(LM_CHECKED) * (LM_NEW - 1),
-            f"lm_serve: {n_checked} decode steps checked")
-    require(worst <= LM_BF16_REL, f"lm_serve: decode vs teacher-forced prefill rel {worst}")
+    require(n_checked == LM_CHECKED * (LM_NEW - 1),
+            f"{cell.phase}: {n_checked} decode steps checked")
+    require(worst <= LM_BF16_REL,
+            f"{cell.phase}: decode vs teacher-forced prefill rel {worst}")
+    require(all(f["near_tie"] and f["rel"] <= LM_FLIP_REL for f in flips)
+            and len(flips) <= LM_ROUTE_FLIPS_MAX,
+            f"{cell.phase}: route flips that are not near ties, too far or too many: {flips}")
 
     alone = {}
     for rid in LM_ALONE:
-        single = serve.BatchedServer(cfg, weights, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+        single = serve.BatchedServer(cfg, weights, batch_slots=LM_SLOTS, max_seq=cell.max_seq,
                                      device="cuda")
         rec1 = StepRecorder(single)
         single.serve([serve.Request(rid=rid, prompt=reqs[rid].prompt, max_new=2)], log=_quiet)
         a, b = dict(rec.decodes(rid))[1], dict(rec1.decodes(rid))[1]
         alone[rid] = {"rel": rel_err(a, b), "bitwise": bool(torch.equal(a, b))}
-        require(alone[rid]["rel"] <= LM_BF16_REL, f"lm_serve: request {rid} alone {alone[rid]}")
+        require(alone[rid]["rel"] <= LM_BF16_REL,
+                f"{cell.phase}: request {rid} alone {alone[rid]}")
         del single
 
+    w = lm_work(cfg, weights, server.cache)
     rng = np.random.default_rng(1)
-    prefill_ms = {}
+    prefill_ms, prefill_bound, prefill_experts = {}, {}, {}
     for n in LM_PREFILL_LENS:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).cuda()
+        with RouteRecorder() as r_pre:
+            tr.prefill(weights, cfg, {"tokens": toks}, max_seq=cell.max_seq)
+        prefill_experts[n] = sum(c["experts"] for c in r_pre.calls)
         prefill_ms[n] = timed_ms(lambda: tr.prefill(weights, cfg, {"tokens": toks},
-                                                    max_seq=LM_MAX_SEQ), 5)
+                                                    max_seq=cell.max_seq), 5)
+        written = min(n, cfg.attn_window or cell.max_seq)
+        prefill_bound[n] = lm_prefill_bound(cfg, w, n, written, prefill_experts[n])
     toks = torch.from_numpy(server.last_tok[:, None].astype(np.int64)).cuda()
     pos = torch.from_numpy(server.positions.astype(np.int64)).cuda()
 
     def decode():  # the server's step, without the recorder's copies
         rec.step_fn(server.params, server.cache, toks, pos)
+    with RouteRecorder() as r_step:
+        decode()
+    step_experts = sum(c["experts"] for c in r_step.calls)
     step_ms = timed_ms(decode, 20)
     with tempfile.TemporaryDirectory() as tmp:
         trace = f"{tmp}/decode.json"
@@ -3429,53 +3726,57 @@ def phase_lm_serve(configs, tr, serve) -> dict:
         n_kernels = sum(1 for e in json.loads(Path(trace).read_text())["traceEvents"]
                         if e.get("cat") == "kernel")
 
-    # The least work of a prefill of n tokens and of the decode step: every
-    # weight read once but the embedding table (n or B rows of it), the K/V
-    # of the positions each one reads or writes (the decode step reads each
-    # slot's written positions, slot <= position, and writes one), the
-    # products of every layer, causal attention's scores and PV, one token's
-    # head a row.
-    ring_bytes = lm_bytes(server.cache)
-    kv_pos_bytes = ring_bytes // (LM_SLOTS * LM_MAX_SEQ)  # one slot's position, all layers
-    row_bytes = cfg.d_model * weights["embed"]["tok"].element_size()
-    weight_bytes = lm_bytes(weights) - lm_bytes(weights["embed"])
-    layer_params = cfg.param_count() - 2 * cfg.padded_vocab * cfg.d_model
-    attn_flops = 4 * cfg.num_heads * cfg.resolved_head_dim * cfg.num_layers
-    live = [min(int(p) + 1, LM_MAX_SEQ) for p in server.positions]
-    step_kv_bytes = kv_pos_bytes * sum(live)
-    step_bytes = weight_bytes + LM_SLOTS * row_bytes + step_kv_bytes
-    step_flops = (LM_SLOTS * (2 * layer_params + 2 * cfg.d_model * cfg.padded_vocab)
-                  + attn_flops * sum(live))
-    step_bound_ms, step_bound_by = lm_bound(step_flops, step_bytes)
-    prefill_bound = {n: lm_bound(2 * n * layer_params + 2 * cfg.d_model * cfg.padded_vocab
-                                 + attn_flops * (n * (n + 1) // 2),
-                                 weight_bytes + n * (row_bytes + kv_pos_bytes))
-                     for n in LM_PREFILL_LENS}
+    ring = max((t.shape[2] for p, t in lm_leaves(server.cache) if p[-1] in ("k", "c")),
+               default=0)
+    live = [min(int(p) + 1, ring) for p in server.positions]
+    step_bound_ms, step_bound_by = lm_step_bound(cfg, w, live, step_experts)
+    decode_calls = [c for c in routes.calls if c["group"] == 1]
     out = {
-        "phase": "lm_serve", "arch": cfg.name, "layers": cfg.num_layers,
+        "phase": cell.phase, "arch": cfg.name, "family": cfg.family,
+        "layers": cfg.num_layers, "reduced": (
+            {"num_layers": [configs.get_config(cell.arch).num_layers, cfg.num_layers]}
+            if cell.layers else {}),
         "d_model": cfg.d_model, "vocab": cfg.padded_vocab, "dtype": cfg.dtype,
         "param_dtype": cfg.param_dtype, "param_bytes": param_bytes,
-        "serving_weight_bytes": lm_bytes(weights), "init_s": init_s,
-        "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ, "requests": LM_REQUESTS,
-        "new_tokens": LM_NEW, "prompt_lens": [len(r.prompt) for r in reqs],
+        "param_count": param_bytes // 4, "serving_weight_bytes": lm_bytes(weights),
+        "init_s": init_s, "slots": LM_SLOTS, "max_seq": cell.max_seq,
+        "requests": LM_REQUESTS, "new_tokens": LM_NEW,
+        "prompt_lens": [len(r.prompt) for r in reqs],
         "serve_s": serve_s, "tokens": n_tokens, "tokens_per_s": n_tokens / serve_s,
         "decode_steps": n_steps,
         "decode_step_ms_b4": step_ms, "decode_step_bound_ms": step_bound_ms,
-        "decode_step_bound_by": step_bound_by, "decode_step_bytes": step_bytes,
-        "decode_step_kv_bytes": step_kv_bytes, "decode_step_live_positions": live,
-        "kv_ring_bytes": ring_bytes,
+        "decode_step_bound_by": step_bound_by, "decode_step_live_positions": live,
+        "cache_bytes": lm_bytes(server.cache),
         "prefill_ms": {str(n): v for n, v in prefill_ms.items()},
         "prefill_bound_ms": {str(n): b[0] for n, b in prefill_bound.items()},
         "prefill_bound_by": {str(n): b[1] for n, b in prefill_bound.items()},
-        "teacher_forced_rel_max": worst, "teacher_forced_steps": n_checked,
-        "teacher_forced_argmax_equal": agree, "tolerance_rel": LM_BF16_REL,
+        "teacher_forced_requests": checked, "teacher_forced_rel_max": worst,
+        "teacher_forced_steps": n_checked, "teacher_forced_argmax_equal": agree,
+        "teacher_forced_route_flips": flips, "route_flips_max": LM_ROUTE_FLIPS_MAX,
+        "tolerance_route_flip_rel": LM_FLIP_REL,
+        "teacher_forced_capacity_factor": tf_cfg.moe_capacity_factor if cfg.moe_num_experts
+        else None, "tolerance_rel": LM_BF16_REL,
         "alone_first_decode": {str(k): v for k, v in alone.items()},
         "decode_profile": {"busy_share": share, "kernels_a_step": n_kernels / 3,
                            "kernel_names": len(names)},
         "peak_gbytes": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if cfg.moe_num_experts:
+        prefill_calls = [c for c in routes.calls if c["group"] > 1]
+        out["moe"] = {
+            "experts": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
+            "capacity_factor": cfg.moe_capacity_factor,
+            "expert_bytes": w["expert_bytes"],
+            "decode_experts_read_a_step": sum(c["experts"] for c in decode_calls) / n_steps,
+            "decode_experts_read_max_layer": max(c["experts"] for c in decode_calls),
+            "timed_step_experts_read": step_experts,
+            "prefill_experts_read": {str(n): v for n, v in prefill_experts.items()},
+            "serve_prefill_pairs": sum(c["kept"] + c["dropped"] for c in prefill_calls),
+            "serve_prefill_pairs_dropped": sum(c["dropped"] for c in prefill_calls),
+            "serve_decode_pairs_dropped": sum(c["dropped"] for c in decode_calls)}
     emit(out)
-    del server, weights, rec
+    del server, weights, rec, rec1, tf_rec
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -3641,9 +3942,12 @@ def main() -> int:
     # the LM scaffold's serving path, after the kernels' times: no kernel of
     # this repository on it, so it adds no row to the kernels line
     clear_engine_cache()
+    gc.collect()
     torch.cuda.empty_cache()
     phase_lm_card_vs_cpu(configs, tr, lm_serve)
-    phase_lm_serve(configs, tr, lm_serve)
+    phase_lm_families_card_vs_cpu(configs, tr, lm_serve)
+    for cell in LM_CELLS:
+        phase_lm_serve(configs, tr, lm_serve, cell)
 
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)

@@ -2,8 +2,7 @@
 
 Each module defines ``CONFIG`` (the exact public configuration) and ``SMOKE``
 (a reduced same-family variant for CPU tests), field for field the
-reference's (``repro.configs``). The port runs the ``dense`` family; the
-others are data until their blocks are ported.
+reference's (``repro.configs``).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ one anchor and one Lipschitz bound. :func:`path_arrays` is the numpy view
 of a :class:`~repro_torch.core.path.PathResult` (or of the reference's,
 which has the same per-step fields). :func:`lm_params_from_jax` carries the
 LM scaffold's parameter tree across, :func:`cache_arrays` is the numpy view
-of the port's K/V cache.
+of the port's decode cache, :func:`tree_keys` flattens a tree by its paths.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from .device import resolve_device
 
 __all__ = ["STATE_NDIM", "state_from_numpy", "path_arrays", "PATH_FIELDS",
-           "lm_params_from_jax", "cache_arrays"]
+           "lm_params_from_jax", "cache_arrays", "tree_keys"]
 
 #: the state the port takes from the reference, by name: its rank
 STATE_NDIM = {"X": 2, "y": 1, "w": 1, "b": 0, "theta": 1, "delta": 0, "L": 0,
@@ -73,9 +73,11 @@ def lm_params_from_jax(tree, cfg, device="cuda"):
     parameter tree on ``device``. Keys, list lengths, shapes and dtypes must
     be those of the port's own tree for ``cfg``
     (``models.transformer.param_shapes``; each segment's slots stacked on
-    their leading ``n_units`` axis in both packages), every leaf in
-    ``cfg.param_dtype``; raises ``ValueError``/``TypeError`` otherwise, and
-    ``NotImplementedError`` for a family the port does not run.
+    their leading ``n_units`` axis in both packages, the enc-dec encoder's
+    layers on ``enc_layers``), every leaf float32: ``cfg.param_dtype``
+    float32, and the reference's ssm and rec leaves ``A_log``, ``D``,
+    ``dt_bias`` and ``lam`` are float32 whatever the param dtype. Raises
+    ``ValueError``/``TypeError`` otherwise.
     """
     from .models.transformer import param_shapes  # lazy: the SVM side needs no LM
 
@@ -104,10 +106,23 @@ def lm_params_from_jax(tree, cfg, device="cuda"):
     return conv(tree, param_shapes(cfg), "")
 
 
+def tree_keys(tree, path: str = "") -> dict:
+    """A tree's leaves (nested dicts and lists) keyed by their paths,
+    ``"segments/0/s0/k"``: the port's trees and the reference's alike."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {path: tree}
+    out = {}
+    for k, v in items:
+        out.update(tree_keys(v, f"{path}/{k}" if path else str(k)))
+    return out
+
+
 def cache_arrays(cache) -> dict[str, np.ndarray]:
-    """Float32 numpy copies of a K/V cache's leaves (bf16 has no numpy
-    dtype), keyed ``"segments/<g>/<slot>/<k|v>"``; the reference's cache
-    flattens to the same keys."""
-    return {f"segments/{gi}/{slot}/{name}": t.detach().float().cpu().numpy()
-            for gi, seg in enumerate(cache["segments"])
-            for slot, leaves in seg.items() for name, t in leaves.items()}
+    """Float32 numpy copies of a decode cache's leaves (bf16 has no numpy
+    dtype), keyed ``"segments/<g>/<slot>/<leaf>"`` (k, v, ck, cv, c, r,
+    conv, state, h) by :func:`tree_keys`, as the reference's cache is."""
+    return {key: t.detach().float().cpu().numpy() for key, t in tree_keys(cache).items()}

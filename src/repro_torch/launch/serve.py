@@ -13,6 +13,13 @@ The server keeps one copy of the weights cast to the compute dtype
 (``transformer.serving_params``): the values the reference's per-product
 casts give, read once a step.
 
+It serves every family the reference's server serves: dense, moe (MLA and
+GQA attention), ssm, hybrid, and vlm on tokens alone (the requests carry no
+prefix embeddings). An SSM's prompt must be shorter than ``ssm_chunk`` or a
+multiple of it, as the reference's prefill asserts. It refuses enc-dec
+models with ``ValueError``: a request carries no encoder frames, and the
+reference's server fails on one at its first prefill (``KeyError``).
+
 CPU smoke: PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --device cpu
 """
 
@@ -46,6 +53,9 @@ class Request:
 class BatchedServer:
     def __init__(self, cfg, params, batch_slots: int = 4, max_seq: int = 256,
                  device="cuda"):
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the server does not serve the enc-dec family "
+                             "(a request carries no encoder frames)")
         self.device = resolve_device(device)
         on = params["final_norm"]["scale"].device
         if on.type != self.device.type:
@@ -111,7 +121,9 @@ class BatchedServer:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    help="an architecture of repro_torch.configs of the dense, moe, "
+                         "ssm, hybrid or vlm family (enc-dec whisper-base is refused)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=3)
     ap.add_argument("--full", action="store_true",

@@ -1,2 +1,3 @@
 """The LM scaffold's models (``repro.models``'s counterpart): the config,
-layers, attention, KV cache and the dense transformer's prefill and decode."""
+layers, attention, MLA, MoE, the Mamba-2 and RG-LRU blocks, the decode cache
+and the transformer's prefill and decode."""

@@ -10,6 +10,10 @@ query chunks x key chunks (``blockwise_q`` x ``blockwise_kv``), padded to
 chunk multiples with query positions -1 and key positions 2**30; scores,
 softmax and the PV product are float32, masked with -1e30 (not -inf, so a
 chunk that a row sees none of leaves no NaN), as the reference's.
+``attn_probs_bf16`` rounds p and v to bf16 before the PV product, which
+accumulates in float32; the reference takes it on its H-space path only,
+so on one device it holds where H == G and the grouped layout ignores it,
+and the port does the same.
 """
 
 from __future__ import annotations
@@ -60,16 +64,26 @@ def _inv_sqrt(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk):
+def sqrt_f32(hd: int) -> float:
+    """sqrt(hd) rounded to float32, as the reference's ``jnp.sqrt(hd)``."""
+    return float(np.sqrt(np.float32(hd)))
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk,
+                  probs_bf16=False):
     """Online-softmax attention. q: (B,Sq,H,dk); k: (B,Sk,G,dk); v: (B,Sk,G,dv).
 
-    Returns (B, Sq, H, dv) in q's dtype.
+    dk may differ from dv (MLA concatenates rope dims into q/k only).
+    ``probs_bf16`` (taken where H == G, see the module's docstring): p and v
+    rounded to bf16, their products summed in float32. Returns (B, Sq, H,
+    dv) in q's dtype.
     """
     B, Sq, H, hd = q.shape
     _, Sk, G, _ = k.shape
     dv = v.shape[-1]
     rep = H // G
     scale = _inv_sqrt(hd)
+    probs_bf16 = probs_bf16 and rep == 1
 
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
@@ -107,7 +121,10 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk):
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p, vc[j].float())
+            vj = vc[j]
+            if probs_bf16:  # a product of two bf16 values is exact in float32
+                p, vj = p.to(torch.bfloat16).float(), vj.to(torch.bfloat16)
+            acc = acc * corr[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p, vj.float())
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         outs.append(out.reshape(B, H, q_chunk, dv).to(q.dtype))
@@ -128,15 +145,31 @@ def attention_forward(params, x, cfg, positions, *, act_dtype=torch.bfloat16):
 
     Returns (out, (k, v)), k and v (B, S, G, hd) for the cache.
     """
-    if cfg.attn_probs_bf16:
-        raise NotImplementedError("attn_probs_bf16 is not ported (ROADMAP item 16b)")
     q, k, v = _project_qkv(params, x, cfg, positions, act_dtype)
     out = _sdpa_chunked(q, k, v, positions, positions, causal=True,
                         window=cfg.attn_window, q_chunk=cfg.blockwise_q,
-                        kv_chunk=cfg.blockwise_kv)
+                        kv_chunk=cfg.blockwise_kv, probs_bf16=cfg.attn_probs_bf16)
     B, S = x.shape[:2]
     out = out.reshape(B, S, -1) @ params["wo"].to(act_dtype)
     return out, (k, v)
+
+
+def blend_write(cache, new, cache_pos):
+    """Write ``new`` (B, ...) into ``cache`` (B, W, ...) at ``cache_pos`` (B,),
+    as the reference's one-hot blend ``cache * (1 - oh) + oh * new``: at the
+    dtype the blend gives (the two dtypes' promotion: a float32 model's bf16
+    cache is promoted first, into a new tensor), in place, and a position
+    outside [0, W) writes nothing, as the blend's all-zero row. Returns the
+    cache written."""
+    dt = torch.promote_types(cache.dtype, new.dtype)
+    if cache.dtype != dt:
+        cache = cache.to(dt)
+    B, W = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    inside = ((cache_pos >= 0) & (cache_pos < W)).reshape(B, *([1] * (new.dim() - 1)))
+    at = cache_pos.clamp(0, W - 1)
+    cache[rows, at] = torch.where(inside, new.to(dt), cache[rows, at])
+    return cache
 
 
 def attention_decode(params, x, cfg, positions, k_cache, v_cache, cache_pos, *,
@@ -145,25 +178,16 @@ def attention_decode(params, x, cfg, positions, k_cache, v_cache, cache_pos, *,
 
     ``positions`` (B,) absolute positions; ``cache_pos`` (B,) write slot
     (== positions for a full cache, positions % window for ring buffers).
-    The new K/V are written into the caches in place, at the dtype the
-    reference's one-hot blend gives (the caches' and the compute dtype's
-    promotion: a float32 model's bf16 cache is promoted first, into new
-    tensors). Returns (out, k_cache, v_cache).
+    The new K/V are written into the caches by :func:`blend_write`.
+    Returns (out, k_cache, v_cache).
     """
     B = x.shape[0]
     H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, x, cfg, positions[:, None], act_dtype)
 
-    dt = torch.promote_types(k_cache.dtype, k.dtype)
-    if k_cache.dtype != dt:
-        k_cache, v_cache = k_cache.to(dt), v_cache.to(dt)
+    k_cache = blend_write(k_cache, k[:, 0], cache_pos)
+    v_cache = blend_write(v_cache, v[:, 0], cache_pos)
     W = k_cache.shape[1]
-    # a slot outside [0, W) is written nowhere, as the one-hot blend's all-zero row
-    rows = torch.arange(B, device=x.device)
-    inside = ((cache_pos >= 0) & (cache_pos < W))[:, None, None]
-    at = cache_pos.clamp(0, W - 1)
-    for cache, new in ((k_cache, k), (v_cache, v)):
-        cache[rows, at] = torch.where(inside, new[:, 0].to(dt), cache[rows, at])
 
     rep = H // G
     kf = k_cache.float()
@@ -174,7 +198,7 @@ def attention_decode(params, x, cfg, positions, k_cache, v_cache, cache_pos, *,
     else:
         written = slot <= positions[:, None]
 
-    qg = (q.float() / float(np.sqrt(np.float32(hd))))[:, 0].reshape(B, G, rep, hd)
+    qg = (q.float() / sqrt_f32(hd))[:, 0].reshape(B, G, rep, hd)
     s = torch.einsum("bgrd,bkgd->bgrk", qg, kf)
     s = torch.where(written[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)

@@ -2,11 +2,18 @@
 
 The cache mirrors the layer-stack segment structure (see transformer.py):
 ``{"segments": [ {"s{i}": stacked-cache-per-slot} ]}``, as the reference's
-(``repro.models.cache``). The port holds the ``attn`` slot of the dense
-family: K/V ring buffers (n_units, B, W, G, hd) in bf16, W = min(attn_window
-or max_seq, max_seq). The other slot kinds (mla latents, ssm and rec states)
-and the encoder's cross-attention cache wait for ROADMAP item 16b, the
-dry run's ``cache_specs`` for item 16d.
+(``repro.models.cache``). Per slot, each leaf stacked on a leading
+``n_units`` axis:
+
+  attn : k/v ring buffers (B, W, G, hd), W = min(attn_window or S, S);
+         enc-dec adds the cross-attention ck/cv (B, enc_seq, G, hd)
+  mla  : latent c (B, S, kv_lora) and shared rope key r (B, S, rope_dim);
+         not a ring
+  ssm  : conv tail (B, K-1, d_in + 2N) and SSD state (B, nh, P, N)
+  rec  : conv tail (B, K-1, R) and RG-LRU state h (B, R)
+
+SSM/rec states are float32, everything else bf16, as the reference's. The
+dry run's ``cache_specs`` waits for ROADMAP item 16d.
 """
 
 from __future__ import annotations
@@ -14,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from .config import require_ported
 
 
 def segments_of(cfg):
@@ -34,16 +40,37 @@ def segments_of(cfg):
     return [((kind,), cfg.num_layers)]
 
 
+def _slot_shapes(cfg, kind, batch, max_seq) -> dict:
+    """``{leaf: (shape, dtype)}`` of one slot's cache."""
+    B = batch
+    bf16, f32 = torch.bfloat16, torch.float32
+    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if kind == "attn":
+        W = min(cfg.attn_window, max_seq) if cfg.attn_window else max_seq
+        c = {"k": ((B, W, G, hd), bf16), "v": ((B, W, G, hd), bf16)}
+        if cfg.family == "encdec":
+            c["ck"] = ((B, cfg.enc_seq, G, hd), bf16)
+            c["cv"] = ((B, cfg.enc_seq, G, hd), bf16)
+        return c
+    if kind == "mla":
+        return {"c": ((B, max_seq, cfg.mla_kv_lora), bf16),
+                "r": ((B, max_seq, cfg.mla_rope_dim), bf16)}
+    if kind == "ssm":
+        d_in = cfg.ssm_expand * cfg.d_model
+        nh = d_in // cfg.ssm_head_dim
+        return {"conv": ((B, cfg.ssm_conv - 1, d_in + 2 * cfg.ssm_state), bf16),
+                "state": ((B, nh, cfg.ssm_head_dim, cfg.ssm_state), f32)}
+    if kind == "rec":
+        R = cfg.rnn_width or cfg.d_model
+        return {"conv": ((B, cfg.ssm_conv - 1, R), bf16), "h": ((B, R), f32)}
+    raise ValueError(kind)
+
+
 def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
     """Zero-initialized cache (real serving) on ``device``."""
-    require_ported(cfg)
     dev = resolve_device(device)
-    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    W = min(cfg.attn_window, max_seq) if cfg.attn_window else max_seq
-    segs = []
-    for pattern, n_units in segments_of(cfg):
-        shape = (n_units, batch, W, G, hd)
-        segs.append({f"s{si}": {name: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-                                for name in ("k", "v")}
-                     for si, _ in enumerate(pattern)})
-    return {"segments": segs}
+    return {"segments": [
+        {f"s{si}": {name: torch.zeros((n_units, *shape), dtype=dtype, device=dev)
+                    for name, (shape, dtype) in _slot_shapes(cfg, kind, batch, max_seq).items()}
+         for si, kind in enumerate(pattern)}
+        for pattern, n_units in segments_of(cfg)]}

@@ -208,16 +208,3 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-
-#: the families whose blocks the port runs; the others wait for ROADMAP
-#: item 16b (mla + moe, ssm, rec, encdec, vlm)
-PORTED_FAMILIES = ("dense",)
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg``'s family is ported: no
-    family runs as another."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP "
-            f"item 16b); the port runs {', '.join(PORTED_FAMILIES)}")

@@ -1,7 +1,10 @@
 """Recording what a ``BatchedServer`` computes, for checks of its serving
-loop (the port's tests and ``chip_smoke.py``)."""
+loop (the port's tests and ``chip_smoke.py``): its steps' logits, and the
+routing of its MoE layers."""
 
 from __future__ import annotations
+
+import torch
 
 
 class StepRecorder:
@@ -30,3 +33,38 @@ class StepRecorder:
         tokens it had generated before that step."""
         return [(live[s][1], logits[s]) for logits, live in self.steps
                 for s in range(len(live)) if live[s] is not None and live[s][0] == rid]
+
+
+class RouteRecorder:
+    """Records the routing of every MoE call made while it is active (a
+    context manager that wraps ``models.moe.route``): per call the group
+    size, the tokens, the (token, choice) pairs kept and dropped, and the
+    experts that hold a kept one (those whose weights the call reads);
+    with ``keep``, also each token's experts (``top_i``, (BN, g, k)) and
+    router logits (``logits``, (BN, g, E) float32), on the host."""
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.calls = keep, []
+
+    def __enter__(self):
+        from ..models import moe
+
+        self._moe, self._route = moe, moe.route
+
+        def route(params, xg, cfg, act_dtype):
+            r = self._route(params, xg, cfg, act_dtype)
+            fits = r.fits
+            call = {"group": xg.shape[1], "tokens": xg.shape[0] * xg.shape[1],
+                    "kept": int(fits.sum()), "dropped": int((~fits).sum()),
+                    "experts": int(torch.unique(r.top_i[fits]).numel())}
+            if self.keep:
+                call["top_i"] = r.top_i.cpu()
+                call["logits"] = (xg @ params["router"].to(act_dtype)).float().cpu()
+            self.calls.append(call)
+            return r
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+        return False

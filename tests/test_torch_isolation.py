@@ -37,6 +37,7 @@ print("repro_torch.launch.path_server" in mods)
 print(all(m in mods for m in (
     "repro_torch.configs", "repro_torch.models.transformer", "repro_torch.launch.serve",
     "repro_torch.core.paper_reference")))
+print(all(f"repro_torch.models.{m}" in mods for m in ("mla", "moe", "ssm", "rglru")))
 """
 
 
@@ -49,12 +50,13 @@ def test_port_imports_neither_jax_nor_reference():
     # the three modules of repro_torch.sparse, core/distributed.py, the
     # obs, checkpoint and testing packages, the path server, and the LM
     # scaffold (configs, models, the serving loop) and the paper's closed
-    # forms among them
-    count, has_scan, has_sparse, has_dist, has_14a, has_server, has_lm = \
-        out.stdout.split()[-7:]
-    assert int(count) >= 62 and has_scan == "True" and has_sparse == "True"
+    # forms among them, and the other LM families' blocks (MLA, MoE, SSD,
+    # RG-LRU)
+    count, has_scan, has_sparse, has_dist, has_14a, has_server, has_lm, has_16b = \
+        out.stdout.split()[-8:]
+    assert int(count) >= 66 and has_scan == "True" and has_sparse == "True"
     assert has_dist == "True" and has_14a == "True" and has_server == "True"
-    assert has_lm == "True"
+    assert has_lm == "True" and has_16b == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):

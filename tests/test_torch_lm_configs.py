@@ -2,9 +2,9 @@
 (``repro_torch.configs``, ``repro_torch.models``) against the reference's.
 
 Configs are data: every ``CONFIG`` and ``SMOKE`` is compared field for field
-(exactly), with every derived property. The port runs the ``dense`` family
-only; each other family raises ``NotImplementedError`` naming ROADMAP item
-16b at every entry point, and none runs as another.
+(exactly), with every derived property, and every architecture's parameter
+tree at full width. The ``train`` mode raises ``NotImplementedError`` naming
+ROADMAP item 16c.
 """
 
 import dataclasses
@@ -24,10 +24,8 @@ from repro_torch import configs
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import transformer as tr
 from repro_torch.models.cache import init_cache, segments_of
-from repro_torch.models.config import PORTED_FAMILIES
 
 DENSE = [a for a in configs.ARCHS if configs.get_config(a).family == "dense"]
-OTHER = [a for a in configs.ARCHS if a not in DENSE]
 
 
 def test_registry_matches_reference():
@@ -36,7 +34,6 @@ def test_registry_matches_reference():
     for include in (False, True):
         assert configs.cells(include) == ref_configs.cells(include)
     assert DENSE == ["qwen2.5-3b", "internlm2-20b", "stablelm-12b", "granite-8b"]
-    assert PORTED_FAMILIES == ("dense",)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-arch")
 
@@ -72,7 +69,7 @@ def test_qwen_parameter_count():
     assert sum(sizes) == cfg.param_count() + cfg.d_model
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", configs.ARCHS)
 def test_param_tree_matches_reference_at_full_width(arch):
     """The port's tree (on the meta device) and the reference's (abstract,
     ``jax.eval_shape``) at the full config: the same keys, stacking and
@@ -87,27 +84,25 @@ def test_param_tree_matches_reference_at_full_width(arch):
     assert {s.dtype for s in jax.tree_util.tree_leaves(ref)} == {jnp.dtype(jnp.float32)}
 
 
-@pytest.mark.parametrize("arch", OTHER)
-def test_other_families_raise_not_implemented(arch):
+@pytest.mark.parametrize("arch", configs.ARCHS)
+def test_cache_layout_matches_reference(arch):
+    """``init_cache`` against the reference's ``cache_specs`` (SMOKE, B = 2,
+    48 positions): the same leaves, shapes and dtypes, all zero."""
+    from repro.models.cache import cache_specs
+
     cfg = configs.get_smoke_config(arch)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="16b"):
-        tr.init_params(cfg, gen, "cpu")
-    with pytest.raises(NotImplementedError, match="16b"):
-        tr.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="16b"):
-        init_cache(cfg, batch=1, max_seq=8, device="cpu")
-    # a dense model's weights do not run under another family's config
-    dense = tr.init_params(configs.get_smoke_config("qwen2.5-3b"), gen, "cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="16b"):
-        tr.prefill(dense, cfg, {"tokens": tokens})
-    with pytest.raises(NotImplementedError, match="16b"):
-        tr.decode_step(dense, cfg, tokens[:, :1], torch.zeros(1, dtype=torch.int64), None)
-    ref_tree = jax.tree_util.tree_map(
-        np.asarray, ref_tr.init_params(ref_configs.get_smoke_config(arch), jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="16b"):
-        lm_params_from_jax(ref_tree, cfg, "cpu")
+    ref = cache_specs(ref_configs.get_smoke_config(arch), batch=2, max_seq=48)
+    mine = init_cache(cfg, batch=2, max_seq=48, device="cpu")
+    assert len(mine["segments"]) == len(ref["segments"])
+    for seg, ref_seg in zip(mine["segments"], ref["segments"]):
+        assert set(seg) == set(ref_seg)
+        for slot, leaves in seg.items():
+            assert set(leaves) == set(ref_seg[slot])
+            for name, t in leaves.items():
+                want = ref_seg[slot][name]
+                assert tuple(t.shape) == tuple(want.shape), (slot, name)
+                assert str(t.dtype).replace("torch.", "") == str(want.dtype), (slot, name)
+                assert not t.any()
 
 
 def test_unported_modes_and_options_raise():
@@ -116,12 +111,7 @@ def test_unported_modes_and_options_raise():
     x = torch.zeros((1, 4, cfg.d_model))
     positions = torch.arange(4)[None]
     with pytest.raises(NotImplementedError, match="16c"):
-        tr._run_segments(params, cfg, x, positions, None, "train")
-    with pytest.raises(NotImplementedError, match="16b"):
-        tr._block_full(None, cfg, "ssm", x, positions, None)
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="attn_probs_bf16"):
-        tr.prefill(params, cfg.replace(attn_probs_bf16=True), {"tokens": tokens})
+        tr._run_segments(params, cfg, x, positions, None, None, "train")
 
 
 def test_lm_params_from_jax_checks_dtypes_and_shapes():

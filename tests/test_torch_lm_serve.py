@@ -7,6 +7,12 @@
 * The port on its own: a request's first decode logits in a full batch
   against the same request served alone on a server of the same shape
   (rel 1e-5, float32: the other slots' rows do not reach its row).
+* The same for the other families' ``SMOKE`` configs (deepseek-v2-236b:
+  MLA and MoE with a shared expert; arctic-480b: MoE with a dense residual;
+  mamba2-130m; recurrentgemma-9b, its 16-slot window under prompts of up to
+  23 tokens; internvl2-26b on tokens alone, as the reference's server), 6
+  requests on 3 slots: the greedy tokens equal. An enc-dec model raises
+  ``ValueError`` at the server's construction.
 * ``main`` runs with ``--device cpu`` and raises for ``--device cuda``
   without a GPU.
 """
@@ -54,6 +60,34 @@ def test_batched_server_matches_reference():
     assert all(r.done and len(r.out) == 8 for r in reqs)
     # a float32 model's cache comes back float32 from decode, as the reference's
     assert server.cache["segments"][0]["s0"]["k"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b", "mamba2-130m",
+                                  "recurrentgemma-9b", "internvl2-26b"])
+def test_batched_server_matches_reference_other_families(arch):
+    ref_cfg = ref_smoke(arch).replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    ref_params = ref_tr.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = lm_params_from_jax(jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
+    prompts = _prompts(cfg.vocab_size, 6)
+
+    ref_reqs = [ref_serve.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+    ref_serve.BatchedServer(ref_cfg, ref_params, batch_slots=3, max_seq=128).serve(
+        ref_reqs, log=_quiet)
+    reqs = [serve.Request(rid=i, prompt=p, max_new=8) for i, p in enumerate(prompts)]
+    serve.BatchedServer(cfg, params, batch_slots=3, max_seq=128, device="cpu").serve(
+        reqs, log=_quiet)
+    assert [r.out for r in reqs] == [r.out for r in ref_reqs]
+    assert all(r.done and len(r.out) == 8 for r in reqs)
+
+
+def test_encdec_server_raises():
+    cfg = get_smoke_config("whisper-base")
+    params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="enc-dec"):
+        serve.BatchedServer(cfg, params, device="cpu")
+    with pytest.raises(ValueError, match="enc-dec"):
+        serve.main(["--arch", "whisper-base", "--device", "cpu"])
 
 
 def test_first_decode_matches_request_served_alone():
