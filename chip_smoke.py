@@ -106,7 +106,25 @@ n = 10,000 samples, fp32):
   dropped (``lm_serve_moe``); mamba2-130m whole, prompts of 64 to 1,024
   tokens below its chunk or multiples of it (``lm_serve_ssm``);
   recurrentgemma-9b on 5 of its 38 layers, one prompt of 2,560 tokens past
-  its 2,048 window, on 4,096 positions (``lm_serve_hybrid``).
+  its 2,048 window, on 4,096 positions (``lm_serve_hybrid``);
+* the LM training path (``launch/steps.py``, ``launch/train.py``, the
+  models' ``train`` mode, ``optim/``), plain PyTorch and autograd, no kernel
+  of this repository: the ten SMOKE configs in float32, one train step card
+  against CPU (loss, ``ce``, ``aux``, grad norm, every parameter and moment
+  after the update), 3 more steps' losses, and ``remat`` none, full and dots
+  on the card (``lm_train_card_vs_cpu``); qwen2.5-3b's published
+  configuration trained for 8 steps of 4 x 1,024 tokens, bf16 over float32
+  masters and moments, ``remat="full"`` (``lm_train``: step ms beside its
+  bound, tokens/s, the card's busy share and kernels over a profiled step,
+  peak memory); then the sparse probe, the paper's path on that model's
+  features (``sparse_probe``: 2,048 features x 4,096 samples, final-norm
+  last-position features of 4,096 sequences of 64 tokens; safe against the
+  unscreened path, objectives against float64, card against CPU, the
+  feature-screen, margin and gradient kernels launched and held against
+  their plain versions at that shape; then the reference-sized example on
+  the card); and the trainer on mamba2-130m whole, 40 steps against 20 and
+  a resume to 40, under deterministic algorithms, bit for bit
+  (``lm_train_resume``). The probe's launches join the kernels line.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -150,7 +168,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_leaves
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -3272,13 +3289,15 @@ LM_CELLS = (
 
 
 def lm_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
 def lm_leaves(tree) -> list:
     """``(path, tensor)`` of every leaf of a parameter or cache tree, the
-    path the tuple of ``convert.tree_keys``'s key."""
-    from repro_torch.convert import tree_keys
+    path the tuple of ``tree.tree_keys``'s key."""
+    from repro_torch.tree import tree_keys
 
     return [(tuple(key.split("/")), t) for key, t in tree_keys(tree).items()]
 
@@ -3353,7 +3372,9 @@ def lm_card_vs_cpu(tr, serve, cfg, cpu, seed, B, S, T, serve_check=True) -> dict
     ``LM_OWN_CACHE_REL``: one K/V value rounded to the other bf16 neighbour
     in the prefill moves a float32 model's logits by ~1e-5 of their scale);
     then a ``BatchedServer``'s greedy tokens (6 requests on 3 slots)."""
-    on_card = tr._map(lambda t: t.cuda(), cpu)
+    from repro_torch.tree import tree_map
+
+    on_card = tree_map(lambda t: t.cuda(), cpu)
     toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                                  (B, S + T)))
     extras = lm_extras(cfg, B, seed)
@@ -3365,7 +3386,7 @@ def lm_card_vs_cpu(tr, serve, cfg, cpu, seed, B, S, T, serve_check=True) -> dict
     flips = cache_card_vs_cpu(own, cache_c, f"lm {cfg.name} prefill")
     for t in range(T):
         tok, pos = toks[:, S + t:S + t + 1], torch.full((B,), S + t)
-        same = tr._map(lambda x: x.cuda(), cache_c)   # decode writes its cache in place
+        same = tree_map(lambda x: x.cuda(), cache_c)   # decode writes its cache in place
         lc, cache_c = tr.decode_step(cpu, cfg, tok, pos, cache_c)
         lg, same = tr.decode_step(on_card, cfg, tok.cuda(), pos.cuda(), same)
         errs["decode_same_cache"].append(rel_err(lg, lc))
@@ -3393,6 +3414,8 @@ def lm_card_vs_cpu(tr, serve, cfg, cpu, seed, B, S, T, serve_check=True) -> dict
 def phase_lm_card_vs_cpu(configs, tr, serve) -> None:
     """The four dense archs' SMOKE configs in float32 (:func:`lm_card_vs_cpu`),
     then qwen2.5-3b at full width on 2 layers: a 32-token prompt's logits."""
+    from repro_torch.tree import tree_map
+
     t0 = time.perf_counter()
     report = {}
     for i, arch in enumerate(LM_DENSE):
@@ -3401,7 +3424,7 @@ def phase_lm_card_vs_cpu(configs, tr, serve) -> None:
         report[arch] = lm_card_vs_cpu(tr, serve, cfg, cpu, 10 + i, B=2, S=20, T=4)
     cfg = configs.get_config("qwen2.5-3b").replace(num_layers=LM_CARD_DEPTH, dtype="float32")
     on_card = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(20), "cuda")
-    cpu = tr._map(lambda t: t.cpu(), on_card)
+    cpu = tree_map(lambda t: t.cpu(), on_card)
     toks = torch.from_numpy(np.random.default_rng(20).integers(
         0, cfg.vocab_size, (1, LM_CARD_PROMPT)))
     lg, _ = tr.prefill(on_card, cfg, {"tokens": toks.cuda()})
@@ -3426,6 +3449,8 @@ def phase_lm_families_card_vs_cpu(configs, tr, serve) -> None:
     the server, which refuses it; the VLM with prefix embeddings), then
     whisper-base whole (6 + 6 layers, d_model 512, 1,500 encoder frames) in
     float32: B = 2, a 64-token prompt, 4 decode steps, card vs CPU."""
+    from repro_torch.tree import tree_map
+
     t0 = time.perf_counter()
     report = {}
     for i, arch in enumerate(LM_FAMILIES):
@@ -3436,7 +3461,7 @@ def phase_lm_families_card_vs_cpu(configs, tr, serve) -> None:
                                                       serve_check=cfg.family != "encdec")}
     cfg = configs.get_config("whisper-base").replace(dtype="float32")
     on_card = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(40), "cuda")
-    cpu = tr._map(lambda t: t.cpu(), on_card)
+    cpu = tree_map(lambda t: t.cpu(), on_card)
     t1 = time.perf_counter()
     report["whisper_full"] = {
         "layers": cfg.num_layers, "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
@@ -3781,6 +3806,478 @@ def phase_lm_serve(configs, tr, serve, cell) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM training path (repro_torch.launch.steps and .train, models' train
+# mode, optim/): plain PyTorch and autograd, no kernel of this repository on
+# it; the sparse probe then runs the paper's path on its features, through
+# the feature-screen, margin and gradient kernels
+# ---------------------------------------------------------------------------
+
+#: lm_train_card_vs_cpu's sequence (32 tokens for the others): 64 crosses the
+#: SMOKE SSD's chunk of 32, 96 the RG-LRU scan's 64 and the 16-slot window
+LM_TRAIN_SEQ = {"mamba2-130m": 64, "recurrentgemma-9b": 96}
+LM_TRAIN_STEPS = 3       # steps after the first, card against CPU
+# card vs CPU, float32 with TF32 off, about 3x the largest reading (chip_smoke,
+# NVIDIA H100 80GB HBM3): the loss, ce, aux and grad norm of the first step and
+# the next 3 steps' losses (1.6e-7); both moments after the first update, of
+# each leaf's scale (1.9e-5, mamba2-130m's; the others' 3.3e-6 at most); the
+# parameters after it, the card's AdamW fed the CPU's gradients (9.7e-8)
+LM_TRAIN_LOSS_REL = 5e-7
+LM_TRAIN_MOMENT_REL = 6e-5
+LM_TRAIN_PARAM_REL = 3e-7
+# each device's parameters after its own first step from zero moments, where
+# Adam's update is g / (|g| + eps) + wd p: every element within 2 lr (the
+# update's term lies in (-1, 1); the slack is a rounding of a |p| <= 2 at lr
+# 3e-4; 1.5e-2 lr measured), and the elements whose gradient is 1e4 eps or
+# more on both devices, with one sign, within LM_TRAIN_OWN_REL of the leaf's
+# scale (their update terms differ by eps / |g| times the gradients'
+# relative difference at most), about 3x the largest reading (1.9e-7)
+LM_TRAIN_OWN_LR = 2.001
+LM_TRAIN_OWN_G = 1e-4
+LM_TRAIN_OWN_REL = 6e-7
+LM_TRAIN_LR = 3e-4        # make_train_step's default base rate
+LM_TRAIN_CELL = dict(arch="qwen2.5-3b", batch=4, seq=1024, steps=8, seed=0)
+LM_RESUME_CELL = dict(arch="mamba2-130m", batch=8, seq=512, steps=40, ckpt_every=20, seed=0)
+PROBE = dict(n=4096, seq=64, chunk=512, n_lambdas=6, lam_min_ratio=0.15, seed=1)
+PROBE_FIXED_ITERS = 200  # the probe's card-vs-CPU paths: FISTA iterations a step
+PROBE_CPU_REL = 1e-5
+
+
+def train_batch(cfg, pipe, step, B, device, seed) -> dict:
+    """The pipeline's batch ``step`` on ``device``, with an enc-dec model's
+    frame or a VLM's prefix embeddings (:func:`lm_extras`)."""
+    b = {k: torch.from_numpy(v) for k, v in pipe.batch_at(step).items()}
+    b.update(lm_extras(cfg, B, seed))
+    return {k: v.to(device) for k, v in b.items()}
+
+
+def train_state_to(state, device):
+    """A copy of a ``TrainState`` on ``device``."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim import AdamWState
+    from repro_torch.tree import tree_map
+
+    mv = lambda t: t.to(device, copy=True)  # noqa: E731
+    opt = state.opt
+    return TrainState(params=tree_map(mv, state.params),
+                      opt=AdamWState(mv(opt.step), tree_map(mv, opt.mu), tree_map(mv, opt.nu)))
+
+
+def leaf_errors(got, want) -> float:
+    """The largest |got - want| / max |want| over two trees' leaves."""
+    want = dict(lm_leaves(want))
+    worst = 0.0
+    for path, t in lm_leaves(got):
+        scale = float(want[path].abs().max())
+        d = float((t.detach().double().cpu() - want[path].double().cpu()).abs().max())
+        worst = max(worst, d / scale if scale else d)
+    return worst
+
+
+def own_step_errors(card, cpu, lr, b1=0.9) -> dict:
+    """Each device's parameters after its own first step from zero moments
+    (``LM_TRAIN_OWN_*``): the largest |card - cpu| over ``lr``, and over the
+    leaf's scale on the elements whose gradient (the first moment over
+    ``1 - b1``) is ``LM_TRAIN_OWN_G`` or more on both devices with one sign,
+    with the count of those elements."""
+    want_p, want_m = dict(lm_leaves(cpu.params)), dict(lm_leaves(cpu.opt.mu))
+    got_m = dict(lm_leaves(card.opt.mu))
+    over_lr = strong_rel = 0.0
+    n_strong = 0
+    for path, p in lm_leaves(card.params):
+        want = want_p[path].double()
+        d = (p.detach().double().cpu() - want).abs()
+        over_lr = max(over_lr, float(d.max()) / lr)
+        g_card = got_m[path].double().cpu() / (1 - b1)
+        g_cpu = want_m[path].double() / (1 - b1)
+        strong = (g_card * g_cpu > 0) & (torch.minimum(g_card.abs(), g_cpu.abs())
+                                         >= LM_TRAIN_OWN_G)
+        if strong.any():
+            strong_rel = max(strong_rel, float(d[strong].max() / want.abs().max()))
+            n_strong += int(strong.sum())
+    return {"max_over_lr": over_lr, "strong_rel": strong_rel, "strong_elements": n_strong}
+
+
+def phase_lm_train_card_vs_cpu(configs, steps_mod) -> None:
+    """The ten SMOKE configs in float32 (TF32 off), the same initial state on
+    the card and the CPU, one ``make_train_step`` step (no warmup: the rate
+    is nonzero from step 0): its loss, ``ce``, ``aux`` and grad norm within
+    ``LM_TRAIN_LOSS_REL``; both moments after the update (which carry the
+    gradients) within ``LM_TRAIN_MOMENT_REL`` of each leaf's scale; and the
+    parameters after the update within ``LM_TRAIN_PARAM_REL``, the card's
+    AdamW fed the CPU's gradients. Each device's parameters after its own
+    step are held by :func:`own_step_errors`, not to the leaf's scale as a
+    whole: Adam's first step is g / (|g| + eps), so an element whose
+    gradient is at rounding level (~1e-8, eps's size) moves by up to lr
+    either way, and a bias leaf that starts at 0 has lr for its scale. Then
+    3 more steps' losses within ``LM_TRAIN_LOSS_REL``, and the
+    card's loss and gradients under ``remat`` none, full and dots, within
+    the loss's and the moments' tolerances and reported bit for bit or not (the
+    SMOKE configs train with ``full``: an MoE's routing must come out the
+    same when its unit is recomputed in the backward pass)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import adamw_update, cosine_schedule, global_norm
+
+    t0 = time.perf_counter()
+    report = {}
+    for i, arch in enumerate(configs.ARCHS):
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        S = LM_TRAIN_SEQ.get(arch, 32)
+        start = steps_mod.init_train_state(cfg, torch.Generator().manual_seed(50 + i), "cpu")
+        card, cpu = train_state_to(start, "cuda"), train_state_to(start, "cpu")
+        kw = dict(base_lr=LM_TRAIN_LR, warmup_steps=0, total_steps=8)
+        step = steps_mod.make_train_step(cfg, **kw)
+        pipe = TokenPipeline(cfg.vocab_size, 2, S, seed=50 + i)
+        out = {"seq": S, "train_remat": cfg.remat}
+        losses = {"card": [], "cpu": []}
+        for s in range(1 + LM_TRAIN_STEPS):
+            if s == 0:  # the CPU's gradients of the first step, for the card's AdamW
+                _, _, g_cpu = steps_mod._value_and_grads(
+                    cfg, start.params, train_batch(cfg, pipe, 0, 2, "cpu", 50 + i))
+            card, mg = step(card, train_batch(cfg, pipe, s, 2, "cuda", 50 + i))
+            cpu, mc = step(cpu, train_batch(cfg, pipe, s, 2, "cpu", 50 + i))
+            require(mg["skipped"] == mc["skipped"] == 0, f"lm_train {arch}: step {s} skipped")
+            losses["card"].append(mg["loss"])
+            losses["cpu"].append(mc["loss"])
+            if s == 0:
+                out["first_step"] = {k: abs(mg[k] - mc[k]) / abs(mc[k]) if mc[k] else
+                                     abs(mg[k] - mc[k]) for k in ("loss", "ce", "aux", "grad_norm")}
+                out["moments_rel"] = max(leaf_errors(card.opt.mu, cpu.opt.mu),
+                                         leaf_errors(card.opt.nu, cpu.opt.nu))
+                out["params_rel_own_gradients"] = leaf_errors(card.params, cpu.params)
+                out["params_own_step"] = own_step_errors(card, cpu, mc["lr"])
+                same = train_state_to(start, "cuda")
+                g = [x.cuda() for x in g_cpu]
+                lr = cosine_schedule(same.opt.step, LM_TRAIN_LR, 0, 8)
+                adamw_update(g, same.opt, same.params, lr, gnorm=global_norm(g))
+                out["params_rel_same_gradients"] = leaf_errors(same.params, cpu.params)
+                del same, g, g_cpu
+        out["losses_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"]))
+        require(max(*out["first_step"].values(), out["losses_rel"]) <= LM_TRAIN_LOSS_REL,
+                f"lm_train {arch}: card vs CPU {out}")
+        own = out["params_own_step"]
+        require(out["moments_rel"] <= LM_TRAIN_MOMENT_REL
+                and out["params_rel_same_gradients"] <= LM_TRAIN_PARAM_REL
+                and own["max_over_lr"] <= LM_TRAIN_OWN_LR
+                and own["strong_rel"] <= LM_TRAIN_OWN_REL and own["strong_elements"] > 0,
+                f"lm_train {arch}: leaves card vs CPU {out}")
+        # remat none / full / dots on the card, from the stepped state
+        b = train_batch(cfg, pipe, 9, 2, "cuda", 50 + i)
+        runs = {}
+        for remat in ("none", "full", "dots"):
+            loss, _, g = steps_mod._value_and_grads(cfg.replace(remat=remat), card.params, b)
+            runs[remat] = (loss, g)
+        base_loss, base_g = runs["none"]
+        out["remat"] = {}
+        for remat in ("full", "dots"):
+            loss, g = runs[remat]
+            err = max(float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                      for a, c in zip(g, base_g))
+            lrel = abs(float(loss) - float(base_loss)) / abs(float(base_loss))
+            out["remat"][remat] = {"loss_rel": lrel, "grad_rel": err,
+                                   "bitwise": bool(torch.equal(loss, base_loss)) and all(
+                                       torch.equal(a, c) for a, c in zip(g, base_g))}
+            require(lrel <= LM_TRAIN_LOSS_REL and err <= LM_TRAIN_MOMENT_REL,
+                    f"lm_train {arch}: remat {remat} against none {out['remat'][remat]}")
+        report[arch] = out
+        del cpu, card, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_train_card_vs_cpu", "tolerance_loss_rel": LM_TRAIN_LOSS_REL,
+          "tolerance_moment_rel": LM_TRAIN_MOMENT_REL,
+          "tolerance_param_rel": LM_TRAIN_PARAM_REL, "tolerance_own_step_over_lr": LM_TRAIN_OWN_LR,
+          "tolerance_own_step_rel": LM_TRAIN_OWN_REL, "steps": 1 + LM_TRAIN_STEPS, **report,
+          "seconds": time.perf_counter() - t0})
+
+
+def lm_train_bound(cfg, params, B, S) -> dict:
+    """One train step's bound (``remat="full"``: each unit's forward runs
+    twice, the head's once):
+
+    * bf16 products: 2 flops a weight entry a token forward, 4 backward, 2
+      more for the recomputed units (every weight but the embedding table;
+      the head once forward and twice backward);
+    * float32 attention: QK and PV, 4 flops per head dimension per causal
+      (query, key) pair a layer, S (S + 1) / 2 pairs a sequence, run four
+      times (forward, recompute, twice backward);
+    * bytes: the masters read once forward, the gradients written once, and
+      the update's read of parameters, gradients and both moments and write
+      of parameters and moments (7 float32 passes over the parameters).
+    """
+    from repro_torch.models.transformer import PRODUCT_LEAVES
+
+    layer = sum(t.numel() for path, t in lm_leaves(params)
+                if path[0] == "segments" and path[-1] in PRODUCT_LEAVES)
+    head = (params["head"] if "head" in params else params["embed"]["tok"]).numel()
+    n_params = sum(t.numel() for _, t in lm_leaves(params))
+    tokens = B * S
+    bf16 = tokens * (8 * layer + 6 * head)
+    pairs = B * S * (S + 1) // 2
+    f32 = 4 * (4 * cfg.num_heads * cfg.resolved_head_dim * pairs * cfg.num_layers)
+    nbytes = 4 * n_params * (1 + 1 + 7)
+    ms, by = lm_bound(bf16, f32, nbytes)
+    return {"bound_ms": ms, "bound_by": by, "bf16_flops": bf16, "f32_flops": f32,
+            "bytes": nbytes, "params": n_params}
+
+
+def profile_train_step(step, state, batch, rows: int = 10) -> tuple:
+    """``(state, profile)``: one train step under ``torch.profiler`` (which
+    slows it about 2x): the card's busy share over the step, its kernels,
+    the update's kernels and their device ms (the step's host fetch comes
+    before its ``train_step.update`` region, so every kernel that starts
+    after the region begins is the update's), and the ``rows`` operators
+    with the most device time of their own."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/train.json"
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function("path"):
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        share, names, _ = busy_share(trace)
+        events = json.loads(Path(trace).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    region = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    update = [e for e in kernels if e["ts"] >= region["train_step.update"]["ts"]]
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:rows]
+    return state, {"busy_share": share, "kernels_a_step": len(kernels),
+                   "kernel_names": len(names), "profiled_step_ms": region["path"]["dur"] / 1e3,
+                   "update_kernels": len(update),
+                   "update_device_ms": sum(e["dur"] for e in update) / 1e3,
+                   "top_ops": [{"op": e.key, "calls": e.count,
+                                "device_ms": e.self_device_time_total / 1e3} for e in ops]}
+
+
+def phase_lm_train(configs, steps_mod) -> tuple:
+    """qwen2.5-3b's published configuration trained on the card: bf16
+    products over float32 masters and float32 moments, ``remat="full"``,
+    ``TokenPipeline(seed=0)`` at 4 x 1,024 tokens, 8 steps of
+    ``make_train_step(total_steps=8)``. Checks: every loss finite, no step
+    skipped, the peak under the card's memory. Prints the step's ms (median
+    of steps 2-7, each from a synchronized start to the end of its update's
+    kernels), tokens/s, the bound (:func:`lm_train_bound`) and its share, a
+    profiled step (:func:`profile_train_step`) with the update's device ms
+    as a share of the median step, the peak.
+    Returns the trained state and the config, for the probe."""
+    from repro_torch.data import TokenPipeline
+
+    c = LM_TRAIN_CELL
+    cfg = configs.get_config(c["arch"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = steps_mod.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(c["seed"]),
+                                       "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = lm_bytes(state.params) + lm_bytes(state.opt.mu) + lm_bytes(state.opt.nu)
+    step = steps_mod.make_train_step(cfg, total_steps=c["steps"])
+    pipe = TokenPipeline(cfg.vocab_size, c["batch"], c["seq"], seed=c["seed"])
+    walls, metrics = [], []
+    for s in range(c["steps"]):
+        b = train_batch(cfg, pipe, s, c["batch"], "cuda", c["seed"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()    # the step ends in its update's kernels
+        walls.append(time.perf_counter() - t1)
+        metrics.append(m)
+    losses = [m["loss"] for m in metrics]
+    require(all(math.isfinite(x) for x in losses), f"lm_train: a loss is not finite {losses}")
+    require(not any(m["skipped"] for m in metrics), "lm_train: a step was skipped")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(peak < total, f"lm_train: peak {peak / 1e9:.1f} GB")
+    step_s = float(np.median(walls[2:8]))
+    state, prof = profile_train_step(
+        step, state, train_batch(cfg, pipe, c["steps"], c["batch"], "cuda", c["seed"]))
+    prof["update_share_of_step"] = prof["update_device_ms"] / (step_s * 1e3)
+    bound = lm_train_bound(cfg, state.params, c["batch"], c["seq"])
+    tokens = c["batch"] * c["seq"]
+    emit({"phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.padded_vocab, "dtype": cfg.dtype,
+          "param_dtype": cfg.param_dtype, "remat": cfg.remat, "reduced": {},
+          "params": bound["params"], "state_bytes": state_bytes, "init_s": init_s,
+          "batch": c["batch"], "seq": c["seq"], "steps": c["steps"], "losses": losses,
+          "lr": [m["lr"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
+          "step_walls_s": walls, "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          **{k: bound[k] for k in ("bound_ms", "bound_by", "bf16_flops", "f32_flops", "bytes")},
+          "bound_share": bound["bound_ms"] / (step_s * 1e3), "profile": prof,
+          "peak_gbytes": peak / 1e9, "card_gbytes": total / 1e9})
+    return state, cfg
+
+
+def phase_lm_train_resume(configs, steps_mod, train_mod) -> None:
+    """The trainer ``train()`` on mamba2-130m whole, on the card, 8 x 512
+    tokens: 40 steps uninterrupted (checkpoints every 20), and 20 steps then
+    a resume to 40 in a second directory, under
+    ``torch.use_deterministic_algorithms`` (the embedding's and the MoE's
+    index writes and their backward otherwise accumulate with atomics):
+    the resumed steps' losses and the final parameters and moments equal to
+    the uninterrupted run's bit for bit, unless an operation on the path
+    has no deterministic implementation (named from torch's warning, and
+    then held to rel 1e-6). Also the mean of the last 5 losses below the
+    first 5's; prints seconds a step (the trainer's walls: a step's wall
+    runs to its host fetch, which waits for the previous step's update, so
+    the median is the period of the loop), a save's seconds and bytes, and
+    one step of the 20-step run's state profiled (:func:`profile_train_step`,
+    deterministic algorithms still on)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import TokenPipeline
+    from repro_torch.tree import leaves
+
+    c = LM_RESUME_CELL
+    kw = dict(smoke=False, batch=c["batch"], seq=c["seq"], ckpt_every=c["ckpt_every"],
+              seed=c["seed"], log=_quiet, device="cuda")
+    det, det_warn = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # cuBLAS's deterministic setting
+    t0 = time.perf_counter()
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory() as tmp:
+            warnings.simplefilter("always")
+            full = train_mod.train(c["arch"], steps=c["steps"], ckpt_dir=f"{tmp}/full", **kw)
+            part = train_mod.train(c["arch"], steps=c["steps"] // 2, ckpt_dir=f"{tmp}/res",
+                                   **kw)
+            resumed = train_mod.train(c["arch"], steps=c["steps"], ckpt_dir=f"{tmp}/res", **kw)
+            mgr = CheckpointManager(f"{tmp}/save")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            saved = mgr.save(c["steps"], full["final_state"])
+            save_s = time.perf_counter() - t1
+            save_bytes = sum(p.stat().st_size for p in saved.iterdir())
+            cfg = configs.get_config(c["arch"])
+            pipe = TokenPipeline(cfg.vocab_size, c["batch"], c["seq"], seed=c["seed"])
+            _, prof = profile_train_step(
+                steps_mod.make_train_step(cfg, total_steps=c["steps"]), part["final_state"],
+                train_batch(cfg, pipe, c["steps"] // 2, c["batch"], "cuda", c["seed"]))
+    finally:
+        torch.use_deterministic_algorithms(det, warn_only=det_warn)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    refused = sorted({str(w.message).split(" does not have a deterministic")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+    half = c["steps"] // 2
+    a, b = leaves(full["final_state"]), leaves(resumed["final_state"])
+    bitwise = (resumed["losses"] == full["losses"][half:]
+               and part["losses"] == full["losses"][:half]
+               and all(torch.equal(x, y) for x, y in zip(a, b)))
+    leaf_rel = max(float((x.double() - y.double()).abs().max()
+                         / y.double().abs().max().clamp_min(1e-30)) for x, y in zip(a, b))
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(resumed["losses"], full["losses"][half:]))
+    if refused:
+        require(max(leaf_rel, loss_rel) <= 1e-6,
+                f"lm_train_resume: resumed run off by {leaf_rel}, {loss_rel}; refused {refused}")
+    else:
+        require(bitwise, f"lm_train_resume: not bit for bit (leaves {leaf_rel}, losses "
+                         f"{loss_rel})")
+    L = full["losses"]
+    require(all(math.isfinite(x) for x in L) and full["skipped"] == 0,
+            "lm_train_resume: a loss not finite or a step skipped")
+    require(np.mean(L[-5:]) < np.mean(L[:5]), f"lm_train_resume: no descent {L}")
+    emit({"phase": "lm_train_resume", **c, "deterministic_algorithms": True,
+          "refused_determinism": refused, "bitwise": bitwise, "leaf_rel": leaf_rel,
+          "loss_rel": loss_rel, "losses": L, "resumed_losses": resumed["losses"],
+          "first5_mean": float(np.mean(L[:5])), "last5_mean": float(np.mean(L[-5:])),
+          "step_ms_median": float(np.median(full["step_seconds"][1:])) * 1e3,
+          "step_ms_first": full["step_seconds"][0] * 1e3,
+          "save_s": save_s, "save_bytes": save_bytes, "profile": prof,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_sparse_probe(svm_path, PathDriver, lipschitz_estimate, ops, K, probe, state,
+                       cfg) -> dict:
+    """The paper's path on the LM's features at full width: qwen2.5-3b's
+    trained parameters (``lm_train``) give final-norm last-position bf16
+    features of 4,096 sequences of 64 tokens from ``default_rng(1)``; cast
+    to float32 and standardized, X is 2,048 features x 4,096 samples, the
+    labels the last token's parity. ``svm_path(n_lambdas=6,
+    lam_min_ratio=0.15)`` on the card, the launch counts set to 0 just
+    before it and read just after: the feature-screen, margin and gradient
+    kernels each launched. Checks: safe against the unscreened path,
+    objectives within 1e-4 of float64, card vs CPU (plain versions, the
+    same L) within ``PROBE_CPU_REL`` at ``PROBE_FIXED_ITERS`` iterations a
+    step, and the three kernels against their plain versions at this X's
+    shape. Then the reference-sized example's ``main`` on the card (SMOKE
+    qwen2.5-3b, 30 steps, 192 sequences). Returns the path's launches."""
+    p = PROBE
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(p["seed"])
+    toks = rng.integers(0, cfg.vocab_size, (p["n"], p["seq"])).astype(np.int32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    feats = probe.extract_features(state.params, cfg, torch.from_numpy(toks).cuda(), p["chunk"])
+    torch.cuda.synchronize()
+    feature_s = time.perf_counter() - t1
+    require(feats.dtype == torch.bfloat16 and feats.shape == (p["n"], cfg.d_model)
+            and bool(torch.isfinite(feats).all()), "sparse_probe: features")
+    X_np, y_np = probe.probe_task(feats, toks)
+    X, y = torch.from_numpy(X_np).cuda(), torch.from_numpy(y_np).cuda()
+    grid = dict(n_lambdas=p["n_lambdas"], lam_min_ratio=p["lam_min_ratio"])
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = svm_path(X, y, device="cuda", **grid)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    require(all(launches[k] > 0 for k in ("screen_bounds", "margin_obj", "hinge_grad")),
+            f"sparse_probe: a kernel of the path was never launched: {launches}")
+    require(bool(np.all(np.isfinite(res.objectives))), "sparse_probe: non-finite objective")
+    phase_objective_check(res, X, y, phase="sparse_probe_objective_f64")
+    full = svm_path(X, y, lambdas=res.lambdas, screening=False, device="cuda")
+    safety = []
+    for k in range(1, len(res.lambdas)):
+        support, missed = missed_features(full, k, res.extras["keep_masks"][k])
+        safety.append({"step": k, "support": support, "kept": int(res.kept[k]),
+                       "missed": missed})
+        require(missed == 0, f"sparse_probe step {k}: {missed} active features screened out")
+    L = float(lipschitz_estimate(X))
+    fixed = dict(L=L, tol=-1.0, max_iters=PROBE_FIXED_ITERS)
+    card = PathDriver(device="cuda", **fixed).run(X, y, **grid)
+    cpu = PathDriver(device="cpu", **fixed).run(X_np, y_np, **grid)
+    cpu_rel = float(np.max(np.abs(card.objectives - cpu.objectives) / np.abs(cpu.objectives)))
+    require(cpu_rel <= PROBE_CPU_REL, f"sparse_probe: card vs CPU rel {cpu_rel}")
+    # the three kernels against their plain versions at this X's shape
+    m, n = X.shape
+    gen = torch.Generator().manual_seed(p["seed"])
+    w = torch.from_numpy(res.weights[-1]).float().cuda()
+    b = torch.tensor(float(res.biases[-1]), device="cuda")
+    xi = torch.rand(n, generator=gen).cuda()
+    lmax = float(res.extras["lam_max"])
+    theta = K.theta_max(y, lmax)
+    sh = K.shared_scalars(y, lmax, float(res.lambdas[1]), theta, delta=0.0)
+    checks = {"margin_obj": K.margin(X, w, y, b, m, "sparse_probe"),
+              "hinge_grad": K.grad(X, y, xi, m, "sparse_probe"),
+              "screen_bounds": K.bounds(X, y, theta, sh, "sparse_probe")}
+    example = probe.main(["--device", "cuda"])
+    require(bool(np.all(np.isfinite(example["path"].objectives))),
+            "sparse_probe: the example's path")
+    emit({"phase": "sparse_probe", "arch": cfg.name, "dtype": cfg.dtype, **p,
+          "shape": [m, n], "feature_s": feature_s, "path_s": path_s,
+          "lambdas": res.lambdas.tolist(), "kept": res.kept.tolist(),
+          "active": res.active.tolist(), "iters": res.solver_iters.tolist(),
+          "objectives": res.objectives.tolist(), "launches": launches,
+          "safety": safety, "fixed_iters": PROBE_FIXED_ITERS, "card_vs_cpu_rel": cpu_rel,
+          "tolerance_cpu_rel": PROBE_CPU_REL,
+          "kernels": {k: max(v[x]["max_abs_err"] for x in v if isinstance(v[x], dict))
+                      if k == "margin_obj" else v["max_abs_err"] for k, v in checks.items()},
+          "accuracy": float(np.mean(np.sign(res.weights[-1] @ X_np + res.biases[-1]) == y_np)),
+          "example": {"accuracy": example["accuracy"], "loss": example["loss"],
+                      "kept": example["path"].kept.tolist()},
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3816,6 +4313,9 @@ def main() -> int:
     from repro_torch.launch.train_svm import main as train_main
     from repro_torch import configs
     from repro_torch.launch import serve as lm_serve
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import train as lm_train
+    from repro_torch.examples import sparse_probe
     from repro_torch.models import transformer as tr
     from repro_torch.obs import trace as obs_trace
     import repro_torch.sparse as sparse
@@ -3948,6 +4448,18 @@ def main() -> int:
     phase_lm_families_card_vs_cpu(configs, tr, lm_serve)
     for cell in LM_CELLS:
         phase_lm_serve(configs, tr, lm_serve, cell)
+    # the LM training path, then the paper's path on its features (the
+    # probe's launches join the kernels line)
+    phase_lm_train_card_vs_cpu(configs, lm_steps)
+    state, train_cfg = phase_lm_train(configs, lm_steps)
+    probe_launches = phase_sparse_probe(svm_path, PathDriver, lipschitz_estimate, ops, K,
+                                        sparse_probe, state, train_cfg)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm_train_resume(configs, lm_steps, lm_train)
+    for row in rows:
+        row["launches_sparse_probe"] = int(probe_launches.get(row["name"], 0))
 
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)

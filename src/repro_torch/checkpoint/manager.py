@@ -79,7 +79,7 @@ def _restore_leaf(arr: np.ndarray, leaf):
 def load_pytree(template, path: Path, strict: bool = True):
     """Restore into the structure of ``template`` (values replaced, each
     cast to its template leaf's dtype; a tensor leaf comes back on its
-    template's device).
+    template's device; a NamedTuple keeps its type).
 
     ``strict=False`` lets state schemas evolve: template leaves missing from
     the checkpoint keep their template (initial) value instead of raising.
@@ -94,6 +94,8 @@ def load_pytree(template, path: Path, strict: bool = True):
             return {k: rebuild(v, prefix + (str(k),)) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             out = [rebuild(v, prefix + (str(i),)) for i, v in enumerate(tree)]
+            if hasattr(tree, "_fields"):  # a NamedTuple (a TrainState) keeps its type
+                return type(tree)(*out)
             return type(tree)(out) if isinstance(tree, list) else tuple(out)
         key = _SEP.join(prefix)
         if not strict and key not in flat:

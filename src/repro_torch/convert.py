@@ -6,7 +6,9 @@ one anchor and one Lipschitz bound. :func:`path_arrays` is the numpy view
 of a :class:`~repro_torch.core.path.PathResult` (or of the reference's,
 which has the same per-step fields). :func:`lm_params_from_jax` carries the
 LM scaffold's parameter tree across, :func:`cache_arrays` is the numpy view
-of the port's decode cache, :func:`tree_keys` flattens a tree by its paths.
+of the port's decode cache, :func:`train_state_from_jax` carries a train
+state (parameters, AdamW moments and step) across, :func:`tree_keys`
+(from :mod:`repro_torch.tree`) flattens a tree by its paths.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .tree import tree_keys
 
 __all__ = ["STATE_NDIM", "state_from_numpy", "path_arrays", "PATH_FIELDS",
-           "lm_params_from_jax", "cache_arrays", "tree_keys"]
+           "lm_params_from_jax", "train_state_from_jax", "cache_arrays", "tree_keys"]
 
 #: the state the port takes from the reference, by name: its rank
 STATE_NDIM = {"X": 2, "y": 1, "w": 1, "b": 0, "theta": 1, "delta": 0, "L": 0,
@@ -106,19 +109,26 @@ def lm_params_from_jax(tree, cfg, device="cuda"):
     return conv(tree, param_shapes(cfg), "")
 
 
-def tree_keys(tree, path: str = "") -> dict:
-    """A tree's leaves (nested dicts and lists) keyed by their paths,
-    ``"segments/0/s0/k"``: the port's trees and the reference's alike."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {path: tree}
-    out = {}
-    for k, v in items:
-        out.update(tree_keys(v, f"{path}/{k}" if path else str(k)))
-    return out
+def train_state_from_jax(state, cfg, device="cuda"):
+    """The reference's ``TrainState`` (``repro.launch.steps``: ``params``
+    and ``opt`` = ``AdamWState(step, mu, nu)``, leaves as numpy or JAX
+    arrays) as the port's ``launch.steps.TrainState`` on ``device``: the
+    parameters and both moments through :func:`lm_params_from_jax` (float32
+    moments), the step an int32 tensor. Both packages then start a step
+    from the same state."""
+    from .launch.steps import TrainState  # lazy: the SVM side needs no LM
+    from .optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    opt = state.opt
+    step = np.asarray(opt.step)
+    if step.shape != () or not np.issubdtype(step.dtype, np.integer):
+        raise TypeError(f"opt.step must be an integer scalar, got {step.dtype} {step.shape}")
+    return TrainState(
+        params=lm_params_from_jax(state.params, cfg, dev),
+        opt=AdamWState(step=torch.tensor(int(step), dtype=torch.int32, device=dev),
+                       mu=lm_params_from_jax(opt.mu, cfg, dev),
+                       nu=lm_params_from_jax(opt.nu, cfg, dev)))
 
 
 def cache_arrays(cache) -> dict[str, np.ndarray]:

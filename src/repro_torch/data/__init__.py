@@ -1,5 +1,5 @@
-"""Synthetic sparse-SVM data and the libsvm reader (numpy only; same
-arrays as ``repro.data``)."""
+"""Synthetic sparse-SVM data, the libsvm reader and the synthetic token
+pipeline (numpy only; same arrays as ``repro.data``)."""
 
 from .svm import (  # noqa: F401
     CsrData,
@@ -9,3 +9,4 @@ from .svm import (  # noqa: F401
     load_libsvm,
     make_sparse_classification,
 )
+from .tokens import ArraySpec, TokenPipeline, synthetic_batch_specs  # noqa: F401

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, MLPs, embeddings, init helpers.
+"""Shared building blocks: norms, RoPE, MLPs, embeddings, the cross entropy,
+init helpers.
 
 Parameters are the reference's pytrees (``repro.models.layers``): nested
 dicts of tensors. Master parameters are in ``param_dtype`` and every
@@ -110,3 +111,17 @@ def embed(params, tokens, act_dtype=torch.bfloat16):
 
 def lm_logits(head, x, act_dtype=torch.bfloat16):
     return x @ head.to(act_dtype)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, vocab_real: int) -> torch.Tensor:
+    """Mean next-token CE in float32; the padded vocabulary columns (past
+    ``vocab_real``) are set to -1e30, so they take no probability and no
+    gradient."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    if V > vocab_real:
+        pad = torch.arange(V, device=logits.device) >= vocab_real
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)

@@ -1,4 +1,4 @@
-"""Layer-stack assembly: init, prefill, decode.
+"""Layer-stack assembly: init, the train forward and its loss, prefill, decode.
 
 The stack is decomposed into *segments* of repeating layer-pattern *units*
 (see cache.segments_of), as the reference's (``repro.models.transformer``):
@@ -11,8 +11,18 @@ they are; the port runs the units in a Python loop over views of that axis.
 
 Every slot kind runs (attn, mla, ssm, rec; an MoE FFN in place of the MLP;
 enc-dec's cross attention over the encoder's output; the VLM's prefix
-embeddings), in the ``prefill`` and ``decode`` modes. ``loss_fn`` and the
-``train`` mode wait for ROADMAP item 16c.
+embeddings), in the ``train``, ``prefill`` and ``decode`` modes.
+
+Training (``loss_fn``) runs the ``train`` mode under autograd, with no
+cache. Each segment's stacked leaves are unbound once along the units
+(``_units``), so a unit's parameters are views whose gradients autograd
+stacks back into one tensor a leaf (slicing each unit out of the stack
+would make each unit's backward write a zero tensor the size of the whole
+stack). ``cfg.remat`` wraps each unit in a non-reentrant
+``torch.utils.checkpoint``: ``"full"`` recomputes the unit in the backward
+pass, ``"dots"`` saves the outputs of its plain (non-batched) matrix
+products and recomputes the rest (the reference's
+``dots_with_no_batch_dims_saveable``), ``"none"`` saves everything.
 
 The cache is written in place: ``prefill`` fills a new cache, and
 ``decode_step`` writes each unit's new entries into the cache it is given
@@ -25,11 +35,18 @@ rec states stay float32, and the cross-attention K/V are only read.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve_device
+from ..tree import tree_map
 from . import attention as attn_lib
 from . import mla as mla_lib
 from . import moe as moe_lib
@@ -37,6 +54,7 @@ from . import rglru as rglru_lib
 from . import ssm as ssm_lib
 from .cache import init_cache, segments_of
 from .layers import (
+    cross_entropy,
     dense_init,
     embed,
     init_embed,
@@ -131,7 +149,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
 def param_shapes(cfg):
     """The parameter tree of ``cfg`` with each leaf's ``torch.Size``
     (nothing is allocated)."""
-    return _map(lambda t: t.shape, _init_tree(cfg, None, torch.device("meta")))
+    return tree_map(lambda t: t.shape, _init_tree(cfg, None, torch.device("meta")))
 
 
 def serving_params(params, cfg):
@@ -151,14 +169,6 @@ def serving_params(params, cfg):
     return cast(params)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -171,53 +181,65 @@ def _fill(dst, src):
 
 
 def _ffn(p, cfg, x, act):
+    """The block's FFN half. Returns ``(x, aux)``: the MoE's load-balance
+    loss, None without an MoE (the reference adds a float32 zero)."""
+    aux = None
     if "moe" in p:
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + moe_lib.moe_forward(p["moe"], h2, cfg, act_dtype=act)[0]
+        out2, aux = moe_lib.moe_forward(p["moe"], h2, cfg, act_dtype=act)
+        x = x + out2
     elif "mlp" in p:
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + mlp(p["mlp"], h2, cfg.gated_mlp, act_dtype=act)
-    return x
+    return x, aux
 
 
 def _block_full(p, cfg, kind, x, positions, enc_out, slot_cache):
-    """Full-sequence block (prefill); writes the slot's cache entries into
-    ``slot_cache``. Returns x."""
+    """Full-sequence block (train, prefill). With a ``slot_cache`` (prefill)
+    the slot's cache entries are written into it (:func:`_write_slot`);
+    with None (train) nothing is written. Returns ``(x, aux)`` (see
+    :func:`_ffn`)."""
     act = _act_dtype(cfg)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "attn":
         out, (k, v) = attn_lib.attention_forward(p["mix"], h, cfg, positions, act_dtype=act)
-        W = slot_cache["k"].shape[1]
-        S = k.shape[1]
-        for name, new in (("k", k), ("v", v)):
-            if S >= W:
-                # ring semantics: decode writes slot = pos % W, so the last W
-                # keys must land at slots (S-W+i) % W, i.e. roll by S % W
-                new = torch.roll(new[:, -W:], S % W, dims=1)
-            _fill(slot_cache[name], new)
+        new = {"k": k, "v": v}
     elif kind == "mla":
         out, (c_kv, k_rope) = mla_lib.mla_forward(p["mix"], h, cfg, positions, act_dtype=act)
-        _fill(slot_cache["c"], c_kv)
-        _fill(slot_cache["r"], k_rope)
+        new = {"c": c_kv, "r": k_rope}
     elif kind == "ssm":
         out, (conv, state) = ssm_lib.ssm_forward(p["mix"], h, cfg, act_dtype=act)
-        slot_cache["conv"].copy_(conv)
-        slot_cache["state"].copy_(state)
+        new = {"conv": conv, "state": state}
     elif kind == "rec":
         out, (conv, hstate) = rglru_lib.rglru_forward(p["mix"], h, cfg, act_dtype=act)
-        slot_cache["conv"].copy_(conv)
-        slot_cache["h"].copy_(hstate)
+        new = {"conv": conv, "h": hstate}
     else:
         raise ValueError(kind)
     x = x + out
 
     if "cross" in p and enc_out is not None:
         hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
-        cx, (ck, cv) = _cross_attention(p["cross"], hx, enc_out, cfg, act)
+        cx, (new["ck"], new["cv"]) = _cross_attention(p["cross"], hx, enc_out, cfg, act)
         x = x + cx
-        slot_cache["ck"].copy_(ck)
-        slot_cache["cv"].copy_(cv)
+    if slot_cache is not None:
+        _write_slot(slot_cache, new)
     return _ffn(p, cfg, x, act)
+
+
+def _write_slot(slot_cache, new):
+    """A prefill's entries into its slot's new cache: the K/V and MLA
+    latents as sequences (:func:`_fill`; a K/V ring of W slots takes the
+    last W keys, rolled so that decode's slot = pos % W holds), the conv
+    tails, states and cross K/V copied."""
+    for name, t in new.items():
+        if name in ("k", "v"):
+            W, S = slot_cache[name].shape[1], t.shape[1]
+            if S >= W:
+                t = torch.roll(t[:, -W:], S % W, dims=1)
+        if name in ("k", "v", "c", "r"):
+            _fill(slot_cache[name], t)
+        else:
+            slot_cache[name].copy_(t)
 
 
 def _block_decode(p, cfg, kind, x, positions, slot_cache):
@@ -252,7 +274,7 @@ def _block_decode(p, cfg, kind, x, positions, slot_cache):
     if "cross" in p:
         hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
         x = x + _cross_decode(p["cross"], hx, c["ck"], c["cv"], cfg, act)
-    return _ffn(p, cfg, x, act)
+    return _ffn(p, cfg, x, act)[0]
 
 
 def _cross_attention(p, x, enc_out, cfg, act):
@@ -286,30 +308,81 @@ def _cross_decode(p, x, ck, cv, cfg, act):
 # stack runner
 # ---------------------------------------------------------------------------
 
+def _units(tree, n: int) -> list:
+    """The ``n`` units of a stacked tree: every leaf unbound once along its
+    leading axis, so each unit's leaves are views of the stack and autograd
+    stacks their gradients back into one tensor a leaf."""
+    if isinstance(tree, dict):
+        per = {k: _units(v, n) for k, v in tree.items()}
+        return [{k: per[k][u] for k in tree} for u in range(n)]
+    return tree.unbind(0)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the outputs of the plain matrix products
+    (``aten.mm``: ``x @ W`` on any batch of rows), recompute the rest,
+    batched products (``bmm``: attention, the SSD, the experts) included."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """``fn`` under ``cfg.remat`` while autograd records (see the module's
+    docstring); as it is otherwise."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, **kw)
+
+
+def _train_unit(cfg, pattern, positions, enc_out, x, aux, up):
+    """One unit of the ``train`` mode: its slots in order, no cache; the
+    MoE losses added to ``aux`` in the reference's order."""
+    for si, kind in enumerate(pattern):
+        x, a = _block_full(up[f"s{si}"], cfg, kind, x, positions, enc_out, None)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def _run_segments(params, cfg, x, positions, cache, enc_out, mode):
-    """mode: 'prefill' | 'decode'. Returns (x, cache)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is not ported yet (ROADMAP item 16c)")
+    """mode: 'train' | 'prefill' | 'decode'. Returns ``(x, cache, aux)``: in
+    the ``train`` mode no cache (``cache`` is not read) and ``aux`` the MoE
+    load-balance losses summed in float32; in the serving modes the cache
+    written and no ``aux`` (their callers drop it)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got {mode!r}")
+    if mode == "train":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for gi, (pattern, n_units) in enumerate(segments_of(cfg)):
+            body = _remat(cfg, functools.partial(_train_unit, cfg, pattern, positions, enc_out))
+            for up in _units(params["segments"][gi], n_units):
+                x, aux = body(x, aux, up)
+        return x, None, aux
     act = _act_dtype(cfg)
     segments = []
     for gi, (pattern, n_units) in enumerate(segments_of(cfg)):
-        seg_params = params["segments"][gi]
         seg_cache = cache["segments"][gi]
         if mode == "decode":
             # the reference's blend promotes these leaves to the compute
             # dtype; promoting the stack once lets every unit write its view
             seg_cache = {s: {n: t.to(torch.promote_types(t.dtype, act)) if n in BLENDED else t
                              for n, t in c.items()} for s, c in seg_cache.items()}
-        for u in range(n_units):
+        for u, up in enumerate(_units(params["segments"][gi], n_units)):
             for si, kind in enumerate(pattern):
-                sp = _map(lambda t: t[u], seg_params[f"s{si}"])
+                sp = up[f"s{si}"]
                 sc = {n: t[u] for n, t in seg_cache[f"s{si}"].items()}
                 if mode == "decode":
                     x = _block_decode(sp, cfg, kind, x, positions, sc)
                 else:
-                    x = _block_full(sp, cfg, kind, x, positions, enc_out, sc)
+                    x = _block_full(sp, cfg, kind, x, positions, enc_out, sc)[0]
         segments.append(seg_cache)
-    return x, {"segments": segments}
+    return x, {"segments": segments}, None
 
 
 def _encode(params, cfg, enc_embeds):
@@ -318,9 +391,7 @@ def _encode(params, cfg, enc_embeds):
     x = enc_embeds.to(act)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    layers = params["encoder"]["layers"]
-    for u in range(cfg.enc_layers):
-        p = _map(lambda t: t[u], layers)
+    for p in _units(params["encoder"]["layers"], cfg.enc_layers):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         q, k, v = attn_lib._project_qkv(p["mix"], h, cfg, positions, act)
         out = attn_lib._sdpa_chunked(q, k, v, positions, positions, causal=False, window=0,
@@ -349,6 +420,42 @@ def _logits(params, cfg, x):
 # public entry points
 # ---------------------------------------------------------------------------
 
+def loss_fn(params, cfg, batch, aux_coef: float = 0.01):
+    """Next-token CE (+ the MoE load-balance aux). Returns ``(loss, {"ce",
+    "aux"})``, 0-dim float32 tensors.
+
+    ``batch``: ``tokens`` and ``targets`` (B, S) integer tensors on the
+    parameters' device, and an enc-dec model's ``enc_embeds`` or a VLM's
+    ``prefix_embeds`` as :func:`prefill` takes them. When ``cfg.loss_chunk``
+    divides S and is smaller than S, the CE runs over sequence chunks, each
+    chunk's logits inside its own checkpoint (recomputed in the backward
+    pass), so the (B, S, V) logits never exist at once.
+    """
+    tokens, targets = batch["tokens"], batch["targets"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = _embed_inputs(params, cfg, tokens, batch)
+    enc_out = _encode(params, cfg, batch["enc_embeds"]) if cfg.family == "encdec" else None
+    x, _, aux = _run_segments(params, cfg, x, positions, None, enc_out, "train")
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+    def chunk_ce(xb, tb):
+        return cross_entropy(_logits(params, cfg, xb), tb, cfg.vocab_size)
+
+    lc = cfg.loss_chunk
+    if lc and S % lc == 0 and S > lc:
+        if torch.is_grad_enabled():
+            chunk_ce = functools.partial(checkpoint, chunk_ce, use_reentrant=False,
+                                         preserve_rng_state=False)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, S, lc):
+            total = total + chunk_ce(x[:, c:c + lc], targets[:, c:c + lc])
+        ce = total / (S // lc)
+    else:
+        ce = chunk_ce(x, targets)
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+
+
 def prefill(params, cfg, batch, max_seq: Optional[int] = None):
     """Process a full prompt; returns (last-token logits, cache).
 
@@ -364,7 +471,7 @@ def prefill(params, cfg, batch, max_seq: Optional[int] = None):
     cache = init_cache(cfg, batch=B, max_seq=max_seq or S, device=tokens.device)
     x = _embed_inputs(params, cfg, tokens, batch)
     enc_out = _encode(params, cfg, batch["enc_embeds"]) if cfg.family == "encdec" else None
-    x, cache = _run_segments(params, cfg, x, positions, cache, enc_out, "prefill")
+    x, cache, _ = _run_segments(params, cfg, x, positions, cache, enc_out, "prefill")
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return _logits(params, cfg, x)[:, 0], cache
 
@@ -373,6 +480,6 @@ def decode_step(params, cfg, tokens, positions, cache):
     """One AR step for a batch. tokens: (B,1); positions: (B,). The new
     entries go into ``cache`` in place; returns (logits, cache)."""
     x = embed(params["embed"], tokens, act_dtype=_act_dtype(cfg))
-    x, cache = _run_segments(params, cfg, x, positions, cache, None, "decode")
+    x, cache, _ = _run_segments(params, cfg, x, positions, cache, None, "decode")
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x)[:, 0], cache

@@ -125,3 +125,24 @@ def interrupted_path(grid, arrays, cfg):
     except Interrupted:
         return cfg["stop"]
     return None
+
+
+def compressed_psum_rank(grid, arrays, cfg):
+    """``optim.compressed_psum`` over the whole world, ``cfg["rounds"]``
+    times with error feedback: this rank's row of ``arrays["x"]``, its own
+    generator (``cfg["seed"] + rank``). Returns each round's mean and error
+    and the rank's first-round quantization (``x - error``)."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compressed_psum
+
+    torch.set_num_threads(1)
+    rank = dist.get_rank()
+    x = torch.from_numpy(np.array(arrays["x"][rank]))
+    gen = torch.Generator().manual_seed(cfg["seed"] + rank)
+    means, errors, err = [], [], None
+    for _ in range(cfg["rounds"]):
+        mean, err = compressed_psum(x, None, gen, err)
+        means.append(_np(mean))
+        errors.append(_np(err))
+    return {"rank": rank, "means": np.stack(means), "errors": np.stack(errors)}

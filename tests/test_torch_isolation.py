@@ -140,3 +140,54 @@ def test_state_from_numpy_checks_dtypes_and_shapes():
         state_from_numpy({"theta": X}, "cpu")
     with pytest.raises(ValueError, match="unknown"):
         state_from_numpy({"Z": X}, "cpu")
+
+
+_TRAIN_PROBE = r"""
+import importlib, sys
+for name in ("repro_torch.data.tokens", "repro_torch.optim", "repro_torch.optim.adamw",
+             "repro_torch.optim.schedule", "repro_torch.optim.compression",
+             "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.convert",
+             "repro_torch.tree", "repro_torch.examples.train_lm",
+             "repro_torch.examples.sparse_probe"):
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro" or k.startswith("repro."))
+if bad:
+    sys.exit(f"loaded {bad}")
+print("ok")
+"""
+
+
+def test_training_modules_import_neither_jax_nor_reference():
+    """The training slice's modules (the token pipeline, the optimizer, the
+    train step and trainer, the tree walk, the examples), imported together in a fresh
+    interpreter, load no JAX and nothing of ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.split()[-1] == "ok", out.stdout + out.stderr
+
+
+def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """``train``, its ``main``, ``init_train_state`` and both examples run on
+    the card by default and raise without one; ``device="cpu"`` is the only
+    way to the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import sparse_probe, train_lm
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import init_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen2.5-3b")
+    ck = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_mod.train("qwen2.5-3b", steps=1, ckpt_dir=ck)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_mod.main(["--arch", "qwen2.5-3b", "--smoke", "--steps", "1", "--ckpt-dir", ck])
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_state(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_lm.main(["--steps", "1", "--ckpt-dir", ck])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sparse_probe.main([])
+    assert not (tmp_path / "ck").exists()  # nothing ran before the device check

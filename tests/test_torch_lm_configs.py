@@ -106,12 +106,16 @@ def test_cache_layout_matches_reference(arch):
 
 
 def test_unported_modes_and_options_raise():
+    """Every mode of the reference runs (``train`` since the training
+    slice: no cache, the aux loss returned); an unknown mode raises."""
     cfg = configs.get_smoke_config("qwen2.5-3b").replace(dtype="float32")
     params = tr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     x = torch.zeros((1, 4, cfg.d_model))
     positions = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="16c"):
-        tr._run_segments(params, cfg, x, positions, None, None, "train")
+    out, cache, aux = tr._run_segments(params, cfg, x, positions, None, None, "train")
+    assert out.shape == x.shape and cache is None and float(aux) == 0.0
+    with pytest.raises(ValueError, match="mode"):
+        tr._run_segments(params, cfg, x, positions, None, None, "generate")
 
 
 def test_lm_params_from_jax_checks_dtypes_and_shapes():
