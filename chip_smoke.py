@@ -116,7 +116,12 @@ n = 10,000 samples, fp32):
   configuration trained for 8 steps of 4 x 1,024 tokens, bf16 over float32
   masters and moments, ``remat="full"`` (``lm_train``: step ms beside its
   bound, tokens/s, the card's busy share and kernels over a profiled step,
-  peak memory); then the sparse probe, the paper's path on that model's
+  peak memory); the LM mesh on that trained state (``lm_mesh``: the dry
+  run's (1, 1) per-rank state bytes equal to the state's own bytes, its
+  (16, 16) and (2, 16, 16) per-rank bytes, the parameters placed by the
+  sharding rules on a (1, 1) CUDA ``DeviceMesh`` over NCCL, each local
+  shard the whole leaf bit for bit, and a 1 x 64 prefill through the placed
+  parameters bit for bit the plain prefill's); then the sparse probe, the paper's path on that model's
   features (``sparse_probe``: 2,048 features x 4,096 samples, final-norm
   last-position features of 4,096 sequences of 64 tokens; safe against the
   unscreened path, objectives against float64, card against CPU, the
@@ -4111,6 +4116,95 @@ def phase_lm_train(configs, steps_mod) -> tuple:
     return state, cfg
 
 
+LM_MESH = dict(prompt=64, seed=5, budget_s=30.0)
+#: the dry run's meshes of the ``lm_mesh`` phase: (1, 1) and the reference's two
+LM_MESH_SHAPES = {"1x1": ((1, 1), ("data", "model")), "16x16": ((16, 16), ("data", "model")),
+                  "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def phase_lm_mesh(state, cfg) -> None:
+    """The LM mesh, sharding rules and dry run on ``lm_train``'s trained
+    state (already on the card; no big allocation but one copy of the
+    parameters). Checks: the dry run's per-rank state bytes (parameters
+    and both moments, ``dryrun.train_state_arguments`` on a fake world) on
+    (1, 1) equal the state's own bytes exactly; on a real (1, 1) CUDA
+    ``DeviceMesh`` over NCCL (``make_host_mesh``, a world of one) the
+    parameters placed by ``param_shardings`` hold each leaf whole as their
+    local shard, bit for bit; a prefill of 1 x 64 tokens through the placed
+    parameters (DTensors, under the ambient mesh) gives the plain prefill's
+    logits bit for bit; the process group is destroyed before the next
+    phase; the phase within its budget. Prints the (16, 16) and (2, 16, 16)
+    per-rank bytes of the same state (arithmetic of the placements, no
+    reading of any device)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import leaves, tree_keys
+
+    c = LM_MESH
+    t0 = time.perf_counter()
+    dev = leaves(state.params)[0].device
+    state_bytes = lm_bytes(state.params) + lm_bytes(state.opt.mu) + lm_bytes(state.opt.nu)
+    per_rank = {}
+    for name, (shape, names) in LM_MESH_SHAPES.items():
+        with fake_world(math.prod(shape)):
+            st = dryrun.train_state_arguments(
+                cfg, init_device_mesh("cpu", shape, mesh_dim_names=names),
+                moment_dtype=leaves(state.opt.mu)[0].dtype)
+            per_rank[name] = {g: dryrun.local_bytes(t) for g, t in
+                              (("params", st.params), ("mu", st.opt.mu), ("nu", st.opt.nu))}
+    require(sum(per_rank["1x1"].values()) == state_bytes,
+            f"lm_mesh: dry-run (1, 1) state bytes {per_rank['1x1']} against {state_bytes}")
+    require(not dist.is_initialized(), "lm_mesh: a fake world outlived its block")
+
+    tokens = torch.randint(0, cfg.vocab_size, (1, c["prompt"]), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(c["seed"]))
+    with torch.no_grad():
+        want, _ = tr.prefill(state.params, cfg, {"tokens": tokens})
+    mesh = make_host_mesh(device=dev.type)
+    try:
+        require(tuple(mesh.shape) == (1, 1) and mesh.device_type == dev.type
+                and dist.get_world_size() == 1, f"lm_mesh: the card mesh is {mesh}")
+        t1 = time.perf_counter()
+        placed = sharding.param_shardings(state.params, mesh)
+        place_s = time.perf_counter() - t1
+        whole = tree_keys(state.params)
+        for path, t in tree_keys(placed).items():
+            local = t.to_local()
+            require(local.device == dev and local.dtype == whole[path].dtype
+                    and torch.equal(local, whole[path]),
+                    f"lm_mesh: {path}'s local shard is not the whole leaf")
+        tok = distribute_tensor(tokens, mesh, sharding.to_placements(("data", None), mesh),
+                                src_data_rank=None)
+        t1 = time.perf_counter()
+        with torch.no_grad(), sharding.set_mesh(mesh), implicit_replication():
+            got, _ = tr.prefill(placed, cfg, {"tokens": tok})
+            got = got.full_tensor()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        require(torch.equal(got, want),
+                f"lm_mesh: the placed prefill's logits differ by "
+                f"{float((got.float() - want.float()).abs().max())}")
+        del placed, got
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "lm_mesh: the card's process group outlived the phase")
+    seconds = time.perf_counter() - t0
+    require(seconds <= c["budget_s"], f"lm_mesh: {seconds:.1f} s over its {c['budget_s']} s")
+    emit({"phase": "lm_mesh", "arch": cfg.name, "state_bytes": state_bytes,
+          "per_rank_state_bytes": per_rank, "card_mesh": [1, 1], "backend": "nccl"
+          if dev.type == "cuda" else "gloo", "leaves": len(whole), "place_s": place_s,
+          "prefill_tokens": c["prompt"], "prefill_bitwise": True, "prefill_s": prefill_s,
+          "seconds": seconds})
+
+
 def phase_lm_train_resume(configs, steps_mod, train_mod) -> None:
     """The trainer ``train()`` on mamba2-130m whole, on the card, 8 x 512
     tokens: 40 steps uninterrupted (checkpoints every 20), and 20 steps then
@@ -4452,6 +4546,7 @@ def main() -> int:
     # probe's launches join the kernels line)
     phase_lm_train_card_vs_cpu(configs, lm_steps)
     state, train_cfg = phase_lm_train(configs, lm_steps)
+    phase_lm_mesh(state, train_cfg)
     probe_launches = phase_sparse_probe(svm_path, PathDriver, lipschitz_estimate, ops, K,
                                         sparse_probe, state, train_cfg)
     del state

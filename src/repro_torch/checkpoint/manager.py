@@ -19,7 +19,11 @@ The same on-disk format as the reference, so either package's
 A state is a tree of dicts, lists and tuples whose leaves are tensors,
 numpy arrays or numbers (``None`` leaves are skipped). Tensors are copied
 to the host before they are written; :func:`load_pytree` puts a tensor
-leaf back on its template's device and dtype.
+leaf back on its template's device and dtype. A bf16 tensor, which numpy
+cannot hold, is written losslessly as its raw 2-byte values (``|V2``, the
+bytes the reference's ``save`` writes for a bf16 leaf) and restored bit for
+bit (or cast to a template of another dtype); the reference's own
+``restore`` refuses that format (``No cast function available``).
 """
 
 from __future__ import annotations
@@ -54,9 +58,17 @@ def _leaves_with_path(tree, prefix=()):
         yield prefix, tree
 
 
+#: numpy has no bfloat16: a bf16 leaf is stored as its raw 2-byte values,
+#: the bytes and dtype (``|V2``) the reference writes for one
+_BF16_DISK = np.dtype("V2")
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_DISK)
+        return t.numpy()
     return np.asarray(leaf)
 
 
@@ -70,7 +82,11 @@ def save_pytree(tree, path: Path):
 
 def _restore_leaf(arr: np.ndarray, leaf):
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(np.array(arr)).to(device=leaf.device, dtype=leaf.dtype)
+        if arr.dtype == _BF16_DISK:  # a bf16 leaf's bits, either package's
+            t = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))
+        return t.to(device=leaf.device, dtype=leaf.dtype)
     if hasattr(leaf, "dtype"):
         return arr.astype(leaf.dtype)
     return arr

@@ -1,4 +1,5 @@
-"""Architecture registry: ``--arch <id>`` resolution for the LM launchers.
+"""Architecture registry: ``--arch <id>`` resolution for the LM launchers
+and the dry run.
 
 Each module defines ``CONFIG`` (the exact public configuration) and ``SMOKE``
 (a reduced same-family variant for CPU tests), field for field the
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import importlib
 
-from ..models.config import SHAPES, ModelConfig  # noqa: F401
+from ..models.config import SHAPES, ModelConfig, input_specs  # noqa: F401
 
 _MODULES = {
     "mamba2-130m": "mamba2_130m",

@@ -22,7 +22,7 @@ update and selects the old state back). The step's two halves are
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -55,6 +55,28 @@ def _value_and_grads(cfg, params, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
 
+class TrainStep(NamedTuple):
+    """``step(state, batch) -> (state, metrics)`` (see
+    :func:`make_train_step`), and its halves around its one host fetch."""
+    #: ``(state, batch) -> (loss, metrics, grads, lr, grad_norm)``, device
+    #: values only: the gradients, the scheduled rate and their norm
+    device_step: Callable
+    #: ``(state, grads, lr, grad_norm) -> state``: the AdamW update
+    update: Callable
+
+    def __call__(self, state: TrainState, batch):
+        loss_val, metrics, grads, lr, gn = self.device_step(state, batch)
+        # one host fetch a step: what the rejection decides on, and the metrics
+        names = ("loss", "grad_norm", "lr", *metrics)
+        values = torch.stack([loss_val.float(), gn, lr, *metrics.values()]).tolist()
+        out = dict(zip(names, values))
+        bad = not (math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"]))
+        if not bad:
+            state = self.update(state, grads, lr, gn)
+        out["skipped"] = int(bad)
+        return state, out
+
+
 def make_train_step(
     cfg,
     base_lr: float = 3e-4,
@@ -62,7 +84,7 @@ def make_train_step(
     total_steps: int = 10_000,
     microbatches: int = 1,
     weight_decay: float = 0.1,
-):
+) -> TrainStep:
     """``step(state, batch) -> (state, metrics)``. ``batch``: ``tokens`` and
     ``targets`` (B, S) integer tensors on the state's device (and an enc-dec
     model's ``enc_embeds`` or a VLM's ``prefix_embeds``). ``metrics``: host
@@ -70,30 +92,29 @@ def make_train_step(
     ``skipped`` (1 for a rejected step). With ``microbatches > 1`` the
     batch's rows are split into that many microbatches, their gradients
     summed in float32 and averaged, the loss averaged, and ``ce``/``aux``
-    are not reported (the reference's ``metrics = {}``)."""
+    are not reported (the reference's ``metrics = {}``); a batch whose rows
+    do not split evenly raises ``ValueError``."""
 
-    def step(state: TrainState, batch):
+    def device_step(state: TrainState, batch):
         with torch.profiler.record_function("train_step.grads"):
             loss_val, metrics, grads = grads_of(state.params, batch)
         lr = cosine_schedule(state.opt.step, base_lr, warmup_steps, total_steps)
-        gn = global_norm(grads)
-        # one host fetch a step: what the rejection decides on, and the metrics
-        names = ("loss", "grad_norm", "lr", *metrics)
-        values = torch.stack([loss_val.float(), gn, lr, *metrics.values()]).tolist()
-        out = dict(zip(names, values))
-        bad = not (math.isfinite(out["loss"]) and math.isfinite(out["grad_norm"]))
-        if not bad:
-            with torch.profiler.record_function("train_step.update"):
-                _, opt, _ = adamw_update(grads, state.opt, state.params, lr,
-                                         weight_decay=weight_decay, gnorm=gn)
-            state = TrainState(state.params, opt)
-        out["skipped"] = int(bad)
-        return state, out
+        return loss_val, metrics, grads, lr, global_norm(grads)
+
+    def update(state: TrainState, grads, lr, gn) -> TrainState:
+        with torch.profiler.record_function("train_step.update"):
+            _, opt, _ = adamw_update(grads, state.opt, state.params, lr,
+                                     weight_decay=weight_decay, gnorm=gn)
+        return TrainState(state.params, opt)
 
     def grads_of(params, batch):
         if microbatches == 1:
             return _value_and_grads(cfg, params, batch)
-        mb = batch["tokens"].shape[0] // microbatches
+        B = batch["tokens"].shape[0]
+        if B % microbatches:
+            raise ValueError(f"a batch of {B} rows does not split into "
+                             f"microbatches={microbatches} equal microbatches")
+        mb = B // microbatches
         grads = lsum = None
         for i in range(microbatches):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
@@ -109,7 +130,7 @@ def make_train_step(
             acc.div_(microbatches)
         return lsum / microbatches, {}, grads
 
-    return step
+    return TrainStep(device_step, update)
 
 
 def make_serve_step(cfg):

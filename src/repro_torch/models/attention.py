@@ -21,7 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tree import is_distributed
 from .layers import apply_rope, dense_init
+from .sharding import logical_constraint as _lc
+from .sharding import model_axis_size
 
 NEG_INF = -1e30
 
@@ -42,7 +45,6 @@ def init_attention(generator, cfg, dtype, device, lead=()):
 
 
 def _project_qkv(params, x, cfg, positions, act_dtype):
-    B, S, D = x.shape
     H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = x @ params["wq"].to(act_dtype)
     k = x @ params["wk"].to(act_dtype)
@@ -51,12 +53,36 @@ def _project_qkv(params, x, cfg, positions, act_dtype):
         q = q + params["bq"].to(act_dtype)
         k = k + params["bk"].to(act_dtype)
         v = v + params["bv"].to(act_dtype)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, G, hd)
-    v = v.reshape(B, S, G, hd)
+    q = split_heads(q, H, hd)
+    k = split_heads(k, G, hd)
+    v = split_heads(v, G, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = _lc(q, "batch", None, "heads", None)
+    k = _lc(k, "batch", None, "heads", None)   # no-op where G % tp != 0
+    v = _lc(v, "batch", None, "heads", None)
     return q, k, v
+
+
+def split_heads(t, n, hd):
+    """(..., n * hd) -> (..., n, hd). Under a model axis that n does not
+    divide, a feature axis sharded on it has no placement once split, so it
+    is replicated first (and its gradient with it)."""
+    tp = model_axis_size()
+    if tp and n % tp:
+        t = _lc(t, *(["batch"] + [None] * (t.ndim - 1)))
+    return t.reshape(*t.shape[:-1], n, hd)
+
+
+def _grouped(q, G):
+    """q (B, S, H, hd) as the grouped layout reads it. Under a model axis
+    that G does not divide, a head axis sharded on it has no placement once
+    split into (G, rep), so q's heads are replicated first (the layout's
+    cost where the reference repeats K/V to H heads instead)."""
+    tp = model_axis_size()
+    if tp and G % tp:
+        q = _lc(q, "batch", None, None, None)
+    return q
 
 
 def _inv_sqrt(hd: int) -> float:
@@ -84,6 +110,7 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk,
     rep = H // G
     scale = _inv_sqrt(hd)
     probs_bf16 = probs_bf16 and rep == 1
+    q = _grouped(q, G)
 
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
@@ -109,7 +136,8 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk,
         l = torch.zeros_like(m)
         acc = torch.zeros((B, G, rep, q_chunk, dv), dtype=torch.float32, device=q.device)
         for j in range(nk):
-            s = torch.einsum("bgrqd,bgkd->bgrqk", qg, kc[j].float())
+            s = _lc(torch.einsum("bgrqd,bgkd->bgrqk", qg, kc[j].float()),
+                    "batch", "heads", None, None, None)
             dk = kpc[j][:, None, None, None, :]
             mask = torch.ones((B, 1, 1, q_chunk, kv_chunk), dtype=torch.bool, device=q.device)
             if causal:
@@ -160,11 +188,19 @@ def blend_write(cache, new, cache_pos):
     dtype the blend gives (the two dtypes' promotion: a float32 model's bf16
     cache is promoted first, into a new tensor), in place, and a position
     outside [0, W) writes nothing, as the blend's all-zero row. Returns the
-    cache written."""
+    cache written. A DTensor cache (sharded on its batch, heads or sequence
+    axis) is written by a masked select of the whole cache, copied back in
+    place: DTensor has no in-place indexed write that keeps a sharded
+    placement. The values are the same."""
     dt = torch.promote_types(cache.dtype, new.dtype)
     if cache.dtype != dt:
         cache = cache.to(dt)
     B, W = cache.shape[:2]
+    if is_distributed(cache):
+        hit = torch.arange(W, device=cache_pos.device)[None, :] == cache_pos[:, None]
+        cache.copy_(torch.where(hit.reshape(B, W, *([1] * (new.dim() - 1))),
+                                new.to(dt)[:, None], cache))
+        return cache
     rows = torch.arange(B, device=cache.device)
     inside = ((cache_pos >= 0) & (cache_pos < W)).reshape(B, *([1] * (new.dim() - 1)))
     at = cache_pos.clamp(0, W - 1)
@@ -198,8 +234,8 @@ def attention_decode(params, x, cfg, positions, k_cache, v_cache, cache_pos, *,
     else:
         written = slot <= positions[:, None]
 
-    qg = (q.float() / sqrt_f32(hd))[:, 0].reshape(B, G, rep, hd)
-    s = torch.einsum("bgrd,bkgd->bgrk", qg, kf)
+    qg = (_grouped(q, G).float() / sqrt_f32(hd))[:, 0].reshape(B, G, rep, hd)
+    s = _lc(torch.einsum("bgrd,bkgd->bgrk", qg, kf), "batch", "heads", None, None)
     s = torch.where(written[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", p, vf).reshape(B, H, hd)

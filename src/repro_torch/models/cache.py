@@ -12,8 +12,9 @@ The cache mirrors the layer-stack segment structure (see transformer.py):
   ssm  : conv tail (B, K-1, d_in + 2N) and SSD state (B, nh, P, N)
   rec  : conv tail (B, K-1, R) and RG-LRU state h (B, R)
 
-SSM/rec states are float32, everything else bf16, as the reference's. The
-dry run's ``cache_specs`` waits for ROADMAP item 16d.
+SSM/rec states are float32, everything else bf16, as the reference's.
+``cache_specs`` builds the same tree on the meta device (the dry run's
+shapes and dtypes; nothing is allocated).
 """
 
 from __future__ import annotations
@@ -66,11 +67,21 @@ def _slot_shapes(cfg, kind, batch, max_seq) -> dict:
     raise ValueError(kind)
 
 
-def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
-    """Zero-initialized cache (real serving) on ``device``."""
-    dev = resolve_device(device)
+def zero_cache(cfg, batch, max_seq, dev: torch.device):
+    """The zero cache tree on ``dev`` as given (the meta device too)."""
     return {"segments": [
         {f"s{si}": {name: torch.zeros((n_units, *shape), dtype=dtype, device=dev)
                     for name, (shape, dtype) in _slot_shapes(cfg, kind, batch, max_seq).items()}
          for si, kind in enumerate(pattern)}
         for pattern, n_units in segments_of(cfg)]}
+
+
+def cache_specs(cfg, batch: int, max_seq: int):
+    """The cache tree of :func:`init_cache` as meta tensors (dry run; no
+    allocation)."""
+    return zero_cache(cfg, batch, max_seq, torch.device("meta"))
+
+
+def init_cache(cfg, batch: int, max_seq: int, device="cuda"):
+    """Zero-initialized cache (real serving) on ``device``."""
+    return zero_cache(cfg, batch, max_seq, resolve_device(device))

@@ -3,8 +3,10 @@
 One frozen dataclass describes every family (dense / GQA / MLA+MoE / SSM /
 hybrid / enc-dec / vlm); per-arch modules in ``repro_torch/configs``
 instantiate it with the exact public hyper-parameters. It is the
-reference's ``ModelConfig`` (``repro.models.config``) field for field; the
-dry run's ``input_specs`` is not ported yet (ROADMAP item 16d).
+reference's ``ModelConfig`` (``repro.models.config``) field for field.
+``input_specs`` gives a dry-run cell's inputs as meta tensors (shape and
+dtype, no storage), the port's counterpart of the reference's
+``jax.ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -208,3 +212,42 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+# ---------------------------------------------------------------------------
+# dry-run input specs (meta tensors only: nothing is allocated)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """Model inputs for a (config, shape) cell as meta tensors, the
+    reference's ``input_specs`` leaf for leaf: ``tokens`` (and a train
+    cell's ``targets``) int32, an enc-dec model's ``enc_embeds`` and a VLM's
+    ``prefix_embeds`` in the compute dtype; a decode cell's ``tokens`` (B,
+    1), ``positions`` (B,) and the ``cache`` of ``cache.cache_specs``."""
+    sh = SHAPES[shape_name]
+    return cell_inputs(cfg, sh["kind"], sh["batch"], sh["seq"])
+
+
+def cell_inputs(cfg: ModelConfig, kind: str, B: int, S: int) -> dict:
+    """:func:`input_specs` of a ``kind`` ("train", "prefill" or "decode")
+    cell of batch B and sequence (or decode cache) S."""
+    act = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if kind in ("train", "prefill"):
+        spec = {"tokens": meta((B, S), torch.int32)}
+        if kind == "train":
+            spec["targets"] = meta((B, S), torch.int32)
+        if cfg.family == "encdec":
+            spec["enc_embeds"] = meta((B, cfg.enc_seq, cfg.d_model), act)
+        if cfg.family == "vlm":
+            spec["prefix_embeds"] = meta((B, cfg.num_prefix_tokens, cfg.d_model), act)
+        return spec
+
+    # decode: one new token against a cache of size S
+    from .cache import cache_specs  # the cache module imports nothing of this one's users
+
+    return {"tokens": meta((B, 1), torch.int32),
+            "positions": meta((B,), torch.int32),
+            "cache": cache_specs(cfg, batch=B, max_seq=S)}

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..tree import is_distributed
+
 
 def truncated_normal(generator, shape, scale, dtype, device):
     """``scale`` times a standard normal truncated to [-2, 2], as the
@@ -123,5 +125,12 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, vocab_real: int) 
         pad = torch.arange(V, device=logits.device) >= vocab_real
         logits = logits.masked_fill(pad, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if is_distributed(logits):
+        # DTensor's gather cannot index a sharded vocabulary: the gold logit
+        # is the one nonzero term of a masked sum (a partial sum over the
+        # vocabulary's shards), the same value
+        hit = torch.arange(V, device=logits.device) == targets[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(dim=-1)
+    else:
+        gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return torch.mean(lse - gold)

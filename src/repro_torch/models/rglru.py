@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense_init
+from .sharding import logical_constraint as _lc
 from .ssm import causal_conv, softplus
 
 _C = 8.0  # Griffin's recurrence sharpness constant
@@ -109,8 +110,9 @@ def linear_scan(log_a, x, chunk=SCAN_CHUNK):
 
 def rglru_forward(params, x, cfg, conv_state=None, h_state=None, act_dtype=torch.bfloat16):
     """Full-sequence Griffin recurrent block. Returns (out, (conv_state, h))."""
-    gate = F.gelu(x @ params["w_gate"].to(act_dtype), approximate="tanh")
-    u = x @ params["w_rec_in"].to(act_dtype)
+    gate = _lc(F.gelu(x @ params["w_gate"].to(act_dtype), approximate="tanh"),
+               "batch", None, "ffn")
+    u = _lc(x @ params["w_rec_in"].to(act_dtype), "batch", None, "ffn")
     u, new_conv = causal_conv(u, params["conv_w"], params["conv_b"], conv_state)
 
     log_a, x_in = _gates(params, u)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense_init, rmsnorm
+from .sharding import logical_constraint as _lc
 
 
 def softplus(x):
@@ -50,7 +51,8 @@ def _split_proj(params, x, cfg, act_dtype):
     N = cfg.ssm_state
     nh = d_in // cfg.ssm_head_dim
     zxbcdt = x @ params["in_proj"].to(act_dtype)
-    return zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * N], zxbcdt[..., -nh:], d_in, N, nh
+    z = _lc(zxbcdt[..., :d_in], "batch", None, "ffn")
+    return z, zxbcdt[..., d_in:2 * d_in + 2 * N], zxbcdt[..., -nh:], d_in, N, nh
 
 
 def causal_conv(xbc, w, b, conv_state=None):

@@ -46,13 +46,15 @@ from torch.utils.checkpoint import (
 )
 
 from ..device import resolve_device
-from ..tree import tree_map
+from ..tree import is_distributed, tree_map
 from . import attention as attn_lib
 from . import mla as mla_lib
 from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import ssm as ssm_lib
-from .cache import init_cache, segments_of
+from .cache import cache_specs, init_cache, segments_of
+from .sharding import cache_shardings
+from .sharding import logical_constraint as _lc
 from .layers import (
     cross_entropy,
     dense_init,
@@ -146,10 +148,16 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     return _init_tree(cfg, generator, dev)
 
 
+def meta_params(cfg):
+    """The parameter tree of ``cfg`` as meta tensors: each leaf's shape and
+    ``param_dtype``, nothing allocated (the dry run's parameters)."""
+    return _init_tree(cfg, None, torch.device("meta"))
+
+
 def param_shapes(cfg):
     """The parameter tree of ``cfg`` with each leaf's ``torch.Size``
     (nothing is allocated)."""
-    return tree_map(lambda t: t.shape, _init_tree(cfg, None, torch.device("meta")))
+    return tree_map(lambda t: t.shape, meta_params(cfg))
 
 
 def serving_params(params, cfg):
@@ -235,7 +243,9 @@ def _write_slot(slot_cache, new):
         if name in ("k", "v"):
             W, S = slot_cache[name].shape[1], t.shape[1]
             if S >= W:
-                t = torch.roll(t[:, -W:], S % W, dims=1)
+                t = t[:, -W:]
+                if S % W:  # (a roll by 0 is the identity)
+                    t = torch.roll(t, S % W, dims=1)
         if name in ("k", "v", "c", "r"):
             _fill(slot_cache[name], t)
         else:
@@ -282,9 +292,9 @@ def _cross_attention(p, x, enc_out, cfg, act):
     B, S, _ = x.shape
     H, G, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     Se = enc_out.shape[1]
-    q = (x @ p["wq"].to(act)).reshape(B, S, H, hd)
-    k = (enc_out @ p["wk"].to(act)).reshape(B, Se, G, hd)
-    v = (enc_out @ p["wv"].to(act)).reshape(B, Se, G, hd)
+    q = attn_lib.split_heads(x @ p["wq"].to(act), H, hd)
+    k = attn_lib.split_heads(enc_out @ p["wk"].to(act), G, hd)
+    v = attn_lib.split_heads(enc_out @ p["wv"].to(act), G, hd)
     qp = torch.arange(S, device=x.device).expand(B, S)
     kp = torch.arange(Se, device=x.device).expand(B, Se)
     out = attn_lib._sdpa_chunked(q, k, v, qp, kp, causal=False, window=0,
@@ -298,7 +308,7 @@ def _cross_decode(p, x, ck, cv, cfg, act):
     rep = H // G
     kf = ck.float().repeat_interleave(rep, dim=2)
     vf = cv.float().repeat_interleave(rep, dim=2)
-    q = (x @ p["wq"].to(act)).reshape(B, H, hd)
+    q = attn_lib.split_heads(x @ p["wq"].to(act), H, hd).reshape(B, H, hd)
     s = torch.einsum("bhd,bkhd->bhk", q.float() / attn_lib.sqrt_f32(hd), kf)
     out = torch.einsum("bhk,bkhd->bhd", torch.softmax(s, dim=-1), vf)
     return out.reshape(B, 1, H * hd).to(act) @ p["wo"].to(act)
@@ -343,6 +353,7 @@ def _remat(cfg, fn):
 def _train_unit(cfg, pattern, positions, enc_out, x, aux, up):
     """One unit of the ``train`` mode: its slots in order, no cache; the
     MoE losses added to ``aux`` in the reference's order."""
+    x = _lc(x, "batch", None, None)
     for si, kind in enumerate(pattern):
         x, a = _block_full(up[f"s{si}"], cfg, kind, x, positions, enc_out, None)
         if a is not None:
@@ -374,6 +385,8 @@ def _run_segments(params, cfg, x, positions, cache, enc_out, mode):
             seg_cache = {s: {n: t.to(torch.promote_types(t.dtype, act)) if n in BLENDED else t
                              for n, t in c.items()} for s, c in seg_cache.items()}
         for u, up in enumerate(_units(params["segments"][gi], n_units)):
+            if mode != "decode":
+                x = _lc(x, "batch", None, None)
             for si, kind in enumerate(pattern):
                 sp = up[f"s{si}"]
                 sc = {n: t[u] for n, t in seg_cache[f"s{si}"].items()}
@@ -413,7 +426,8 @@ def _embed_inputs(params, cfg, tokens, batch):
 
 def _logits(params, cfg, x):
     head = params["head"] if "head" in params else params["embed"]["tok"].T
-    return lm_logits(head, x, act_dtype=_act_dtype(cfg))
+    out = lm_logits(head, x, act_dtype=_act_dtype(cfg))
+    return _lc(out, "batch", *([None] * (out.ndim - 2)), "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +482,11 @@ def prefill(params, cfg, batch, max_seq: Optional[int] = None):
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    cache = init_cache(cfg, batch=B, max_seq=max_seq or S, device=tokens.device)
+    if is_distributed(tokens):  # the cache placed as the reference's rules place it
+        cache = cache_shardings(cfg, cache_specs(cfg, B, max_seq or S), tokens.device_mesh,
+                                tokens.to_local().device)
+    else:
+        cache = init_cache(cfg, batch=B, max_seq=max_seq or S, device=tokens.device)
     x = _embed_inputs(params, cfg, tokens, batch)
     enc_out = _encode(params, cfg, batch["enc_embeds"]) if cfg.family == "encdec" else None
     x, cache, _ = _run_segments(params, cfg, x, positions, cache, enc_out, "prefill")

@@ -15,7 +15,8 @@ consumes) and one scratch tensor the size of the largest leaf holding the
 terms, every operation the one of the functional form (the same float32
 values, bit for bit; ``tests/test_torch_optim.py``). At qwen2.5-3b's width
 the functional form would hold 4-5 temporaries of a 3.25 GB stacked leaf;
-this one holds one. Other dtypes take the functional form leaf by leaf.
+this one holds one. Other dtypes, and DTensor leaves (the dry run's), take
+the functional form leaf by leaf.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..tree import leaves, tree_map
+from ..tree import is_distributed, leaves, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -45,6 +46,12 @@ def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, float32."""
     total = 0
     for g in leaves(grads):
+        if is_distributed(g):
+            # a sharded DTensor flattened is a strided shard, whose offsets
+            # DTensor builds as a tensor of the leaf's global size: its
+            # square summed in place of the flat dot
+            total = total + torch.sum(torch.square(g.float()))
+            continue
         v = g.reshape(-1) if g.dtype == torch.float32 else g.reshape(-1).float()
         total = total + torch.dot(v, v)
     return torch.sqrt(total)
@@ -109,7 +116,9 @@ def adamw_update(grads, state: AdamWState, params, lr, b1: float = 0.9, b2: floa
     c2 = 1.0 - torch.pow(b2, step.float())
     flat = list(zip(leaves(grads), leaves(state.mu), leaves(state.nu), leaves(params),
                     strict=True))
-    inplace = [all(t.dtype == torch.float32 for t in leaf) for leaf in flat]
+    # DTensor leaves take the functional form: the scratch is a plain tensor
+    dist = bool(flat) and is_distributed(flat[0][0])
+    inplace = [not dist and all(t.dtype == torch.float32 for t in leaf) for leaf in flat]
     size = max((g.numel() for (g, _, _, _), ok in zip(flat, inplace) if ok), default=0)
     scratch = torch.empty(size, dtype=torch.float32, device=step.device) if size else None
     for (g, m, v, p), ok in zip(flat, inplace):

@@ -4,6 +4,8 @@ state), visited in insertion order."""
 
 from __future__ import annotations
 
+from torch.distributed.tensor import DTensor
+
 
 def tree_keys(tree, path: str = "") -> dict:
     """A tree's leaves keyed by their paths, ``"segments/0/s0/k"``: the
@@ -23,6 +25,25 @@ def tree_keys(tree, path: str = "") -> dict:
 def leaves(tree) -> list:
     """A tree's leaves in the order of :func:`tree_keys`."""
     return list(tree_keys(tree).values())
+
+
+def is_distributed(t) -> bool:
+    """Whether ``t`` is a DTensor (a leaf placed on a mesh)."""
+    return isinstance(t, DTensor)
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """:func:`tree_map` with ``fn(path, leaf)``, the paths of
+    :func:`tree_keys`."""
+    def sub(k):
+        return f"{path}/{k}" if path else str(k)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, sub(k)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, sub(i)) for i, v in enumerate(tree)]
+    if isinstance(tree, tuple):
+        return tuple(tree_map_with_path(fn, v, sub(i)) for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def tree_map(fn, tree):

@@ -95,6 +95,30 @@ def test_roundtrip(tmp_path):
     assert restored["opt"]["step"].dtype == torch.int32
 
 
+def test_bf16_leaves_round_trip_and_read_the_reference(tmp_path):
+    """A bf16 leaf (numpy has none) is written as its 2-byte values and comes
+    back bit for bit, or cast to a float32 template; the port reads the
+    reference's own bf16 checkpoint the same way, while the reference's
+    ``restore`` refuses both (``ValueError``, its own format included)."""
+    vals = torch.tensor([1.5, -2.25, 3.0, float("inf"), -0.0, 1e-40], dtype=torch.bfloat16)
+    mgr = CheckpointManager(tmp_path / "port")
+    mgr.save(1, {"m": vals, "w": torch.ones(3)})
+    back, _ = mgr.restore(1, {"m": torch.zeros(6, dtype=torch.bfloat16), "w": torch.zeros(3)})
+    assert back["m"].dtype == torch.bfloat16
+    assert torch.equal(back["m"].view(torch.int16), vals.view(torch.int16))
+    as32, _ = mgr.restore(1, {"m": torch.zeros(6), "w": torch.zeros(3)})
+    assert torch.equal(as32["m"], vals.float())
+
+    ref = RefManager(tmp_path / "ref")
+    ref.save(1, {"m": jnp.asarray(vals.float().numpy(), jnp.bfloat16)})
+    from_ref, _ = CheckpointManager(tmp_path / "ref").restore(
+        1, {"m": torch.zeros(6, dtype=torch.bfloat16)})
+    assert torch.equal(from_ref["m"].view(torch.int16), vals.view(torch.int16))
+    for d in ("port", "ref"):
+        with pytest.raises(ValueError):
+            RefManager(tmp_path / d).restore(1, {"m": jnp.zeros(6, jnp.bfloat16)})
+
+
 def test_keep_k_gc(tmp_path):
     mgr = CheckpointManager(tmp_path, keep=2)
     for step in (1, 2, 3, 4):

@@ -38,6 +38,10 @@ print(all(m in mods for m in (
     "repro_torch.configs", "repro_torch.models.transformer", "repro_torch.launch.serve",
     "repro_torch.core.paper_reference")))
 print(all(f"repro_torch.models.{m}" in mods for m in ("mla", "moe", "ssm", "rglru")))
+print(all(m in mods for m in ("repro_torch.models.sharding", "repro_torch.launch.mesh",
+                              "repro_torch.launch.dryrun")))
+import torch.distributed as dist
+print(dist.is_available() and not dist.is_initialized())
 """
 
 
@@ -50,13 +54,15 @@ def test_port_imports_neither_jax_nor_reference():
     # the three modules of repro_torch.sparse, core/distributed.py, the
     # obs, checkpoint and testing packages, the path server, and the LM
     # scaffold (configs, models, the serving loop) and the paper's closed
-    # forms among them, and the other LM families' blocks (MLA, MoE, SSD,
-    # RG-LRU)
-    count, has_scan, has_sparse, has_dist, has_14a, has_server, has_lm, has_16b = \
-        out.stdout.split()[-8:]
-    assert int(count) >= 66 and has_scan == "True" and has_sparse == "True"
+    # forms among them, the other LM families' blocks (MLA, MoE, SSD,
+    # RG-LRU), and the LM mesh, sharding rules and dry run; importing them
+    # all started no process group
+    (count, has_scan, has_sparse, has_dist, has_14a, has_server, has_lm, has_16b, has_16d,
+     no_group) = out.stdout.split()[-10:]
+    assert int(count) >= 69 and has_scan == "True" and has_sparse == "True"
     assert has_dist == "True" and has_14a == "True" and has_server == "True"
-    assert has_lm == "True" and has_16b == "True"
+    assert has_lm == "True" and has_16b == "True" and has_16d == "True"
+    assert no_group == "True"
 
 
 def test_cuda_request_raises_without_gpu(monkeypatch):
@@ -166,6 +172,19 @@ def test_training_modules_import_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.split()[-1] == "ok", out.stdout + out.stderr
+
+
+def test_host_mesh_raises_without_gpu(monkeypatch):
+    """``make_host_mesh`` builds its mesh on the card by default and raises
+    without one, before it starts a process group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_host_mesh()
+    assert not dist.is_initialized()
 
 
 def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):

@@ -119,6 +119,48 @@ def test_nan_step_is_rejected_and_leaves_the_state_bit_for_bit():
     assert m3["skipped"] == 0 and np.isfinite(m3["loss"])
 
 
+def test_uneven_microbatches_raise():
+    """B = 3 rows do not split into 2 microbatches: the step raises
+    ``ValueError`` naming both (the reference's reshape raises too), where
+    it once dropped the last row; an even split still runs."""
+    cfg = get_smoke_config("qwen2.5-3b")
+    st = steps.init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = steps.make_train_step(cfg, microbatches=2)
+    odd = {"tokens": torch.zeros((3, 16), dtype=torch.int32),
+           "targets": torch.zeros((3, 16), dtype=torch.int32)}
+    with pytest.raises(ValueError, match=r"3 rows.*microbatches=2"):
+        step(st, odd)
+    assert int(st.opt.step) == 0
+    even = {k: v[:2] for k, v in odd.items()}
+    _, m = step(st, even)
+    assert m["skipped"] == 0 and np.isfinite(m["loss"])
+
+
+def test_bf16_moment_state_checkpoint_round_trips_bit_for_bit(tmp_path):
+    """``init_train_state(moment_dtype=torch.bfloat16)`` after one step: the
+    checkpoint restores every leaf bit for bit in its dtype, the bf16
+    moments among them (numpy has no bfloat16; the manager writes their
+    2-byte values)."""
+    cfg = get_smoke_config("qwen2.5-3b")
+    st = steps.init_train_state(cfg, torch.Generator().manual_seed(0), "cpu",
+                                moment_dtype=torch.bfloat16)
+    batch = {"tokens": torch.arange(32, dtype=torch.int32).reshape(2, 16) % 7,
+             "targets": torch.arange(32, dtype=torch.int32).reshape(2, 16) % 5}
+    st, _ = steps.make_train_step(cfg)(st, batch)
+    assert leaves(st.opt.mu)[0].dtype == torch.bfloat16
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, st)
+    template = steps.init_train_state(cfg, torch.Generator().manual_seed(1), "cpu",
+                                      moment_dtype=torch.bfloat16)
+    back, _ = mgr.restore(1, template)
+    assert isinstance(back, steps.TrainState)
+    for a, b in zip(leaves(st), leaves(back), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        if a.dtype == torch.bfloat16:
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert any(bool(t.ne(0).any()) for t in leaves(back.opt.mu))
+
+
 def test_resume_is_exact(tmp_path):
     """Stopped after 8 of 16 steps and resumed: the resumed steps' losses and
     the final parameters and moments are the uninterrupted run's, bit for
