@@ -133,10 +133,12 @@ n = 10,000 samples, fp32):
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
-margin, gradient or sample-surplus kernel ran its scalar variant there
-(the full-width paths' rows are 16-byte aligned: every launch must take
-the bulk-copy variant). The kernel checks include shapes and views that
-reach both variants of all three kernels (``VARIANT_CASES``), the margin
+margin, gradient, sample-surplus or feature-screen kernel ran its scalar
+variant there (the full-width paths' rows are 16-byte aligned: every
+launch must take the bulk variant). The kernel checks include shapes and
+views that reach both variants of all four kernels (``VARIANT_CASES``),
+the feature screen's two variants giving the same bits on X and on a copy
+of it off a 16-byte boundary, the margin
 with no live row (``valid_m = 0``), the feature screen's dynamic
 variant (sample weights, the gap-sphere cap, a NaN theta), its EDPP mode
 (exact, inexact and degenerate anchors, a NaN theta, never above the VI
@@ -197,6 +199,9 @@ SURPLUS_CASES = [(False, math.inf, math.inf), (True, math.inf, math.inf),
 # feature-screen dynamic variant cases: (sample weights, gap-sphere cap)
 DYNAMIC_CASES = [(False, True), (True, False), (True, True)]
 CHUNK_M = 2048  # out-of-core phases: feature rows per chunk
+# the feature screen's launches, each counted by variant (kernels/screen.py)
+SCREEN_KERNELS = ("screen_bounds", "screen_bounds_dynamic", "screen_bounds_edpp",
+                  "screen_bounds_edpp_weighted", "screen_partial")
 # LIBSVM's news20.binary: features, samples, nonzeros
 NEWS20 = dict(m=1_355_191, n=19_996, nnz=9_097_916)
 NEWS20_RATIO = 0.3  # the news20-shaped path's lam_min_ratio (8 lambdas)
@@ -260,6 +265,44 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph (after one eager warm-up call), one replay timed with CUDA
+    events, over ``reps``. Unlike :func:`timed_ms` it leaves out the host's
+    time per call (a wrapper's checks, allocations and launch), which at a
+    small shape can be longer than the kernel's. ``fn`` must copy nothing
+    from the host (a capture refuses it)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def screen_device_times(screen, X, y, theta, scalars, weights, edpp, name, reps,
+                        want_d_theta=False) -> dict:
+    """One feature-screen launch (its packed ``scalars`` given) and
+    ``torch.mv(X, y theta)``, the one library call that reads the same bytes
+    (it gives d_theta only), each by its device time (:func:`device_ms`);
+    and the library call's time per call (:func:`timed_ms`)."""
+    v = y * theta
+    return {"device_ms": device_ms(lambda: screen._launch_features(
+                X, y, theta, scalars, weights, edpp, name, want_d_theta), reps),
+            "mv_ms": timed_ms(lambda: torch.mv(X, v), reps),
+            "mv_device_ms": device_ms(lambda: torch.mv(X, v), reps)}
+
+
 #: the rows of the feature screen's partial sums (``FeatureReductions``)
 SCREEN_SUMS = ("d_theta", "d_one", "d_y", "d_sq")
 
@@ -298,8 +341,8 @@ class Kernels:
                         "screen_bounds_edpp_weighted": 0.0,
                         "sample_surplus": 0.0, "margin_partial": 0.0,
                         "screen_partial": 0.0, "sample_partial": 0.0}
-        self.variants_seen = {"margin_obj": set(), "hinge_grad": set(),
-                              "sample_surplus": set()}
+        self.variants_seen = {name: set() for name in (
+            "margin_obj", "hinge_grad", "sample_surplus", *SCREEN_KERNELS)}
 
     def _variant(self, name, counts, X, where):
         """The variant a kernel just launched: the bulk one exactly when
@@ -310,6 +353,51 @@ class Kernels:
         require(launched == [want], f"{name} {where}: launched {launched}, want {want}")
         self.variants_seen[name].add(want)
         return want
+
+    def screen_variants(self, before, X, where) -> str:
+        """Every feature-screen launch since ``before`` (a copy of the
+        screen's variant counts) took the variant X's alignment allows."""
+        want = "bulk" if self.hinge.bulk_aligned(X) else "scalar"
+        for name in SCREEN_KERNELS:
+            table = self.screen.VARIANTS[name]
+            launched = [v for v in table if table[v] > before[name][v]]
+            require(launched in ([], [want]), f"{name} {where}: launched {launched}, "
+                                              f"want {want}")
+            if launched:
+                self.variants_seen[name].add(want)
+        return want
+
+    def screen_bits_across_variants(self, X, y, gen, where) -> dict:
+        """The feature screen sums in one order in both variants: X and a
+        copy of it one item off a 16-byte boundary (the scalar variant)
+        give the same bits in the VI mode with its d_theta output, the
+        dynamic variant, the EDPP and weighted EDPP modes and the weighted
+        partial sums."""
+        n = X.shape[1]
+        sc = self.screen
+        flat = torch.zeros(X.numel() + 1, dtype=X.dtype, device="cuda")
+        flat[1:] = X.reshape(-1)
+        Xs = flat[1:].view(X.shape)
+        require(not self.hinge.bulk_aligned(Xs), f"screen {where}: the copy is aligned")
+        s = (torch.rand(n, generator=gen) < 0.7).float().cuda()
+        theta = (torch.rand(n, generator=gen) / 5.0).cuda()
+        sh = self.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
+        e = self.edpp_scalars(y, 5.0, 3.0, theta, delta=0.01)
+        shw, ew = self.weighted_scalars(y, 5.0, 3.0, theta * s, 0.01, s)
+        cap = torch.tensor(0.05, device="cuda")
+        calls = {
+            "vi_d_theta": lambda A: sc.screen_bounds_from_shared(A, y, theta, sh,
+                                                                 want_d_theta=True),
+            "dynamic": lambda A: (sc.screen_bounds_from_shared(A, y, theta * s, shw, s,
+                                                               cap),),
+            "edpp": lambda A: (sc.screen_bounds_edpp(A, y, theta, sh, e),),
+            "edpp_weighted": lambda A: (sc.screen_bounds_edpp(A, y, theta * s, shw, ew,
+                                                              weights=s),),
+            "partial_weighted": lambda A: (sc.screen_partial_op(A, y, theta, s),)}
+        out = {tag: all(torch.equal(p, q) for p, q in zip(call(X), call(Xs)))
+               for tag, call in calls.items()}
+        require(all(out.values()), f"screen {where}: the two variants' bits differ {out}")
+        return out
 
     def _check(self, name, got, want, k, where):
         err = float((got.float() - want.float()).abs().max())
@@ -519,15 +607,23 @@ class Kernels:
                 f"serve slot {where}: weighted EDPP above weighted VI")
         checks["screen weighted edpp"]["below_vi"] = int((got_e < got_v).sum())
         turns = [timed_ms(f, reps) for f in (vi, edpp, edpp, vi)]
-        for name, plain, ms, extra in (
+        packed = {False: sc.pack_shared(sh), True: sc.pack_shared(sh, edpp=e)}
+        names = {False: "screen_bounds_dynamic", True: "screen_bounds_edpp_weighted"}
+        dturns = [device_ms(lambda: sc._launch_features(X, y, theta, packed[f], s, f,
+                                                        names[f]), reps)
+                  for f in (False, True, True, False)]
+        mv = screen_device_times(sc, X, y, theta, packed[False], s, False, names[False],
+                                 reps)
+        for name, plain, ms, dms, extra in (
                 ("screen_bounds_dynamic",
                  lambda: sc.screen_bounds_plain(X, y, theta, sh, s),
-                 0.5 * (turns[0] + turns[3]), 70),
+                 0.5 * (turns[0] + turns[3]), 0.5 * (dturns[0] + dturns[3]), 70),
                 ("screen_bounds_edpp_weighted",
                  lambda: sc.screen_bounds_edpp_plain(X, y, theta, sh, e, s),
-                 0.5 * (turns[1] + turns[2]), 80)):
+                 0.5 * (turns[1] + turns[2]), 0.5 * (dturns[1] + dturns[2]), 80)):
             timing[name] = [{
-                "shape": [m, n, m], "step": "slot", "ms": ms,
+                "shape": [m, n, m], "step": "slot", "ms": ms, "device_ms": dms,
+                "mv_ms": mv["mv_ms"], "mv_device_ms": mv["mv_device_ms"],
                 "plain_ms": timed_ms(plain, reps), "library_ms": None,
                 "bytes": m * n * 4 + 3 * n * 4 + 64 + m * 4,
                 "flops": 8 * m * n + 2 * n + extra * m,
@@ -747,8 +843,9 @@ def phase_build(build) -> None:
 def phase_kernels_ragged(K, gen) -> None:
     """Every kernel at the ragged test shapes and the variant cases, fp32
     and bf16, valid_m < m (the margin also at valid_m = 0); each redesigned
-    kernel must take the variant its input's alignment allows, and both
-    variants of each must run."""
+    kernel must take the variant its input's alignment allows, both
+    variants of each must run, and the feature screen's two variants must
+    give the same bits."""
     for m, n, off in [(m, n, 0) for m, n in RAGGED] + VARIANT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             X = torch.randn(m + off, n, generator=gen).to("cuda", dtype)[off:]
@@ -762,6 +859,7 @@ def phase_kernels_ragged(K, gen) -> None:
                 res[f"grad_vm{vm}"] = K.grad(X, y, xi, vm, f"{m}x{n} {dtype} vm={vm}")
             theta = (torch.rand(n, generator=gen) / 5.0).cuda()
             sh = K.shared_scalars(y, 5.0, 3.0, theta, delta=0.01)
+            before = {k: dict(K.screen.VARIANTS[k]) for k in SCREEN_KERNELS}
             res["screen"] = K.bounds(X, y, theta, sh, f"{m}x{n} {dtype}")
             res["screen_dynamic"] = K.dynamic(X, y, gen, f"{m}x{n} {dtype}")
             res["screen_edpp"] = K.edpp(X, y, gen, f"{m}x{n} {dtype}")
@@ -769,6 +867,9 @@ def phase_kernels_ragged(K, gen) -> None:
             res["screen_d_theta"] = K.d_theta(X, y, gen, f"{m}x{n} {dtype}")
             res["sample_surplus"] = K.surplus(X, w, y, gen, f"{m}x{n} {dtype}")
             res["partial_modes"] = K.partial(X, w, y, gen, f"{m}x{n} {dtype}")
+            res["screen_variant"] = K.screen_variants(before, X, f"{m}x{n} {dtype}")
+            res["screen_variants_bitwise"] = K.screen_bits_across_variants(
+                X, y, gen, f"{m}x{n} {dtype}")
             emit({"phase": "kernels_ragged", "shape": [m, n], "row_offset": off,
                   "dtype": str(dtype), "bulk_aligned": K.hinge.bulk_aligned(X),
                   "checks": res})
@@ -837,10 +938,12 @@ def phase_kernels_full(K, X, y, gen, lam_max_fn, theta_fn) -> None:
 
 def require_bulk(ops, launches, names, where, variants=None) -> dict:
     """Every launch of each redesigned kernel in a full-width path took the
-    bulk variant (the path's X, gather buffers and masks are aligned).
+    bulk variant (the path's X, gather buffers and masks are aligned): the
+    kernels ``names`` and every feature-screen launch of the run.
     ``variants``: the variant counts of the run (default: the current
     ones)."""
     variants = ops.variant_counts() if variants is None else variants
+    names = (*names, *(k for k in SCREEN_KERNELS if launches.get(k, 0)))
     for name in names:
         v = variants[name]
         require(v["bulk"] > 0 and v["bulk"] == launches[name],
@@ -1960,8 +2063,9 @@ def phase_chunked_path(PathDriver, svm_path, ops, sparse, screen_mod, shared_sca
     in-core path ``res``. Printed: kept counts beside ``res``'s, the stream
     stats, the parts' walls, the walls in turns with the in-core path
     (in-core, chunked, in-core; the chunked turn is the checked run), and
-    the screen kernel's ms on one chunk (with its d_theta output, CUDA
-    events) beside the chunk's bound."""
+    the screen kernel's ms on one chunk (with its d_theta output) per call
+    and by device time, beside ``torch.mv(chunk, y theta)``'s and the
+    chunk's bound."""
     fc = sparse.FeatureChunked.from_dense(X_host, chunk_m=CHUNK_M)
 
     def incore():
@@ -2003,6 +2107,8 @@ def phase_chunked_path(PathDriver, svm_path, ops, sparse, screen_mod, shared_sca
     packed = screen_mod.pack_shared(sh).cuda()
     screen_ms = timed_ms(lambda: screen_mod.screen_bounds_from_shared(
         chunk, y, theta0, sh, want_d_theta=True, scalars=packed), 50)
+    dev_t = screen_device_times(screen_mod, chunk, y, theta0, packed, None, False,
+                                "screen_bounds", 50, want_d_theta=True)
     rel = np.abs(res_ch.objectives - res.objectives) / np.abs(res.objectives)
     require(float(rel.max()) <= 1e-5,
             f"chunked path vs in-core path: rel {float(rel.max()):.3e}")
@@ -2018,6 +2124,7 @@ def phase_chunked_path(PathDriver, svm_path, ops, sparse, screen_mod, shared_sca
           "walls_s": {"order": "in-core, chunked, in-core", "s": walls},
           "screen_ms_per_chunk": screen_ms,
           "screen_bound_ms_per_chunk": CHUNK_M * X.shape[1] * 4 / HBM_BYTES_PER_S * 1e3,
+          **{f"screen_{k}_per_chunk": v for k, v in dev_t.items()},
           "launches": launches, "variants": variants})
     return launches
 
@@ -2116,8 +2223,9 @@ def phase_chunked_sparse_path(PathDriver, ops, sparse, screen_mod, shared_scalar
     bounds, weights and objectives bit for bit; the feature-screen kernel
     launched once per live chunk, the margin and gradient kernels' bulk
     variant. Printed: kept counts, live chunks per step, bytes put, the
-    parts' walls, the screen's mean ms per chunk (a densified chunk,
-    CUDA events) beside its bound and the ms of writing it densely."""
+    parts' walls, the screen's mean ms per chunk (a densified chunk, per
+    call and by device time, beside ``torch.mv``'s) beside its bound and
+    the ms of writing it densely."""
     m, n = NEWS20["m"], NEWS20["n"]
     t0 = time.perf_counter()
     (data, cols, indptr), y_np = make_news20_like(**NEWS20, seed=0)
@@ -2195,6 +2303,8 @@ def phase_chunked_sparse_path(PathDriver, ops, sparse, screen_mod, shared_scalar
     dense = chunk.dense()
     screen_ms = timed_ms(lambda: screen_mod.screen_bounds_from_shared(
         dense, y, theta, sh, want_d_theta=True, scalars=packed), 50)
+    dev_t = screen_device_times(screen_mod, dense, y, theta, packed, None, False,
+                                "screen_bounds", 50, want_d_theta=True)
     densify_ms = timed_ms(chunk.dense, 50)
     chunk_bytes = chunk.rows * n * 4
     emit({"phase": "chunked_sparse_path", "shape": [m, n], "nnz": int(indptr[-1]),
@@ -2217,6 +2327,7 @@ def phase_chunked_sparse_path(PathDriver, ops, sparse, screen_mod, shared_scalar
           "screen_launches": launches["screen_bounds"],
           "screen_ms_per_chunk": screen_ms,
           "screen_bound_ms_per_chunk": chunk_bytes / HBM_BYTES_PER_S * 1e3,
+          **{f"screen_{k}_per_chunk": v for k, v in dev_t.items()},
           "densify_ms_per_chunk": densify_ms, "chunk_rows": chunk.rows,
           "chunk_nnz": int(chunk.val.shape[0]), "launches": launches,
           "variants": variants})
@@ -2553,8 +2664,8 @@ def phase_trace(svm_path, obs_trace, train_main, X, y) -> None:
             f"trace: {syncs_on} host syncs traced against {syncs_off} untraced")
     require(overhead < 0.02, f"trace: tracing costs {overhead:.2%} of the path wall "
             f"(median of {TRACE_PAIRS} pairs)")
-    want = {"scan": ("margin_partial", "hinge_grad", "screen_features"),
-            "host_composite": ("margin_partial", "hinge_grad", "screen_features",
+    want = {"scan": ("margin_partial", "hinge_grad", "screen_sweep"),
+            "host_composite": ("margin_partial", "hinge_grad", "screen_sweep",
                                "sample_partial")}
     for label, kernels in want.items():
         prof = out["profiles"][label]
@@ -2884,8 +2995,10 @@ def phase_sharded_small_vs_plain(D, card) -> None:
 
 def phase_partial_timing(hinge, screen, shared_scalars, edpp_scalars, X, y) -> dict:
     """Each partial mode on the full-width block of a 2 x 2 grid (25,000 x
-    5,000 fp32), its plain version and the library call, its finalize, the
-    error against the plain sums, and the least time the card could take;
+    5,000 fp32), its plain version and the library call (the feature
+    screen's: ``torch.mv(X, y theta)``, d_theta only; the screen and its
+    library call also by device time), its finalize, the error against the
+    plain sums, and the least time the card could take;
     and a partial launch then its finalize on that block against the full
     launch, bit for bit (the 1 x 1 contract at the block's shape)."""
     m, n = X.shape[0] // 2, X.shape[1] // 2
@@ -2933,9 +3046,11 @@ def phase_partial_timing(hinge, screen, shared_scalars, edpp_scalars, X, y) -> d
                                hinge.margin_partial_plain(Xb.abs(), w.abs()), m)},
         "screen_bounds": {
             "ms": timed_ms(lambda: screen.screen_partial_op(Xb, yb, theta), 20),
+            "device_ms": device_ms(lambda: screen.screen_partial_op(Xb, yb, theta), 20),
             "finalize_ms": timed_ms(lambda: screen.screen_finalize_op(sums, sh), 20),
             "plain_ms": timed_ms(lambda: screen.screen_partial_plain(Xb, yb, theta), 20),
-            "library_ms": None,
+            "library_ms": timed_ms(lambda: torch.mv(Xb, yb * theta), 20),
+            "library_device_ms": device_ms(lambda: torch.mv(Xb, yb * theta), 20),
             "bytes": x_bytes + 2 * n * 4 + 4 * m * 4, "flops": 7 * m * n,
             "max_abs_err": err(sums, screen.screen_partial_plain(Xb, yb, theta),
                                screen.screen_partial_plain(Xb.abs(), yb.abs(), theta.abs()),
@@ -2968,6 +3083,12 @@ def bound_of(t) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+#: the device times a timing record may carry beside its per-call ``ms``
+#: (:func:`device_ms`): the kernel's, the library call's, and for the feature
+#: screen ``torch.mv(X, y theta1)``'s both ways
+DEVICE_KEYS = ("device_ms", "library_device_ms", "mv_ms", "mv_device_ms")
+
+
 def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
     """One kernel's entry of the ``kernels`` line: its times, its bound
     (:func:`bound_of`) and its launches in the path that carries it."""
@@ -2979,6 +3100,7 @@ def _row(name, replaces, source, t, shape, launches, max_err, step) -> dict:
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": t["library_ms"],
         "shape_rows_cols_valid": shape, "path_step": step,
+        **{key: t[key] for key in DEVICE_KEYS if key in t},
     }
 
 
@@ -3021,15 +3143,19 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
     x_bytes = kept * n * 4
     margin = {
         "ms": timed_ms(lambda: hinge.margin_obj_op(Xr, wr, y, b, kept), reps),
+        "device_ms": device_ms(lambda: hinge.margin_obj_op(Xr, wr, y, b, kept), reps),
         "plain_ms": timed_ms(lambda: hinge.margin_obj_plain(Xr, wr, y, b, kept), reps),
         "library_ms": timed_ms(lambda: torch.mv(Xr[:kept].t(), wr[:kept]), reps),
+        "library_device_ms": device_ms(lambda: torch.mv(Xr[:kept].t(), wr[:kept]), reps),
         "bytes": x_bytes + kept * 4 + n * 4 + 4 + 2 * n * 4 + 4,
         "flops": 2 * kept * n + 5 * n,
     }
     grad = {
         "ms": timed_ms(lambda: hinge.hinge_grad_op(Xr, y, xi, kept), reps),
+        "device_ms": device_ms(lambda: hinge.hinge_grad_op(Xr, y, xi, kept), reps),
         "plain_ms": timed_ms(lambda: hinge.hinge_grad_plain(Xr, y, xi, kept), reps),
         "library_ms": timed_ms(lambda: torch.mv(Xr[:kept], v), reps),
+        "library_device_ms": device_ms(lambda: torch.mv(Xr[:kept], v), reps),
         "bytes": x_bytes + 2 * n * 4 + pad * 4,
         "flops": 2 * kept * n + n,
     }
@@ -3046,15 +3172,25 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
         return screen.screen_bounds_edpp(X, y, theta, sh, e)
 
     turns = [timed_ms(f, 20) for f in (vi_mode, edpp_mode, edpp_mode, vi_mode)]
+    packed_vi, packed_e = screen.pack_shared(sh), screen.pack_shared(sh, edpp=e)
+    dturns = [device_ms(lambda: screen._launch_features(
+        X, y, theta, packed_e if f else packed_vi, None, f,
+        "screen_bounds_edpp" if f else "screen_bounds"), 20)
+        for f in (False, True, True, False)]
     scr = {
         "ms": 0.5 * (turns[0] + turns[3]),
         "plain_ms": timed_ms(lambda: screen.screen_bounds_plain(X, y, theta, sh), 20),
-        "library_ms": None,
+        **screen_device_times(screen, X, y, theta, packed_vi, None, False,
+                              "screen_bounds", 20),
         "bytes": m * n * 4 + 2 * n * 4 + 48 + m * 4,
         "flops": 7 * m * n + n + 60 * m,
     }
+    # the one library call reading the same bytes: d_theta only
+    scr["library_ms"], scr["library_device_ms"] = scr["mv_ms"], scr["mv_device_ms"]
+    scr["device_ms"] = 0.5 * (dturns[0] + dturns[3])
     edpp_t = {
         "ms": 0.5 * (turns[1] + turns[2]),
+        "device_ms": 0.5 * (dturns[1] + dturns[2]),
         "plain_ms": timed_ms(lambda: screen.screen_bounds_edpp_plain(X, y, theta, sh, e),
                              20),
         "library_ms": None,
@@ -3062,7 +3198,7 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
         "flops": 7 * m * n + n + 80 * m,
     }
     emit({"phase": "screen_modes_in_turns", "shape": [m, n],
-          "order": "vi, edpp, edpp, vi", "ms": turns})
+          "order": "vi, edpp, edpp, vi", "ms": turns, "device_ms": dturns})
     rows = []
     specs = [
         ("margin_obj", "src/repro/kernels/hinge.py:36 _margin_kernel",
@@ -3110,9 +3246,12 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
     theta_d, delta, _ = solver.gap_theta_delta(X, y, w_last, b_last, lam, s, u=u_last)
     sh_d = K.dynamic_shared(y, lam, theta_d, float(delta), s)
     sh_u = K.dynamic_shared(y, lam, theta_d, float(delta), None)
+    packed_d = screen.pack_shared(sh_d, delta)
     dyn_t = {
         "ms": timed_ms(lambda: screen.screen_bounds_from_shared(
             X, y, theta_d, sh_d, s, delta), 20),
+        "device_ms": device_ms(lambda: screen._launch_features(
+            X, y, theta_d, packed_d, s, False, "screen_bounds_dynamic"), 20),
         "plain_ms": timed_ms(lambda: screen.screen_bounds_plain(
             X, y, theta_d, sh_d, s, delta), 20),
         "library_ms": None,
@@ -3139,6 +3278,11 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
 
     wturns = [timed_ms(f, 20) for f in (weighted_vi, weighted_edpp, weighted_edpp,
                                         weighted_vi)]
+    packed_wv, packed_we = screen.pack_shared(sh_w), screen.pack_shared(sh_w, edpp=e_w)
+    wdturns = [device_ms(lambda: screen._launch_features(
+        X, y, theta_w, packed_we if f else packed_wv, s9, f,
+        "screen_bounds_edpp_weighted" if f else "screen_bounds_dynamic"), 20)
+        for f in (False, True, True, False)]
     got_e, got_v = weighted_edpp(), weighted_vi()
     plain_e = screen.screen_bounds_edpp_plain(X, y, theta_w, sh_w, e_w, s9)
     torch.cuda.synchronize()
@@ -3148,6 +3292,7 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
     require(bool((got_e <= got_v).all()), "timing: weighted EDPP above weighted VI")
     edpp_w = {
         "ms": 0.5 * (wturns[1] + wturns[2]),
+        "device_ms": 0.5 * (wdturns[1] + wdturns[2]),
         "plain_ms": timed_ms(lambda: screen.screen_bounds_edpp_plain(
             X, y, theta_w, sh_w, e_w, s9), 20),
         "library_ms": None,
@@ -3156,6 +3301,7 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
     }
     emit({"phase": "screen_weighted_modes_in_turns", "shape": [m, n], "live": SERVE_LIVE,
           "order": "weighted vi, weighted edpp, weighted edpp, weighted vi", "ms": wturns,
+          "device_ms": wdturns,
           "weighted_vi_plain_ms": timed_ms(lambda: screen.screen_bounds_plain(
               X, y, theta_w, sh_w, s9), 20),
           "below_vi": int((got_e < got_v).sum())})
@@ -3167,12 +3313,13 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
                      "src/repro_torch/kernels/csrc/screen.cu", at_slot, at_slot["shape"],
                      serve_launches, max_err, "serve edpp group, slot 0"))
     rows[-1]["full_width_9000_live"] = {
-        "shape": [m, n, m], "ms": edpp_w["ms"], "plain_ms": edpp_w["plain_ms"],
-        "bound_ms": bound_of(edpp_w)[0]}
+        "shape": [m, n, m], "ms": edpp_w["ms"], "device_ms": edpp_w["device_ms"],
+        "plain_ms": edpp_w["plain_ms"], "bound_ms": bound_of(edpp_w)[0]}
     for row in rows:
         row["at_serve_shapes"] = [
             {"group": label, **{key: t[key] for key in (
-                "shape", "step", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+                "shape", "step", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                *DEVICE_KEYS) if key in t}}
             for label, got in serve_shapes.items()
             for t in got["timing"].get(row["name"], [])]
     for row in rows:
@@ -3198,11 +3345,14 @@ def phase_timing(K, res, launches, res_c, launches_c, dyn, rule_launches, X, y,
     gp = hinge.grad_plan(kept, n, Xr.element_size(), hinge.bulk_aligned(Xr), sms)
     mp = hinge.column_sweep_plan(kept, n, Xr.element_size(), hinge.bulk_aligned(Xr), sms)
     cp = hinge.column_sweep_plan(m, n, X.element_size(), hinge.bulk_aligned(X), sms)
+    sp = screen.screen_plan(m, n, X.element_size(), hinge.bulk_aligned(X), sms)
     emit({"phase": "plans", "sms": sms,
           "margin_obj": {**mp._asdict(), "tiles": mp.tiles, "smem_bytes": mp.smem_bytes},
           "hinge_grad": {**gp._asdict(), "smem_bytes": gp.smem_bytes},
           "sample_surplus": {**cp._asdict(), "tiles": cp.tiles,
-                             "smem_bytes": cp.smem_bytes}})
+                             "smem_bytes": cp.smem_bytes},
+          "screen_bounds": {**sp._asdict(), "segs": sp.segs, "tiles": sp.tiles,
+                            "smem_bytes": sp.smem_bytes}})
     emit({"phase": "timing", "step": k, "kept": kept, "bucket": pad,
           "rows": [{key: r[key] for key in ("name", "ms", "plain_ms", "library_ms",
                                              "bound_ms")} for r in rows],
@@ -4301,7 +4451,8 @@ def phase_sparse_probe(svm_path, PathDriver, lipschitz_estimate, ops, K, probe, 
     objectives within 1e-4 of float64, card vs CPU (plain versions, the
     same L) within ``PROBE_CPU_REL`` at ``PROBE_FIXED_ITERS`` iterations a
     step, and the three kernels against their plain versions at this X's
-    shape. Then the reference-sized example's ``main`` on the card (SMOKE
+    shape (and timed there, per call and by device time, beside
+    ``torch.mv``). Then the reference-sized example's ``main`` on the card (SMOKE
     qwen2.5-3b, 30 steps, 192 sequences). Returns the path's launches."""
     p = PROBE
     t0 = time.perf_counter()
@@ -4353,6 +4504,28 @@ def phase_sparse_probe(svm_path, PathDriver, lipschitz_estimate, ops, K, probe, 
     checks = {"margin_obj": K.margin(X, w, y, b, m, "sparse_probe"),
               "hinge_grad": K.grad(X, y, xi, m, "sparse_probe"),
               "screen_bounds": K.bounds(X, y, theta, sh, "sparse_probe")}
+    # the three kernels' times at this shape, per call and by device time,
+    # beside the library call reading the same bytes
+    h, sc = K.hinge, K.screen
+    v = y * xi
+    packed = sc.pack_shared(sh)
+    timing = {
+        "margin_obj": {
+            "ms": timed_ms(lambda: h.margin_obj_op(X, w, y, b), 50),
+            "device_ms": device_ms(lambda: h.margin_obj_op(X, w, y, b), 50),
+            "library_ms": timed_ms(lambda: torch.mv(X.t(), w), 50),
+            "library_device_ms": device_ms(lambda: torch.mv(X.t(), w), 50)},
+        "hinge_grad": {
+            "ms": timed_ms(lambda: h.hinge_grad_op(X, y, xi), 50),
+            "device_ms": device_ms(lambda: h.hinge_grad_op(X, y, xi), 50),
+            "library_ms": timed_ms(lambda: torch.mv(X, v), 50),
+            "library_device_ms": device_ms(lambda: torch.mv(X, v), 50)},
+        "screen_bounds": {
+            "ms": timed_ms(lambda: sc.screen_bounds_from_shared(X, y, theta, sh,
+                                                                scalars=packed), 50),
+            **screen_device_times(sc, X, y, theta, packed, None, False, "screen_bounds",
+                                  50)},
+        "bound_ms": m * n * 4 / HBM_BYTES_PER_S * 1e3}
     example = probe.main(["--device", "cuda"])
     require(bool(np.all(np.isfinite(example["path"].objectives))),
             "sparse_probe: the example's path")
@@ -4365,6 +4538,7 @@ def phase_sparse_probe(svm_path, PathDriver, lipschitz_estimate, ops, K, probe, 
           "tolerance_cpu_rel": PROBE_CPU_REL,
           "kernels": {k: max(v[x]["max_abs_err"] for x in v if isinstance(v[x], dict))
                       if k == "margin_obj" else v["max_abs_err"] for k, v in checks.items()},
+          "timing": timing,
           "accuracy": float(np.mean(np.sign(res.weights[-1] @ X_np + res.biases[-1]) == y_np)),
           "example": {"accuracy": example["accuracy"], "loss": example["loss"],
                       "kept": example["path"].kept.tolist()},
@@ -4526,7 +4700,7 @@ def main() -> int:
         row["partial_mode"] = {
             "kernels": list(names), "shape": [X.shape[0] // 2, X.shape[1] // 2],
             **{k: t[k] for k in ("ms", "finalize_ms", "plain_ms", "library_ms",
-                                 "bound_ms", "bound_by")},
+                                 "bound_ms", "bound_by", *DEVICE_KEYS) if k in t},
             "max_abs_err": max(t["max_abs_err"], K.max_err[names[0]]),
             **{f"launches_{run}_2x2_rank0": {nm: int(grid22["runs"][run]["launches"][nm])
                                              for nm in names}

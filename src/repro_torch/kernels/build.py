@@ -40,8 +40,8 @@ SIGNATURES = {
                    _P, _P, _P, _P, _P, _I, _P],
     "hinge_grad": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                    _I, _P],
-    "screen_bounds_features": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
-                               _P],
+    "screen_bounds_features": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                               _P, _P, _I, _I, _P],
     "screen_bounds_samples": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P, _P, _P, _I, _P],
     # the partial modes and their finalizers (a sharded run)
@@ -51,7 +51,8 @@ SIGNATURES = {
     "sample_partial": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
                        _P],
     "sample_finalize": [_P, _I, _P, _P, _P, _P, _P, _I, _P],
-    "screen_partial_features": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _P],
+    "screen_partial_features": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                _I, _P],
     "screen_finalize_features": [_P, _P, _I, _I, _P, _I, _P],
 }
 

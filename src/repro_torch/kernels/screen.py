@@ -7,7 +7,11 @@ the closed-form bound of ``core/screening.py``
 and only the ``(m,)`` bounds are written. The feature-independent scalars
 travel as one packed fp32 vector (:func:`pack_shared`), in the reference's
 ``pack_shared`` order, and stay on the device. Kernel: ``csrc/screen.cu``,
-replacing the reference's Pallas ``_feature_kernel``.
+replacing the reference's Pallas ``_feature_kernel``: a sweep of rows cut
+into column segments (:func:`screen_plan`, whose split depends on n and the
+item size alone) and a finalize that adds a row's segments in order. It has
+a bulk variant (16-byte loads, rows 16-byte aligned) and a scalar one,
+which sum in the same order; :data:`VARIANTS` counts which ran.
 
 *Sample axis* (:func:`sample_surplus_op`). One transposed read of X gives
 every sample column's ``u_i = x_i.w1 + b1`` and ``||x_i||^2``; the margin
@@ -48,6 +52,9 @@ in :data:`LAUNCHES`; for a CPU ``X`` it runs the plain version beside it.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..core.screening import (
@@ -60,7 +67,14 @@ from ..core.screening import (
     shared_scalars,
 )
 from . import build
-from .hinge import bulk_aligned, column_sweep_plan, sm_count
+from .hinge import (
+    _cdiv,
+    _round_up,
+    bulk_aligned,
+    column_sweep_plan,
+    sm_count,
+    split_start,
+)
 
 #: launches of the kernel in this process (reset by ``ops.reset_launch_counts``);
 #: ``*_partial`` and ``*_finalize`` are the partial modes (a sharded run)
@@ -68,13 +82,96 @@ LAUNCHES = {"screen_bounds": 0, "screen_bounds_dynamic": 0,
             "screen_bounds_edpp": 0, "screen_bounds_edpp_weighted": 0,
             "sample_surplus": 0, "screen_partial": 0, "screen_finalize": 0,
             "sample_partial": 0, "sample_finalize": 0}
-#: launches of each variant of the redesigned sample-surplus kernel
-VARIANTS = {"sample_surplus": {"bulk": 0, "scalar": 0},
-            "sample_partial": {"bulk": 0, "scalar": 0}}
+#: launches of each variant of the sample-surplus and feature-screen sweeps
+VARIANTS = {name: {"bulk": 0, "scalar": 0} for name in (
+    "sample_surplus", "sample_partial", "screen_bounds", "screen_bounds_dynamic",
+    "screen_bounds_edpp", "screen_bounds_edpp_weighted", "screen_partial")}
 
 NUM_SCALARS = 12  # packed scalars, padded as in the reference
 NUM_SCALARS_EDPP = 16  # the feature screen's EDPP mode: 12, then 3, padded
 _BIG = 1e30  # stands in for inf in the sample finalizer (no 0 * inf = NaN)
+
+# -- the feature screen's launch plan (csrc/screen.cu) ------------------------
+# The sweep cuts every feature row longer than SCREEN_ROW_COLS columns into
+# column segments of at most SCREEN_SEG_BYTES (a shorter row is one segment,
+# and its warp finalizes it: no scratch, no second kernel); a tile is one
+# row's segment, summed by one warp into the (segs * 4, m) scratch; the
+# finalize adds a row's segments in order. The split depends on n and the
+# item size alone, never on m or the alignment, so a row's bits do not
+# depend on how many rows a launch holds or on its variant. The grid is
+# SCREEN_BLOCKS_PER_SM whole waves of the card's SMs; a block takes a run of
+# consecutive tiles in segment-major order.
+SCREEN_BLOCKS_PER_SM = 2   # csrc/screen.cu kBlocksPerSM (blocks of 8 warps)
+SCREEN_SEG_BYTES = 8 * 1024
+SCREEN_ROW_COLS = 4096     # a row of at most this many columns is one segment
+SCREEN_VECTORS = 3         # staged fp32 columns: y theta1, y w, w
+
+
+class ScreenPlan(NamedTuple):
+    """How the feature screen cuts X (m, n): ``segs`` column segments of
+    ``seg_cols`` columns (the last one shorter); tile ``t`` is segment
+    ``t // m``, row ``t % m`` (segment-major), and block ``b`` takes the
+    consecutive tiles :meth:`tiles_of`. ``bulk``: 16-byte vector loads
+    (rows 16-byte aligned); otherwise the scalar variant, same walk and
+    order."""
+
+    bulk: bool
+    grid: int
+    m: int
+    n: int
+    itemsize: int
+    seg_cols: int
+
+    @property
+    def segs(self) -> int:
+        return _cdiv(self.n, self.seg_cols)
+
+    @property
+    def tiles(self) -> int:
+        return self.segs * self.m
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block takes: the segment's staged columns
+        (csrc/screen.cu launch_sweep)."""
+        return SCREEN_VECTORS * _round_up(self.seg_cols, 16 // self.itemsize) * 4
+
+    def tiles_of(self, b: int) -> range:
+        return range(split_start(b, self.tiles, self.grid),
+                     split_start(b + 1, self.tiles, self.grid))
+
+    def tile(self, t: int) -> tuple[int, range]:
+        """(row, columns) of tile ``t``."""
+        seg, row = divmod(t, self.m)
+        c0 = seg * self.seg_cols
+        return row, range(c0, min(c0 + self.seg_cols, self.n))
+
+    def scratch_shape(self) -> tuple[int, int]:
+        """The fp32 partial sums: four rows a segment."""
+        return (4 * self.segs, self.m)
+
+
+@functools.lru_cache(maxsize=256)
+def screen_plan(m: int, n: int, itemsize: int, aligned: bool, sms: int) -> ScreenPlan:
+    """The feature screen's plan (see :class:`ScreenPlan`), its column split
+    from n and the item size alone: one segment for a row of at most
+    SCREEN_ROW_COLS columns, else segments of at most SCREEN_SEG_BYTES, their
+    width a whole number of 16-byte units. On an H100
+    (``scripts/torch_screen_tune.py``) 8 KB segments fill the card at a
+    2,048-row chunk of 10,000 columns, and a 4,096-column row ran faster
+    whole than in two segments."""
+    segs = 1 if n <= SCREEN_ROW_COLS else _cdiv(n * itemsize, SCREEN_SEG_BYTES)
+    seg = _round_up(_cdiv(n, segs), 16 // itemsize)
+    plan = ScreenPlan(aligned, sms * SCREEN_BLOCKS_PER_SM, m, n, itemsize, seg)
+    if plan.tiles >= 2 ** 31:
+        raise ValueError(f"X of shape ({m}, {n}) has {plan.tiles} screen tiles, "
+                         "past the kernel's 32-bit tile index")
+    return plan
+
+
+def _plan_of(X) -> ScreenPlan:
+    m, n = X.shape
+    return screen_plan(m, n, X.element_size(), bulk_aligned(X), sm_count(X.device))
 
 
 def pack_shared(sh: ScreenShared, cap_delta=None,
@@ -131,25 +228,30 @@ def screen_bounds_plain(X, y, theta1, sh: ScreenShared, weights=None,
 
 def _launch_features(X, y, theta1, scalars, weights, edpp, name,
                      want_d_theta=False):
-    """One launch of the feature-screen kernel; ``(m,)`` fp32 bounds, and
-    with ``want_d_theta`` the ``(m,)`` fp32 ``d_theta`` the kernel summed."""
+    """One launch of the feature screen (sweep and finalize); ``(m,)`` fp32
+    bounds, and with ``want_d_theta`` the ``(m,)`` fp32 ``d_theta`` the
+    kernel summed."""
     build.check_matrix(X)
     m, n = X.shape
     build.check_vector(y, n, X, "y")
     build.check_vector(theta1, n, X, "theta1")
     if weights is not None:
         build.check_vector(weights, n, X, "weights")
-    bounds = torch.empty((m,), dtype=torch.float32, device=X.device)
-    d_theta = (torch.empty((m,), dtype=torch.float32, device=X.device)
-               if want_d_theta else None)
+    plan = _plan_of(X)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    part = torch.empty(plan.scratch_shape(), **f32) if plan.segs > 1 else None
+    bounds = torch.empty((m,), **f32)
+    d_theta = torch.empty((m,), **f32) if want_d_theta else None
     dev, stream = build.stream_and_device(X)
     err = build.library().screen_bounds_features(
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
         theta1.data_ptr(), None if weights is None else weights.data_ptr(),
-        scalars.data_ptr(), m, n, bounds.data_ptr(),
+        scalars.data_ptr(), m, n, int(plan.bulk), plan.grid, plan.seg_cols,
+        None if part is None else part.data_ptr(), bounds.data_ptr(),
         None if d_theta is None else d_theta.data_ptr(), int(edpp), dev, stream)
     build.check(err, name)
     LAUNCHES[name] += 1
+    VARIANTS[name]["bulk" if plan.bulk else "scalar"] += 1
     return (bounds, d_theta) if want_d_theta else bounds
 
 
@@ -325,24 +427,29 @@ def screen_partial_op(X, y, theta1, weights=None) -> torch.Tensor:
     build.check_vector(theta1, n, X, "theta1")
     if weights is not None:
         build.check_vector(weights, n, X, "weights")
-    sums = torch.empty((4, m), dtype=torch.float32, device=X.device)
+    plan = _plan_of(X)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    part = torch.empty(plan.scratch_shape(), **f32) if plan.segs > 1 else None
+    sums = torch.empty((4, m), **f32)
     dev, stream = build.stream_and_device(X)
     err = build.library().screen_partial_features(
         X.data_ptr(), int(X.dtype == torch.bfloat16), y.data_ptr(),
         theta1.data_ptr(), None if weights is None else weights.data_ptr(), m, n,
-        sums.data_ptr(), dev, stream)
+        int(plan.bulk), plan.grid, plan.seg_cols,
+        None if part is None else part.data_ptr(), sums.data_ptr(), dev, stream)
     build.check(err, "screen_partial")
     LAUNCHES["screen_partial"] += 1
+    VARIANTS["screen_partial"]["bulk" if plan.bulk else "scalar"] += 1
     return sums
 
 
 def screen_finalize_op(sums, sh: ScreenShared, cap_delta=None,
                        edpp: EDPPShared = None) -> torch.Tensor:
     """Bounds (m,) from all-reduced partial sums (4, m) of either
-    instantiation (weighted or not): the feature screen's finalize
-    (``csrc/screen.cu`` ``feature_bound``, with the gap-sphere cap
-    ``cap_delta`` or the EDPP ball ``edpp``, as the full launches apply
-    them) on the reduced sums, one thread a feature."""
+    instantiation (weighted or not): the full launches' own finalize kernel
+    (``csrc/screen.cu`` ``screen_finalize_kernel``, with the gap-sphere cap
+    ``cap_delta`` or the EDPP ball ``edpp``) on the reduced sums as one
+    segment, one thread a feature."""
     if not build.on_card(sums):
         return screen_finalize_plain(sums, sh, cap_delta, edpp)
     if sums.dim() != 2 or sums.shape[0] != 4 or sums.dtype != torch.float32 \

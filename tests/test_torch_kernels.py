@@ -326,6 +326,84 @@ def test_margin_plan_covers_live_rows_once(m, n, itemsize, sms, offset):
             assert (hits[:vm] == 1).all() and (hits[vm:] == 0).all()
 
 
+@pytest.mark.parametrize("m,n,itemsize,sms,offset", list(_plan_cases()))
+def test_screen_plan_covers_every_cell_once(m, n, itemsize, sms, offset):
+    """The feature screen's plan: tiles (a row's column segment) cover every
+    (row, column) once, each in one block, the blocks' shares within one
+    tile, in whole waves; the staged columns fit the default shared memory;
+    the bulk variant loads whole 16-byte units; and the column split is the
+    same at m = 1, 2,048 and 50,000, aligned or not, at one n."""
+    aligned = hinge.rows_aligned(4096 + offset, n, itemsize)
+    plan = screen.screen_plan(m, n, itemsize, aligned, sms)
+    assert plan is screen.screen_plan(m, n, itemsize, aligned, sms)
+    assert plan.bulk == aligned and (plan.m, plan.n) == (m, n)
+    assert plan.grid % sms == 0  # whole waves
+    owned = [t for b in range(plan.grid) for t in plan.tiles_of(b)]
+    assert owned == list(range(plan.tiles))  # each tile in one block, in order
+    counts = [len(plan.tiles_of(b)) for b in range(plan.grid)]
+    assert max(counts) - min(counts) <= 1  # the blocks' shares within one tile
+    segs = [plan.tile(s * m)[1] for s in range(plan.segs)]
+    assert [j for seg in segs for j in seg] == list(range(n))
+    if plan.tiles <= 100_000:
+        assert all(plan.tile(t) == (t % m, segs[t // m]) for t in range(plan.tiles))
+    assert plan.scratch_shape() == (4 * plan.segs, m)
+    if n > screen.SCREEN_ROW_COLS:
+        assert plan.seg_cols * itemsize <= screen.SCREEN_SEG_BYTES
+    else:
+        assert plan.segs == 1
+    assert plan.smem_bytes <= min(hinge.SMEM_PER_BLOCK, 48 * 1024)  # no opt-in
+    if plan.bulk:  # every load is a whole 16-byte unit on a 16-byte boundary
+        assert all((seg.start * itemsize) % 16 == 0 and (len(seg) * itemsize) % 16 == 0
+                   for seg in segs)
+    for other_m in (1, 2048, 50_000):
+        for other_aligned in (False, aligned):
+            other = screen.screen_plan(other_m, n, itemsize, other_aligned, sms)
+            assert (other.seg_cols, other.segs) == (plan.seg_cols, plan.segs)
+    if m * n <= 300 * 200:  # small shapes: count every cell
+        hits = np.zeros((m, n), np.int64)
+        for t in range(plan.tiles):
+            row, cols = plan.tile(t)
+            hits[row, cols.start:cols.stop] += 1
+        assert (hits == 1).all()
+
+
+def _segment_sums(X, y, theta, weights, plan):
+    """A row's four sums as the feature screen adds them: each column
+    segment's sums of the plan, then the segments in segment order."""
+    w = torch.ones_like(y) if weights is None else weights
+    total = None
+    for s in range(plan.segs):
+        c = plan.tile(s * plan.m)[1]
+        xs = X[:, c.start:c.stop].float()
+        part = torch.stack([(xs * (y * theta)[c.start:c.stop]).sum(1),
+                            (xs * (y * w)[c.start:c.stop]).sum(1),
+                            (xs * w[c.start:c.stop]).sum(1),
+                            (xs * xs * w[c.start:c.stop]).sum(1)])
+        total = part if total is None else total + part
+    return total
+
+
+def test_screen_segment_order_is_the_same_for_chunks():
+    """Summed in the plan's segment order, a row's four sums have the same
+    bits whether X goes whole or in 2,048-row chunks (the split depends on
+    n alone), weighted or not, and they are the plain reductions up to fp32
+    rounding (rtol 1e-5)."""
+    m, n = 4200, 4400
+    rng = np.random.default_rng(51)
+    X = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+    y = torch.from_numpy(np.where(rng.random(n) < 0.6, 1.0, -1.0).astype(np.float32))
+    theta = torch.from_numpy((rng.random(n) / 5.0).astype(np.float32))
+    s = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32))
+    whole_plan = screen.screen_plan(m, n, 4, True, 132)
+    assert whole_plan.segs > 1
+    for w in (None, s):
+        whole = _segment_sums(X, y, theta, w, whole_plan)
+        chunks = torch.cat([_segment_sums(X[i:i + 2048], y, theta, w, screen.screen_plan(
+            min(2048, m - i), n, 4, True, 132)) for i in range(0, m, 2048)], dim=1)
+        assert torch.equal(whole, chunks)
+        _close(whole, torch.stack(list(feature_reductions(X, y, theta, w))))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_bulk_variant_follows_the_tensors_alignment(dtype):
     """Views that start off a 16-byte boundary, or rows whose length is not
@@ -339,9 +417,15 @@ def test_bulk_variant_follows_the_tensors_alignment(dtype):
     assert not hinge.bulk_aligned(base.view(-1)[1:].view(-1)[: 8 * 8 * vec].view(8, -1))
 
 
-# card shapes: the ragged ones, the path's width, bf16 n % 8 != 0 with fp32
-# n % 4 == 0, and rows wider than one staged v chunk (aligned and not)
-GPU_SHAPES = SHAPES + [(4096, 10000), (128, 260), (96, 20000), (40, 20001)]
+# card shapes: the ragged ones, the path's width, a 2,048-row chunk of it,
+# bf16 n % 8 != 0 with fp32 n % 4 == 0, and rows wider than one staged v
+# chunk (aligned and not)
+GPU_SHAPES = SHAPES + [(4096, 10000), (2048, 10000), (128, 260), (96, 20000),
+                       (40, 20001)]
+# where X lies: its own buffer, the view X[1:] of a buffer one row taller
+# (aligned when a row is whole 16-byte units), one item past a 16-byte
+# boundary (never aligned: the scalar variants)
+OFFSETS_CARD = {"base": 0, "view": 1, "item": 2}
 
 
 def _launched(table, call):
@@ -352,10 +436,16 @@ def _launched(table, call):
 
 
 def _on_card(t, offset):
-    """``t`` on the card; with ``offset``, as the view ``X[1:]`` of a
-    buffer one row taller (its base moves by one row's bytes)."""
+    """``t`` on the card (:data:`OFFSETS_CARD`): ``offset`` 1 as the view
+    ``X[1:]`` of a buffer one row taller (its base moves by one row's
+    bytes), 2 as a view one item into a flat buffer (its base off every
+    16-byte boundary)."""
     if not offset:
         return t.cuda()
+    if offset == 2:
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device="cuda")
+        flat[1:] = t.cuda().reshape(-1)
+        return flat[1:].view(t.shape)
     buf = torch.zeros((t.shape[0] + 1, *t.shape[1:]), dtype=t.dtype, device="cuda")
     buf[1:] = t.cuda()
     return buf[1:]
@@ -364,13 +454,13 @@ def _on_card(t, offset):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", GPU_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
+@pytest.mark.parametrize("offset", list(OFFSETS_CARD.values()), ids=list(OFFSETS_CARD))
 def test_cuda_kernels_match_plain(shape, dtype, offset):
     """Card only: each CUDA kernel against its plain version on the same
-    device tensors; the margin and the gradient take the bulk variant
-    exactly when X's rows are 16-byte aligned and repeat their bits, and
-    the margin at valid_m = 0 reads no row (u = 0 over nonzero rows).
-    Tolerance rtol 1e-5 (fp32 sums in different orders)."""
+    device tensors; the margin, the gradient and the feature screen take
+    the bulk variant exactly when X's rows are 16-byte aligned and repeat
+    their bits, and the margin at valid_m = 0 reads no row (u = 0 over
+    nonzero rows). Tolerance rtol 1e-5 (fp32 sums in different orders)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -399,8 +489,11 @@ def test_cuda_kernels_match_plain(shape, dtype, offset):
     lmax = float(lambda_max(X.float(), y))
     theta = theta_at_lambda_max(y, lmax)
     sh = shared_scalars(y, lmax, 0.5 * lmax, theta, delta=0.02)
-    _close(screen.screen_bounds_from_shared(X, y, theta, sh).cpu(),
-           screen.screen_bounds_plain(X, y, theta, sh).cpu())
+    got, launched = _launched(screen.VARIANTS["screen_bounds"],
+                              lambda: screen.screen_bounds_from_shared(X, y, theta, sh))
+    assert launched == ["bulk" if hinge.bulk_aligned(X) else "scalar"]
+    _close(got.cpu(), screen.screen_bounds_plain(X, y, theta, sh).cpu())
+    assert torch.equal(got, screen.screen_bounds_from_shared(X, y, theta, sh))
 
 
 @pytest.mark.gpu
@@ -570,6 +663,53 @@ def test_cuda_weighted_edpp_screen_matches_plain(shape, dtype):
         assert torch.equal(screen.screen_finalize_op(sums, sh), vi)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_cuda_screen_variants_agree_bit_for_bit(shape, dtype):
+    """Card only: the feature screen sums in the same order in both
+    variants, so X in its own buffer (the bulk variant where its rows are
+    whole 16-byte units) and X one item off a 16-byte boundary (the scalar
+    variant) give the same bits in every mode: VI, dynamic (weights and
+    cap), EDPP, weighted EDPP, the d_theta output and the partial sums;
+    and a 2,048-row slice of X gives its rows the whole X's bits. Each
+    launch counts its variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (sm_90a) and nvcc; runs on the card")
+    m, n = shape
+    X, _, y, _ = _inputs(m, n, dtype, m, seed=45)
+    rng = np.random.default_rng(46)
+    y = y.cuda()
+    s = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).cuda()
+    theta = torch.from_numpy((rng.random(n) / 3.0).astype(np.float32)).cuda()
+    sh = shared_scalars(y, 3.0, 2.0, theta, delta=0.02)
+    e = edpp_scalars(y, 3.0, 2.0, theta, delta=0.02)
+    shd = _dynamic_shared(y, 3.0, theta * s, 0.05, s)
+    cap = torch.tensor(0.05, device="cuda")
+    calls = {
+        "screen_bounds": lambda Xc: screen.screen_bounds_from_shared(
+            Xc, y, theta, sh, want_d_theta=True),
+        "screen_bounds_dynamic": lambda Xc: (screen.screen_bounds_from_shared(
+            Xc, y, theta * s, shd, s, cap),),
+        "screen_bounds_edpp": lambda Xc: (screen.screen_bounds_edpp(Xc, y, theta, sh, e),),
+        "screen_bounds_edpp_weighted": lambda Xc: (screen.screen_bounds_edpp(
+            Xc, y, theta * s, shd, e, weights=s),),
+        "screen_partial": lambda Xc: (screen.screen_partial_op(Xc, y, theta, s),),
+    }
+    Xa, Xs = _on_card(X, 0), _on_card(X, 2)
+    assert not hinge.bulk_aligned(Xs)
+    for name, call in calls.items():
+        a, launched_a = _launched(screen.VARIANTS[name], lambda: call(Xa))
+        b, launched_b = _launched(screen.VARIANTS[name], lambda: call(Xs))
+        assert launched_a == ["bulk" if hinge.bulk_aligned(Xa) else "scalar"], name
+        assert launched_b == ["scalar"], name
+        assert all(torch.equal(p, q) for p, q in zip(a, b)), name
+        if m > 2048:
+            part = call(Xa[1000:1000 + 2048].contiguous())
+            assert all(torch.equal(p[..., 1000:1000 + 2048], q)
+                       for p, q in zip(a, part)), name
+
+
 def _d_theta_cases(X, y, n, seed):
     """The feature screen's calls with the optional d_theta output: the VI
     mode on an inexact anchor, and the dynamic variant (sample weights and
@@ -687,8 +827,9 @@ def test_cuda_chunked_stream_matches_in_core():
     """Card only: the out-of-core stream (``repro_torch.sparse``) delivers
     every chunk intact through its pinned double buffer: the streamed
     feature screen equals the in-core kernel launch bit for bit, on dense
-    chunks and on CSR chunks densified on the device (one launch per
-    chunk); and the chunked path on the card matches the CPU's at 300
+    chunks (64 rows, and 2,048 rows of a 4,500 x 4,500 X whose rows span
+    three column segments) and on CSR chunks densified on the device (one
+    launch per chunk); and the chunked path on the card matches the CPU's at 300
     fixed iterations a step (rel 1e-6, the tolerance of the in-core
     card-vs-CPU check)."""
     if not torch.cuda.is_available():
@@ -701,8 +842,10 @@ def test_cuda_chunked_stream_matches_in_core():
     torch.backends.cuda.matmul.allow_tf32 = False
     dense = make_sparse_classification(m=300, n=130, seed=21)
     sparse = make_sparse_classification(m=300, n=130, seed=23, density=0.04)
+    wide = make_sparse_classification(m=4500, n=4500, seed=25)
     for ds, fc in ((dense, FeatureChunked.from_dense(dense.X, chunk_m=64)),
-                   (sparse, FeatureChunked.from_csr(sparse.csr, chunk_m=64))):
+                   (sparse, FeatureChunked.from_csr(sparse.csr, chunk_m=64)),
+                   (wide, FeatureChunked.from_dense(wide.X, chunk_m=2048))):
         X, y = torch.from_numpy(ds.X).cuda(), torch.from_numpy(ds.y).cuda()
         lmax = float(lambda_max(X, y))
         theta = theta_at_lambda_max(y, lmax)
@@ -837,7 +980,7 @@ def test_partial_sums_add_up_over_a_split(split):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", GPU_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
-@pytest.mark.parametrize("offset", [0, 1], ids=["base", "view"])
+@pytest.mark.parametrize("offset", list(OFFSETS_CARD.values()), ids=list(OFFSETS_CARD))
 def test_cuda_partial_modes(shape, dtype, offset):
     """Card only: each partial mode against its plain sums (rtol 1e-5, fp32
     sums in different orders), and a partial launch followed by its
