@@ -129,7 +129,25 @@ n = 10,000 samples, fp32):
   their plain versions at that shape; then the reference-sized example on
   the card); and the trainer on mamba2-130m whole, 40 steps against 20 and
   a resume to 40, under deterministic algorithms, bit for bit
-  (``lm_train_resume``). The probe's launches join the kernels line.
+  (``lm_train_resume``). The probe's launches join the kernels line;
+* the MoE families on a mesh (``lm_mesh_moe``): a 1 x 64 prefill through
+  placed parameters on a (1, 1) CUDA ``DeviceMesh`` over NCCL, where the
+  MoE layers take the reference's one-hot dispatch and combine over all
+  experts, against the same prefill on plain tensors (the scatter over
+  the experts that hold a token): deepseek-v2-236b's and arctic-480b's
+  reduced configs in float32 (logits and every cache leaf within rel
+  1e-5, the routing equal) and deepseek-v2-236b's widths on 2 of 60
+  layers, bf16 over float32 masters (the routing equal but for named near
+  ties, the logits within rel 3e-2, or ``LM_FLIP_REL`` where a route
+  moved); seconds and peak memory;
+* the port's quickstart (``repro_torch.examples.quickstart``, the
+  reference's ``examples/quickstart.py`` sections 1-11) on the card, with
+  the launch counts set to 0 just before it and read just after: the
+  margin, gradient, feature-screen and sample-sweep kernels each launched,
+  and its comparisons held (the reduced against the full objective, the
+  out-of-core path against the in-core one, server job 0 against its
+  sequential scan path: rel 1e-5); its wall. Its launches join the
+  kernels line (``launches_quickstart``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after, and fails if one of its kernels was never launched, or if the
@@ -3723,16 +3741,24 @@ def lm_prefill_bound(cfg, w, n, written, experts) -> tuple:
     return lm_bound(2 * n * w["params_token"] + 2 * w["head"], f32, nbytes)
 
 
+def near_tie(la, lb, x, y) -> bool:
+    """Whether expert ``x``, taken by the run with router logits ``la``, and
+    ``y``, taken instead by the run with ``lb``, are a near tie: each run's
+    winner leads by at most 2**-7 of the largest of the four logits. The
+    router product rounds to bf16 (2**-9 of a logit), and two runs' GEMMs
+    sum in other orders."""
+    margin = 2.0 ** -7 * float(torch.stack([la[x], la[y], lb[x], lb[y]]).abs().max())
+    return float(la[x] - la[y]) <= margin and float(lb[y] - lb[x]) <= margin
+
+
 def route_flip(dec_calls, tf_calls, slot):
     """The MoE layers where a decode step's token (``slot`` of each decode
     call) and its teacher-forced prefill's last token route to other
     experts, or None if there is none: for each such layer, and each expert
     the decode took alone, the ones the prefill took instead, with both
-    runs' router logits and probabilities. The router product rounds to
-    bf16 (2**-9 of a logit, the two runs' GEMMs summing in other orders),
-    so a swap is a near tie when each run's winner leads by at most 2**-7
-    of the larger logit; in every such layer each decode-only expert must
-    have such a partner (``near_tie``)."""
+    runs' router logits and probabilities; in every such layer each
+    decode-only expert must have a partner that is a near tie with it
+    (:func:`near_tie`)."""
     layers = []
     for layer, (dc, pc) in enumerate(zip(dec_calls, tf_calls)):
         a, b = set(dc["top_i"][slot, 0].tolist()), set(pc["top_i"][-1, -1].tolist())
@@ -3744,14 +3770,12 @@ def route_flip(dec_calls, tf_calls, slot):
         for x in sorted(a - b):
             pairs = []
             for y in sorted(b - a):
-                margin = 2.0 ** -7 * float(torch.stack([ld[x], ld[y], lp[x], lp[y]]).abs().max())
                 pairs.append({"decode_expert": x, "prefill_expert": y,
                               "decode_logits": [float(ld[x]), float(ld[y])],
                               "prefill_logits": [float(lp[x]), float(lp[y])],
                               "decode_probs": [float(pd[x]), float(pd[y])],
                               "prefill_probs": [float(pp[x]), float(pp[y])],
-                              "near_tie": float(ld[x] - ld[y]) <= margin
-                              and float(lp[y] - lp[x]) <= margin})
+                              "near_tie": near_tie(ld, lp, x, y)})
             tie = tie and any(q["near_tie"] for q in pairs)
             swaps += pairs
         layers.append({"layer": layer, "swaps": swaps, "near_tie": tie})
@@ -4355,6 +4379,199 @@ def phase_lm_mesh(state, cfg) -> None:
           "seconds": seconds})
 
 
+LM_MESH_MOE = dict(prompt=64, seed=7, f32_rel=1e-5, bf16_rel=3e-2,
+                   archs=("deepseek-v2-236b", "arctic-480b"))
+
+
+def route_moves(mesh_calls, plain_calls) -> list:
+    """The (layer, group, token) positions whose experts differ between the
+    mesh run and the plain one, each with the swapped experts' logits in
+    both runs and whether it is a near tie (:func:`near_tie`)."""
+    moves = []
+    for layer, (a, b) in enumerate(zip(mesh_calls, plain_calls)):
+        ta, tb = a["top_i"], b["top_i"]
+        for g, t in torch.nonzero((ta.sort(-1).values != tb.sort(-1).values).any(-1)).tolist():
+            sa, sb = set(ta[g, t].tolist()), set(tb[g, t].tolist())
+            la, lb = a["logits"][g, t], b["logits"][g, t]
+            tie = all(any(near_tie(la, lb, x, y) for y in sb - sa) for x in sa - sb)
+            moves.append({"layer": layer, "group": g, "token": t, "mesh": sorted(sa - sb),
+                          "plain": sorted(sb - sa), "near_tie": tie})
+    return moves
+
+
+def mesh_prefill(tr, cfg, params, tokens) -> dict:
+    """``tr.prefill`` of ``tokens`` on plain ``params``, then through the
+    same parameters placed on a (1, 1) mesh on the card (``make_host_mesh``:
+    NCCL), under the ambient mesh; the process group is destroyed
+    before it returns. Returns both runs' logits, caches (whole) and
+    routes, and the mesh run's seconds."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+    from repro_torch.testing.lm import RouteRecorder
+    from repro_torch.tree import tree_map
+
+    with torch.no_grad(), RouteRecorder(keep=True) as plain:
+        want, want_cache = tr.prefill(params, cfg, {"tokens": tokens})
+    mesh = make_host_mesh()
+    try:
+        require(tuple(mesh.shape) == (1, 1) and dist.get_world_size() == 1,
+                f"lm_mesh_moe: the mesh is {mesh}")
+        placed = sharding.param_shardings(params, mesh)
+        tok = distribute_tensor(tokens, mesh, sharding.to_placements(("data", None), mesh),
+                                src_data_rank=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), sharding.set_mesh(mesh), implicit_replication(), \
+                RouteRecorder(keep=True) as on_mesh:
+            got, cache = tr.prefill(placed, cfg, {"tokens": tok})
+            got = got.full_tensor()
+            cache = tree_map(lambda t: t.full_tensor(), cache)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        del placed
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "lm_mesh_moe: the process group outlived the prefill")
+    require(len(on_mesh.calls) == len(plain.calls) == cfg.num_layers,
+            f"lm_mesh_moe: {len(on_mesh.calls)} and {len(plain.calls)} MoE calls")
+    return {"logits": (got, want), "cache": (cache, want_cache), "seconds": seconds,
+            "moves": route_moves(on_mesh.calls, plain.calls)}
+
+
+def phase_lm_mesh_moe(configs, tr) -> None:
+    """The MoE layer's mesh form (the reference's one-hot dispatch and
+    combine over all experts, ``models/moe.py`` ``_experts_onehot``) on
+    the card: a 1 x 64 prefill through placed parameters on a (1, 1)
+    mesh against the plain prefill on the same parameters (the scatter into
+    the experts that hold a token). deepseek-v2-236b's and arctic-480b's
+    reduced configs in float32: the routing equal, the logits and every
+    float32 cache leaf within rel ``LM_MESH_MOE["f32_rel"]``, a bf16 leaf
+    equal but for values rounded to the other neighbour (``bf16_flips``,
+    counted). deepseek-v2-236b's
+    widths on 2 of 60 layers (``lm_serve_moe``'s cell), bf16 over float32
+    masters drawn from a seeded generator: the routing equal but for named
+    near ties, the logits within ``LM_MESH_MOE["bf16_rel"]``, or
+    ``LM_FLIP_REL`` when a route moved. Prints the seconds and the peak
+    memory."""
+    from repro_torch.tree import tree_keys
+
+    c = LM_MESH_MOE
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for arch in c["archs"]:
+        cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+        params = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(c["seed"]),
+                                "cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (1, c["prompt"]), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(c["seed"]))
+        r = mesh_prefill(tr, cfg, params, tokens)
+        want = tree_keys(r["cache"][1])
+        cache_rel, flips = 0.0, 0
+        for k, t in tree_keys(r["cache"][0]).items():
+            if t.dtype == torch.bfloat16:  # a value may round to the other neighbour
+                n, explained = bf16_flips(t, want[k])
+                require(explained, f"lm_mesh_moe {arch}: cache {k} differs past a rounding")
+                flips += n
+            else:
+                cache_rel = max(cache_rel, rel_err(t, want[k]))
+        logits_rel = rel_err(*r["logits"])
+        require(not r["moves"], f"lm_mesh_moe {arch}: routes moved {r['moves'][:4]}")
+        require(logits_rel <= c["f32_rel"] and cache_rel <= c["f32_rel"],
+                f"lm_mesh_moe {arch}: logits rel {logits_rel}, cache rel {cache_rel}")
+        out[f"{arch}_smoke_f32"] = {"logits_rel": logits_rel, "cache_rel": cache_rel,
+                                    "cache_bf16_flips": flips, "mesh_prefill_s": r["seconds"]}
+        del params, r
+
+    cell = next(x for x in LM_CELLS if x.phase == "lm_serve_moe")
+    cfg = cell.config(configs)
+    masters = tr.init_params(cfg, torch.Generator(device="cuda").manual_seed(LM_SEED), "cuda")
+    weights = tr.serving_params(masters, cfg)
+    del masters
+    tokens = torch.randint(0, cfg.vocab_size, (1, c["prompt"]), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(c["seed"]))
+    r = mesh_prefill(tr, cfg, weights, tokens)
+    del weights
+    logits_rel = rel_err(*r["logits"])
+    moved = bool(r["moves"])
+    finite = bool(torch.isfinite(r["logits"][0]).all())
+    require(finite, "lm_mesh_moe: a non-finite logit on the mesh")
+    require(all(m["near_tie"] for m in r["moves"]),
+            f"lm_mesh_moe: a route moved off a near tie: {r['moves'][:4]}")
+    tol = LM_FLIP_REL if moved else c["bf16_rel"]
+    require(logits_rel <= tol, f"lm_mesh_moe: bf16 logits rel {logits_rel} (routes moved: {moved})")
+    out[f"{cfg.name}_{cfg.num_layers}_layers_bf16"] = {
+        "logits_rel": logits_rel, "tolerance": tol,
+        "route_moves": r["moves"], "mesh_prefill_s": r["seconds"]}
+    emit({"phase": "lm_mesh_moe", "prompt": c["prompt"], "mesh": [1, 1], "backend": "nccl",
+          **out, "peak_gbytes": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+
+
+QUICKSTART_REL = 1e-5  # its comparisons on the card, as the port's tests hold those paths
+
+
+def phase_quickstart(quickstart, ops) -> dict:
+    """``repro_torch.examples.quickstart.main`` on the card (its default
+    device), in a temporary working directory, the launch
+    counts set to 0 just before it and read just after: the margin,
+    gradient, feature-screen and sample-sweep kernels each launched.
+    Checks its comparisons within ``QUICKSTART_REL`` (max |a - b| / max(|b|,
+    1)): the reduced against the full solve's objective, the out-of-core
+    path against the in-core one, server job 0 against its sequential scan
+    path; every objective finite. Prints the scan engines' paths against
+    the host path (the default stop rule's fp32 jitter, up to ~8e-6, as
+    the reference's own engines). Returns the launches."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = quickstart.main([])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        finally:
+            os.chdir(cwd)
+    names = ("margin_obj", "hinge_grad", "screen_bounds", "sample_surplus")
+    require(all(launches.get(k, 0) > 0 for k in names),
+            f"quickstart: a kernel of its paths was never launched: {launches}")
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1.0)))
+
+    path = out["path"]
+    checks = {"reduced_vs_full": rel(out["obj_reduced"], out["obj_full"]),
+              "out_of_core_vs_in_core": rel(out["out_of_core"].objectives,
+                                            out["in_core"].objectives),
+              "server_job0_vs_sequential": rel(out["server_job0"].objectives,
+                                               out["server_seq0"].objectives)}
+    require(all(v <= QUICKSTART_REL for v in checks.values()), f"quickstart: {checks}")
+    # the engines at the default stop rule: fp32 stop-rule jitter, printed only
+    engines = {"scan_vs_host": rel(out["scan"].objectives, path.objectives),
+               "compact_vs_host": rel(out["compact"].objectives, path.objectives)}
+    results = [path, out["scan"], out["compact"], out["dynamic"], out["out_of_core"],
+               out["in_core"], out["server_job0"], *out["rules"].values()]
+    require(all(bool(np.all(np.isfinite(r.objectives))) for r in results),
+            "quickstart: a non-finite objective")
+    emit({"phase": "quickstart", "wall_s": wall, "lambda_max": out["lambda_max"],
+          "kept_at_0.7": int(out["keep"].sum()), "checks": checks, "engines": engines,
+          "tolerance": QUICKSTART_REL, "launches": {k: launches.get(k, 0) for k in names},
+          "server": {k: out["server"].last_serve[k]
+                     for k in ("jobs_per_s", "slot_occupancy", "programs", "hits",
+                               "retraces")}})
+    return launches
+
+
 def phase_lm_train_resume(configs, steps_mod, train_mod) -> None:
     """The trainer ``train()`` on mamba2-130m whole, on the card, 8 x 512
     tokens: 40 steps uninterrupted (checkpoints every 20), and 20 steps then
@@ -4583,7 +4800,7 @@ def main() -> int:
     from repro_torch.launch import serve as lm_serve
     from repro_torch.launch import steps as lm_steps
     from repro_torch.launch import train as lm_train
-    from repro_torch.examples import sparse_probe
+    from repro_torch.examples import quickstart, sparse_probe
     from repro_torch.models import transformer as tr
     from repro_torch.obs import trace as obs_trace
     import repro_torch.sparse as sparse
@@ -4727,8 +4944,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_lm_train_resume(configs, lm_steps, lm_train)
+    phase_lm_mesh_moe(configs, tr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    quickstart_launches = phase_quickstart(quickstart, ops)
     for row in rows:
         row["launches_sparse_probe"] = int(probe_launches.get(row["name"], 0))
+        row["launches_quickstart"] = int(quickstart_launches.get(row["name"], 0))
 
     emit({"phase": "total", "seconds": time.perf_counter() - T_START})
     print(json.dumps({"kernels": rows, "not_ported": []}), flush=True)

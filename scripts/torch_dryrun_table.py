@@ -9,9 +9,11 @@ each rank's argument bytes in GB (1e9 B) on (16, 16) / (2, 16, 16), a
 ``*`` where they exceed 80 GB (one H100's memory; arguments alone, no
 activation or workspace), a ``†`` where that mesh's traced step did not
 run (the record's ``step_error``), ``skip`` for a documented skip cell.
-Then the count of
-records, skips and steps that ran. These are arithmetic of the
-placements, not a reading of any device.
+Then a second table of the same cells, each traced step's seconds on
+(16, 16) / (2, 16, 16) (the record's ``step_s``: DTensor's dispatch and
+planning on this CPU, no device's), and the count of records, skips and
+steps that ran. The bytes are arithmetic of the placements, not a reading
+of any device.
 """
 
 from __future__ import annotations
@@ -55,6 +57,21 @@ def main(argv=None) -> int:
                 gb.append(f"{b / 1e9:.3g}" + ("*" if b > LIMIT else "") + ("" if stepped else "†"))
                 ran += stepped
             cells.append(" / ".join(gb))
+        print(f"| {arch} | " + " | ".join(cells) + " |")
+    print("\n| arch | " + " | ".join(f"{sh} s" for sh in SHAPES) + " |")
+    print("|---|" + "---|" * len(SHAPES))
+    for arch in archs:
+        cells = []
+        for shape in SHAPES:
+            rs = [recs.get((arch, shape, m)) for m in MESHES]
+            if any(r is None for r in rs):
+                cells.append("missing")
+            elif "skipped" in rs[0]:
+                cells.append("skip")
+            else:
+                cells.append(" / ".join(f"{r['step_s']:.0f}" + ("" if r.get("collectives")
+                                                                 is not None else "†")
+                                        for r in rs))
         print(f"| {arch} | " + " | ".join(cells) + " |")
     print(f"\n{len(recs)} records, {skips} skips, {ran} traced steps ran")
     return 0

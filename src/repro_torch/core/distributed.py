@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
 from ..kernels.ops import sample_finalize_op, sample_partial_op, sample_surplus_op
 from .dual import bias_at_lambda_max_sharded
 from .screening import SAFE_TAU, _scalar, shared_scalars_from_stats
@@ -390,7 +391,7 @@ def _rank_main(rank: int, fn, model: int, data: int, backend: str, device: str,
 
 
 def run_grid(fn, model: int, data: int, arrays: Optional[dict] = None,
-             args: tuple = (), backend: str = "gloo", device: str = "cpu",
+             args: tuple = (), backend: str = "gloo", device: str = "cuda",
              timeout: float = 600.0) -> list:
     """Runs ``fn(grid, arrays, *args)`` on the ``model * data`` ranks of a
     new grid, spawned processes (``torch.multiprocessing``) that meet
@@ -402,11 +403,14 @@ def run_grid(fn, model: int, data: int, arrays: Optional[dict] = None,
     memory-mapped (``np.load(mmap_mode="r")``) and copies its block.
     ``fn`` must be a module-level function. ``backend`` is ``"gloo"`` (CPU
     tensors, or ranks sharing one GPU) or ``"nccl"`` (a GPU per rank).
+    ``device`` is the ranks' (the card unless ``"cpu"`` is asked for; it
+    raises without one, as every entry point does).
     CUDA ranks load the kernel library the caller built (call
     ``kernels.build.library()`` first); they do not build it. A rank that
     raises fails the call; so does one still running after ``timeout``
     seconds (all ranks are then killed). Each rank runs its thread pools
     (torch's, OpenMP's, BLAS's) on one thread (:data:`RANK_THREAD_ENV`)."""
+    device = resolve_device(device).type
     world = model * data
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}

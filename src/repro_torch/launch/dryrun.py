@@ -104,14 +104,16 @@ def _nbytes(out) -> int:
     return 0
 
 
-def step_counter():
+def step_counter(mesh=None):
     """A ``CommDebugMode`` that keeps ``stats``, ``{name: {"count",
     "bytes"}}`` under :data:`COLLECTIVES` (the bytes of each collective's
     result: the reference's ``collective_stats`` record; a collective of
     another kind under its own op name), ``comm_counts`` as
-    ``CommDebugMode.get_comm_counts`` reads them, and ``flops``, each
-    rank's. As ``CommDebugMode`` does, it lets DTensor dispatch first and
-    sees the local operations and collectives that DTensor issues; it
+    ``CommDebugMode.get_comm_counts`` reads them, ``flops``, each rank's,
+    and ``axes``, ``{axis: {name: count}}`` by the ``mesh`` axis whose
+    group ran the collective (empty without a ``mesh``). As
+    ``CommDebugMode`` does, it lets DTensor dispatch first and sees the
+    local operations and collectives that DTensor issues; it
     counts the flops of those by ``FlopCounterMode``'s per-operator
     formulas (``FlopCounterMode`` itself sees each DTensor operation at its
     global shapes). It keeps no per-operation log: ``CommDebugMode``'s own
@@ -122,12 +124,17 @@ def step_counter():
     from torch.utils.flop_counter import flop_registry
 
     names = _collective_names()
+    groups = {}
+    if mesh is not None:
+        for axis in mesh.mesh_dim_names:
+            groups[mesh.get_group(axis).group_name] = axis
 
     class StepCounter(CommDebugMode):
         def __init__(self):
             super().__init__()
             self.stats = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
             self.flops = 0
+            self.axes = {}
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
@@ -145,9 +152,20 @@ def step_counter():
                                             {"count": 0, "bytes": 0})
                 rec["count"] += 1
                 rec["bytes"] += _nbytes(out)
+                axis = _group_axis(args, groups)
+                if axis is not None:
+                    by = self.axes.setdefault(axis, {})
+                    name = names.get(packet, str(packet))
+                    by[name] = by.get(name, 0) + 1
             return out
 
     return StepCounter()
+
+
+def _group_axis(args, groups: dict):
+    """The mesh axis of a functional collective's group (its last string
+    argument is the group's name), or None for a group of no one axis."""
+    return groups.get(next((a for a in reversed(args) if isinstance(a, str)), None))
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +292,7 @@ def trace_step(cell: Cell, mesh, ambient: bool = True) -> dict:
     operation)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    counter = step_counter()
+    counter = step_counter(mesh)
     t0 = time.perf_counter()
     try:
         with _budget(STEP_BUDGET_S), \
@@ -287,7 +305,7 @@ def trace_step(cell: Cell, mesh, ambient: bool = True) -> dict:
     stats = counter.stats
     return {"collectives": stats,
             "collective_bytes_total": int(sum(c["bytes"] for c in stats.values())),
-            "flops": float(counter.flops),
+            "flops": float(counter.flops), "axes": counter.axes,
             "step_s": time.perf_counter() - t0}
 
 

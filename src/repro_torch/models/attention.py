@@ -18,10 +18,13 @@ and the port does the same.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..tree import is_distributed
+from . import sharding
 from .layers import apply_rope, dense_init
 from .sharding import logical_constraint as _lc
 from .sharding import model_axis_size
@@ -74,6 +77,19 @@ def split_heads(t, n, hd):
     return t.reshape(*t.shape[:-1], n, hd)
 
 
+def merge_heads(t):
+    """(..., n, hd) -> (..., n * hd), :func:`split_heads` undone. Under a
+    model axis that n does not divide, the merged axis is held whole, and
+    so is its gradient: the product after it would return that gradient
+    sharded on the merged axis, which DTensor cannot split into the heads."""
+    n = t.shape[-2]
+    t = t.reshape(*t.shape[:-2], n * t.shape[-1])
+    tp = model_axis_size()
+    if tp and n % tp:
+        t = _lc(t, *(["batch"] + [None] * (t.ndim - 1)))
+    return t
+
+
 def _grouped(q, G):
     """q (B, S, H, hd) as the grouped layout reads it. Under a model axis
     that G does not divide, a head axis sharded on it has no placement once
@@ -102,8 +118,33 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk,
     dk may differ from dv (MLA concatenates rope dims into q/k only).
     ``probs_bf16`` (taken where H == G, see the module's docstring): p and v
     rounded to bf16, their products summed in float32. Returns (B, Sq, H,
-    dv) in q's dtype.
+    dv) in q's dtype. DTensor operands run :func:`_sdpa_local` on each
+    rank's shards (:func:`_sdpa_on_mesh`).
     """
+    kw = dict(causal=causal, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
+              probs_bf16=probs_bf16)
+    if is_distributed(q):
+        return _sdpa_on_mesh(q, k, v, q_pos, k_pos, **kw)
+    return _sdpa_local(q, k, v, q_pos, k_pos, **kw)
+
+
+def _sdpa_on_mesh(q, k, v, q_pos, k_pos, **kw):
+    """:func:`_sdpa_local` of DTensor operands on each rank's own shards
+    (``sharding.on_shards``): the batch on the batch axes, the KV groups
+    (and their query heads) on the model axis where the groups divide it,
+    else every head whole on each rank, as :func:`_grouped` places q."""
+    mesh = q.device_mesh
+    heads = "heads" if k.shape[2] % sharding.mesh_sizes(mesh).get("model", 1) == 0 else None
+    qkv = ("batch", None, heads, None)
+    return sharding.on_shards(
+        functools.partial(_sdpa_local, **kw), (q, k, v, q_pos, k_pos),
+        (qkv, qkv, qkv, ("batch", None), ("batch", None)),
+        sharding.role_placements(qkv, q.shape, mesh))
+
+
+def _sdpa_local(q, k, v, q_pos, k_pos, *, causal, window, q_chunk, kv_chunk,
+                probs_bf16=False):
+    """:func:`_sdpa_chunked` of plain tensors."""
     B, Sq, H, hd = q.shape
     _, Sk, G, _ = k.shape
     dv = v.shape[-1]
@@ -177,8 +218,7 @@ def attention_forward(params, x, cfg, positions, *, act_dtype=torch.bfloat16):
     out = _sdpa_chunked(q, k, v, positions, positions, causal=True,
                         window=cfg.attn_window, q_chunk=cfg.blockwise_q,
                         kv_chunk=cfg.blockwise_kv, probs_bf16=cfg.attn_probs_bf16)
-    B, S = x.shape[:2]
-    out = out.reshape(B, S, -1) @ params["wo"].to(act_dtype)
+    out = merge_heads(out) @ params["wo"].to(act_dtype)
     return out, (k, v)
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .attention import NEG_INF, _inv_sqrt, _sdpa_chunked, blend_write
+from .attention import NEG_INF, _inv_sqrt, _sdpa_chunked, blend_write, merge_heads
 from .layers import apply_rope, dense_init
 
 
@@ -57,7 +57,7 @@ def mla_forward(params, x, cfg, positions, act_dtype=torch.bfloat16):
     k = torch.cat([k_nope, k_rope.expand(B, S, H, R)], dim=-1)
     out = _sdpa_chunked(q, k, v, positions, positions, causal=True, window=0,
                         q_chunk=cfg.blockwise_q, kv_chunk=cfg.blockwise_kv)
-    out = out.reshape(B, S, H * hd) @ params["wo"].to(act_dtype)
+    out = merge_heads(out) @ params["wo"].to(act_dtype)
     return out, (c_kv, k_rope[:, :, 0, :])
 
 

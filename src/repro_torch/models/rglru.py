@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..tree import is_distributed
+from . import sharding
 from .layers import dense_init
 from .sharding import logical_constraint as _lc
 from .ssm import causal_conv, softplus
@@ -104,8 +106,15 @@ class _LinearScan(torch.autograd.Function):
 def linear_scan(log_a, x, chunk=SCAN_CHUNK):
     """h_t = exp(log_a_t) h_{t-1} + x_t from h_{-1} = 0, along axis 1 of
     (B, S, R) float32 tensors, in chunks of ``chunk`` tokens; differentiable
-    (its adjoint is the reverse scan, :class:`_LinearScan`)."""
-    return _LinearScan.apply(log_a, x, chunk)
+    (its adjoint is the reverse scan, :class:`_LinearScan`). DTensor
+    operands run on each rank's shards (``sharding.on_shards``): the batch
+    on the batch axes, R on the model axis where it divides it."""
+    if not is_distributed(x):
+        return _LinearScan.apply(log_a, x, chunk)
+    roles = ("batch", None, "ffn")
+    return sharding.on_shards(lambda a, b: _LinearScan.apply(a, b, chunk), (log_a, x),
+                              (roles, roles), sharding.role_placements(roles, x.shape,
+                                                                       x.device_mesh))
 
 
 def rglru_forward(params, x, cfg, conv_state=None, h_state=None, act_dtype=torch.bfloat16):

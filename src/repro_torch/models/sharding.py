@@ -127,6 +127,78 @@ def _role_spec(roles, shape, mesh) -> tuple:
     return tuple(spec)
 
 
+def role_placements(roles, shape, mesh) -> tuple:
+    """The placements on ``mesh`` of a tensor of ``shape`` whose dimensions
+    have the named ``roles`` (those :func:`logical_constraint` gives it)."""
+    return to_placements(_role_spec(roles, shape, mesh), mesh)
+
+
+def on_shards(fn, args, in_roles, out_placements):
+    """``fn(*args)`` on each rank's own shards (``local_map``) when an
+    argument is a DTensor, else ``fn(*args)`` itself. Each tensor argument
+    is placed by its ``in_roles`` entry (:func:`role_placements`;
+    redistributed where it differs, a plain tensor taken as the same on
+    every rank); an argument that is no tensor has None there. The outputs
+    are DTensors of ``out_placements`` (one tuple of placements, or a list
+    of them for several outputs), of the local results' sizes times their
+    shards.
+
+    The port's heavy loops (the attention's chunks, the SSD chunks, the
+    RG-LRU scan, the MoE's expert products) run so under a mesh: their
+    operations are plain ones on each rank, which DTensor neither
+    dispatches nor plans. DTensor can take minutes to plan one product on
+    a 3-D mesh (one whose batch joins dimensions sharded on the batch axes
+    and the model axis, a strided shard), and a 32k-token prefill runs
+    ~10^5 such operations a layer. The values are the plain function's on
+    each shard.
+
+    Gradients: an argument replicated on a mesh axis where an output is
+    not (the MoE's tokens against its expert buffers, the expert weights
+    against the batch, the SSD's ``A``, ``B`` and ``C`` against the batch
+    or the heads) gets from each rank only that rank's part of its
+    gradient. It is marked ``Partial()`` there (:func:`_grad_placements`),
+    and the redistribution into its roles' placements, made for every
+    argument, sums it in the backward pass into the argument's own
+    placement, as DTensor's dispatch of the same products would."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    meshes = [a.device_mesh for a in args if isinstance(a, DTensor)]
+    if not meshes:
+        return fn(*args)
+    mesh = meshes[0]
+    outs = [out_placements] if isinstance(out_placements, tuple) else list(out_placements)
+    placed, places, grads = [], [], []
+    for a, roles in zip(args, in_roles):
+        if isinstance(a, torch.Tensor):
+            if not isinstance(a, DTensor):
+                a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            p = role_placements(roles, a.shape, mesh)
+            a = a.redistribute(mesh, p)
+            places.append(p)
+            grads.append(_grad_placements(p, outs))
+        else:
+            places.append(None)
+            grads.append(None)
+        placed.append(a)
+    out = (list(out_placements) if isinstance(out_placements, tuple)
+           else tuple(list(p) for p in out_placements))
+    return local_map(fn, out_placements=out, in_placements=tuple(places),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(*placed)
+
+
+def _grad_placements(placements, outs) -> tuple:
+    """The placements of the gradient that ``fn`` computes on one rank for
+    an argument of ``placements``, given its outputs' ``outs``: a partial
+    sum (``Partial()``) on each mesh axis where the argument is replicated
+    and an output is not, else the argument's own."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if p.is_replicate() and any(not o[i].is_replicate() for o in outs)
+                 else p for i, p in enumerate(placements))
+
+
 def logical_constraint(x, *roles):
     """``x`` placed by its dimensions' roles: a DTensor under an ambient mesh
     with a "model" axis is redistributed, and so is its gradient in the
@@ -141,7 +213,7 @@ def logical_constraint(x, *roles):
         return x
     if len(roles) != x.ndim:
         raise ValueError(f"{len(roles)} roles {roles} for a tensor of shape {tuple(x.shape)}")
-    placements = to_placements(_role_spec(roles, x.shape, mesh), x.device_mesh)
+    placements = role_placements(roles, x.shape, x.device_mesh)
     if not x.requires_grad:
         return x if tuple(x.placements) == placements else x.redistribute(
             x.device_mesh, placements)

@@ -17,8 +17,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..tree import is_distributed
+from . import sharding
 from .layers import dense_init, rmsnorm
 from .sharding import logical_constraint as _lc
+from .sharding import model_axis_size
 
 
 def softplus(x):
@@ -78,7 +81,26 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk, init_state=None):
     xh: (B,S,nh,P) inputs; dt: (B,S,nh) softplus'd step; A: (nh,) < 0;
     Bm/Cm: (B,S,N) shared across heads (n_groups=1).
     Returns (y: (B,S,nh,P) float32, final_state: (B,nh,P,N) float32).
+    DTensor operands run on each rank's shards (``sharding.on_shards``):
+    the batch on the batch axes, the heads on the model axis where they
+    divide it, as the state's cache rule places them.
     """
+    if not is_distributed(xh):
+        return _ssd_local(xh, dt, A, Bm, Cm, chunk, init_state)
+    mesh = xh.device_mesh
+    Bsz, _, nh, P = xh.shape
+    heads = "heads" if nh % sharding.mesh_sizes(mesh).get("model", 1) == 0 else None
+    state = ("batch", heads, None, None)
+    return sharding.on_shards(
+        lambda *a: _ssd_local(*a[:5], chunk, a[5]), (xh, dt, A, Bm, Cm, init_state),
+        (("batch", None, heads, None), ("batch", None, heads), (heads,),
+         ("batch", None, None), ("batch", None, None), state),
+        [sharding.role_placements(("batch", None, heads, None), xh.shape, mesh),
+         sharding.role_placements(state, (Bsz, nh, P, Bm.shape[-1]), mesh)])
+
+
+def _ssd_local(xh, dt, A, Bm, Cm, chunk, init_state=None):
+    """:func:`ssd_chunked` of plain tensors."""
     Bsz, S, nh, P = xh.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -161,6 +183,11 @@ def ssm_decode(params, x, cfg, conv_state, ssd_state, act_dtype=torch.bfloat16):
     Cm = xbc[:, 0, d_in + N:]
 
     dt = softplus(dt[:, 0].float() + params["dt_bias"])                  # (B,nh)
+    tp = model_axis_size()
+    if tp and nh % tp:
+        # heads that do not divide a model axis stay whole, as the state's
+        # cache rule keeps them: DTensor cannot flatten unevenly sharded heads
+        dt = _lc(dt, "batch", None)
     a = torch.exp(dt * (-torch.exp(params["A_log"]))[None, :])            # (B,nh)
     upd = torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xh.float())
     new_state = ssd_state.float() * a[:, :, None, None] + upd

@@ -188,6 +188,16 @@ def _fill(dst, src):
     dst[:, :min(S, W)].copy_(src[:, :W])
 
 
+def _residual(x, out):
+    """``x + out``, the residual stream, placed whole on each rank but for
+    its batch, as at a unit's start. (Under a mesh a sum from the model
+    axis would otherwise come back sharded on the sequence, and the next
+    products would flatten a batch and a sequence sharded on different
+    axes, whose placements DTensor takes minutes an operation to plan on a
+    3-D mesh.) On plain tensors it is the sum itself."""
+    return _lc(x + out, "batch", None, None)
+
+
 def _ffn(p, cfg, x, act):
     """The block's FFN half. Returns ``(x, aux)``: the MoE's load-balance
     loss, None without an MoE (the reference adds a float32 zero)."""
@@ -195,10 +205,10 @@ def _ffn(p, cfg, x, act):
     if "moe" in p:
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
         out2, aux = moe_lib.moe_forward(p["moe"], h2, cfg, act_dtype=act)
-        x = x + out2
+        x = _residual(x, out2)
     elif "mlp" in p:
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h2, cfg.gated_mlp, act_dtype=act)
+        x = _residual(x, mlp(p["mlp"], h2, cfg.gated_mlp, act_dtype=act))
     return x, aux
 
 
@@ -223,12 +233,12 @@ def _block_full(p, cfg, kind, x, positions, enc_out, slot_cache):
         new = {"conv": conv, "h": hstate}
     else:
         raise ValueError(kind)
-    x = x + out
+    x = _residual(x, out)
 
     if "cross" in p and enc_out is not None:
         hx = rmsnorm(p["ln_x"], x, cfg.norm_eps)
         cx, (new["ck"], new["cv"]) = _cross_attention(p["cross"], hx, enc_out, cfg, act)
-        x = x + cx
+        x = _residual(x, cx)
     if slot_cache is not None:
         _write_slot(slot_cache, new)
     return _ffn(p, cfg, x, act)
@@ -299,7 +309,7 @@ def _cross_attention(p, x, enc_out, cfg, act):
     kp = torch.arange(Se, device=x.device).expand(B, Se)
     out = attn_lib._sdpa_chunked(q, k, v, qp, kp, causal=False, window=0,
                                  q_chunk=cfg.blockwise_q, kv_chunk=cfg.blockwise_kv)
-    return out.reshape(B, S, H * hd) @ p["wo"].to(act), (k, v)
+    return attn_lib.merge_heads(out) @ p["wo"].to(act), (k, v)
 
 
 def _cross_decode(p, x, ck, cv, cfg, act):
@@ -409,9 +419,9 @@ def _encode(params, cfg, enc_embeds):
         q, k, v = attn_lib._project_qkv(p["mix"], h, cfg, positions, act)
         out = attn_lib._sdpa_chunked(q, k, v, positions, positions, causal=False, window=0,
                                      q_chunk=cfg.blockwise_q, kv_chunk=cfg.blockwise_kv)
-        x = x + out.reshape(B, S, -1) @ p["mix"]["wo"].to(act)
+        x = _residual(x, attn_lib.merge_heads(out) @ p["mix"]["wo"].to(act))
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h2, cfg.gated_mlp, act_dtype=act)
+        x = _residual(x, mlp(p["mlp"], h2, cfg.gated_mlp, act_dtype=act))
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 

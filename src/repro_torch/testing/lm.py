@@ -6,6 +6,13 @@ from __future__ import annotations
 
 import torch
 
+from ..tree import is_distributed
+
+
+def _whole(t):
+    """``t``, or a DTensor's gathered whole."""
+    return t.full_tensor() if is_distributed(t) else t
+
 
 class StepRecorder:
     """Wraps a ``BatchedServer``'s decode step and prefill: each step's
@@ -41,7 +48,8 @@ class RouteRecorder:
     size, the tokens, the (token, choice) pairs kept and dropped, and the
     experts that hold a kept one (those whose weights the call reads);
     with ``keep``, also each token's experts (``top_i``, (BN, g, k)) and
-    router logits (``logits``, (BN, g, E) float32), on the host."""
+    router logits (``logits``, (BN, g, E) float32), on the host. A call on
+    a mesh (DTensor operands) is recorded from its gathered whole."""
 
     def __init__(self, keep: bool = False):
         self.keep, self.calls = keep, []
@@ -53,13 +61,13 @@ class RouteRecorder:
 
         def route(params, xg, cfg, act_dtype):
             r = self._route(params, xg, cfg, act_dtype)
-            fits = r.fits
+            fits, top_i = _whole(r.fits), _whole(r.top_i)
             call = {"group": xg.shape[1], "tokens": xg.shape[0] * xg.shape[1],
                     "kept": int(fits.sum()), "dropped": int((~fits).sum()),
-                    "experts": int(torch.unique(r.top_i[fits]).numel())}
+                    "experts": int(torch.unique(top_i[fits]).numel())}
             if self.keep:
-                call["top_i"] = r.top_i.cpu()
-                call["logits"] = (xg @ params["router"].to(act_dtype)).float().cpu()
+                call["top_i"] = top_i.cpu()
+                call["logits"] = _whole(xg @ params["router"].to(act_dtype)).float().cpu()
             self.calls.append(call)
             return r
         moe.route = route

@@ -332,7 +332,7 @@ def test_grid_checkpoint_resumes_on_one_device(ds, L, tmp_path):
     cfg = dict(rules="feature_vi", L=L, dir=str(tmp_path / "ck"), stop=STOP,
                max_iters=FIXED["max_iters"], **PATH)
     stops = D.run_grid(interrupted_path, 2, 2, {"X": ds.X, "y": ds.y}, (cfg,),
-                       timeout=240.0)
+                       device="cpu", timeout=240.0)
     assert stops == [STOP] * 4
     res = PathDriver("feature_vi", reduce="mask", L=L, ckpt_dir=cfg["dir"],
                      device="cpu", **FIXED).run(ds.X, ds.y, **PATH)

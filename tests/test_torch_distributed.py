@@ -160,7 +160,8 @@ def grids(ds, cfg, reference_run):
     out = {(1, 1): [suite(D.svm_grid(1, 1), arrays, cfg)]}
     for M, Dd in GRIDS:
         c = dict(cfg, host_lanes=HOST_LANES.get((M, Dd), {}))
-        out[(M, Dd)] = D.run_grid(suite, M, Dd, arrays, (c,), timeout=SPAWN_TIMEOUT)
+        out[(M, Dd)] = D.run_grid(suite, M, Dd, arrays, (c,), device="cpu",
+                                   timeout=SPAWN_TIMEOUT)
     return out
 
 
@@ -497,6 +498,17 @@ def test_rejected_configurations(ds, tmp_path, monkeypatch):
         with pytest.raises(SystemExit):
             train_main(["--m", "64", "--n", "32", "--model", "2", "--data", "2",
                         "--device", "cpu", *argv])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the default device is there")
+def test_run_grid_defaults_to_the_card_and_raises_without_one(tmp_path):
+    """``run_grid`` runs its ranks on the card unless ``device="cpu"`` is
+    asked for, as every entry point does: without CUDA the default raises
+    before any rank is spawned."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        D.run_grid(suite, 1, 1, {"x": np.zeros(2, np.float32)})
+    with pytest.raises(RuntimeError, match="is_available"):
+        D.run_grid(suite, 2, 2, device="cuda")
 
 
 @pytest.mark.parametrize("engine", ["host", "scan"])

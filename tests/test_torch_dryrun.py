@@ -5,10 +5,12 @@
 * ``logical_constraint`` returns the very object it was given on a plain
   tensor and whenever no mesh is set, so the models' plain-tensor results
   are untouched (the LM test files hold them bit for bit).
-* The dense family's steps (qwen2.5-3b SMOKE, 4 x 64 tokens) run on
+* The SMOKE steps (4 x 64 tokens) of the dense family (qwen2.5-3b), the
+  MoE ones (deepseek-v2-236b, arctic-480b) and the SSM (mamba2-130m) run on
   DTensor over a fake (2, 2) mesh: train, prefill and decode, each with its
-  collectives counted (a nonzero all-reduce or all-gather count) and its
-  per-rank flops.
+  collectives counted (a nonzero all-reduce or all-gather count), each
+  collective under the mesh axis whose group ran it (an MoE's on the
+  experts' model axis among them), and its per-rank flops.
 * A step's error names a budget that ran out inside DTensor's planning
   as the budget (DTensor wraps it as a failed sharding propagation).
 * A cache placed on a fake (2, 2) mesh (``sharding.cache_shardings``,
@@ -78,8 +80,13 @@ def test_fake_world_is_destroyed_on_an_error():
         assert mesh.mesh_dim_names == ("pod", "data", "model") and mesh.shape == (2, 16, 16)
 
 
-def test_dense_smoke_steps_run_on_a_fake_2x2_mesh():
-    cfg = get_smoke_config("qwen2.5-3b")
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-236b", "arctic-480b",
+                                  "mamba2-130m"])
+def test_dense_smoke_steps_run_on_a_fake_2x2_mesh(arch):
+    """The SMOKE steps of the dense family and of the MoE and SSM ones: the
+    MoE's expert products on the model axis (the experts' axis) count a
+    collective there."""
+    cfg = get_smoke_config(arch)
     with fake_world(4):
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
         for kind in ("prefill", "decode", "train"):
@@ -93,6 +100,10 @@ def test_dense_smoke_steps_run_on_a_fake_2x2_mesh():
             assert c["all-reduce"]["count"] + c["all-gather"]["count"] > 0, (kind, c)
             assert out["collective_bytes_total"] == sum(v["bytes"] for v in c.values()) > 0
             assert out["flops"] > 0
+            assert sum(v["count"] for v in c.values()) == sum(
+                n for axis in out["axes"].values() for n in axis.values()), (kind, out["axes"])
+            if cfg.moe_num_experts:
+                assert sum(out["axes"]["model"].values()) > 0, (kind, out["axes"])
 
 
 def test_a_budget_that_runs_out_in_dtensors_planning_is_named_as_the_budget():

@@ -139,3 +139,52 @@ def test_unoccupied_experts_are_not_run(monkeypatch):
     ref_out, _ = ref_moe.moe_forward(ref_p, jnp.asarray(x), ref_cfg, act_dtype=jnp.float32)
     assert seen == [cfg.moe_top_k] * 3
     assert _rel(out, ref_out) <= TOL["float32"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b"])
+def test_mesh_path_matches_reference_on_a_1x1_mesh(arch, monkeypatch):
+    """On DTensor operands (a real (1, 1) gloo mesh, a world of one) the
+    layer takes the reference's one-hot dispatch and combine over all E
+    experts (``moe._experts_onehot``, not the scatter): float32 SMOKE
+    widths, the whole model's ``init_params`` carried across by
+    ``convert.lm_params_from_jax`` and placed by the parameter rules, two
+    64-token groups; ``out`` and ``aux`` within rel 1e-5 of the
+    reference's ``moe_forward``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro.models import transformer as ref_tr
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import sharding
+    from repro_torch.tree import tree_map
+
+    kw = dict(param_dtype="float32", dtype="float32")
+    cfg, ref_cfg = get_smoke_config(arch).replace(**kw), ref_smoke(arch).replace(**kw)
+    ref_params = ref_tr.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = lm_params_from_jax(jax.tree_util.tree_map(np.asarray, ref_params), cfg,
+                                device="cpu")
+    ref_p = jax.tree_util.tree_map(lambda a: a[0], ref_params["segments"][0]["s0"]["moe"])
+    x = np.random.default_rng(7).standard_normal((2, 128, cfg.d_model)).astype(np.float32)
+    ref_out, ref_aux = ref_moe.moe_forward(ref_p, jnp.asarray(x), ref_cfg,
+                                           act_dtype=jnp.float32)
+    ran = []
+    onehot, scatter = moe._experts_onehot, moe._experts_scatter
+    monkeypatch.setattr(moe, "_experts_onehot", lambda *a: ran.append("onehot") or onehot(*a))
+    monkeypatch.setattr(moe, "_experts_scatter", lambda *a: ran.append("scatter") or scatter(*a))
+    mesh = make_host_mesh(device="cpu")
+    try:
+        placed = sharding.param_shardings(params, mesh)
+        p = tree_map(lambda t: t[0], placed["segments"][0]["s0"]["moe"])
+        xd = distribute_tensor(torch.tensor(x), mesh,
+                               sharding.to_placements(("data", None, None), mesh),
+                               src_data_rank=None)
+        with sharding.set_mesh(mesh), implicit_replication():
+            out, aux = moe.moe_forward(p, xd, cfg, act_dtype=torch.float32)
+        out, aux = out.full_tensor(), aux.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    assert ran == ["onehot"]
+    assert _rel(out, ref_out) <= 1e-5
+    assert abs(float(aux) - float(ref_aux)) <= 1e-5 * abs(float(ref_aux))

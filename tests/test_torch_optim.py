@@ -187,7 +187,7 @@ def test_compressed_psum_on_two_gloo_ranks():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 300)).astype(np.float32)
     out = D.run_grid(compressed_psum_rank, 2, 1, {"x": x}, ({"seed": 11, "rounds": 6},),
-                     timeout=240.0)
+                     device="cpu", timeout=240.0)
     assert [o["rank"] for o in out] == [0, 1]
     a, b = out
     assert np.array_equal(a["means"], b["means"])
